@@ -6,16 +6,24 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
   1. toolchain: GPU name and power limit, torch, CUDA, nvcc, triton;
-  2. build: compile every kernel of the serving path from csrc/;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     at the serving path's shapes and at edge cases; kernel, plain and
-     bound times;
+  2. build: compile every kernel from csrc/ (one nvcc per source, all at
+     once), with ptxas's registers and spills;
+  3. kernels: each kernel (K1 forward, K2 stash forward, K3 adjoint)
+     against its plain PyTorch version on the card, at the main paths'
+     shapes and at edge cases; the autograd Function's gradients against
+     torch autograd of the plain loop; kernel, plain and bound times;
   4. serving: DepthPredictor at the full width of nyu_completion_500
      (ResNet-50 UNet, rgbd, 228x304, T=24) with seeded random weights,
      single-image requests and batches of 32; the kernel launch counts of
      that run; a profile of one batch (device time by kernel, idle share);
      the same model with the plain CSPN loop; a small model on the card
-     against the same model on the CPU.
+     against the same model on the CPU;
+  5. train: Trainer.train_step of the same configuration on synthetic data
+     at batch 32 (timed steps, the K2/K3 launch counts of that run, peak
+     memory, a profile of one step, the loss falling on a fixed batch),
+     Trainer.evaluate (K1), one step with the kernels against one with the
+     plain CSPN loop, and a small f32 model's train step on the card
+     against the CPU.
 Then a line with the kernel table and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
 """
@@ -32,9 +40,11 @@ import numpy as np
 import torch
 
 from cspn_monodepth_tpu_torch import DepthPredictor, get_config
+from cspn_monodepth_tpu_torch.data import pack_batch
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
-from cspn_monodepth_tpu_torch.ops import cspn_cuda
+from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
 from cspn_monodepth_tpu_torch.ops.cspn_ref import NORM_TYPES
+from cspn_monodepth_tpu_torch.train import Trainer
 
 # H100 SXM published peaks (NVIDIA data sheet, full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -46,12 +56,27 @@ KERNEL_TOL = 1e-5
 # The whole path, kernel vs plain CSPN on identical heads: T=24 iterations
 # of an expansive stencil amplify rounding.
 PATH_TOL = 1e-4
+# Gradients through the kernels (K2 forward, K3 adjoint) against torch
+# autograd of the plain loop: the reverse-mode sums of two programs.
+GRAD_TOL = 1e-4
+# A train step with the kernels vs the plain CSPN loop, identical weights,
+# batch and sparse map, cuDNN deterministic: the loss (a mean over the
+# batch) differs only by the CSPN's rounding.
+STEP_LOSS_TOL = 1e-5
 # Small f32 model on the card vs the CPU, TF32 off: convolution sums in
 # another order, then T=4 CSPN iterations.
 DEVICE_TOL = 1e-3
+# The same model's gradients with cuDNN's own f32 weight-gradient
+# algorithms (TF32 off): on the H100 the one it picks for the 5x5 decoder
+# convolutions lands 4.7e-3 from the CPU's gradient, where the card's own
+# CUDA convolutions land within 1e-3; held to 1e-2.
+CUDNN_WGRAD_TOL = 1e-2
 
 NYU_H, NYU_W = 228, 304
 SEED = 0
+TRAIN_BATCH = 32
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
 # Timed requests: p75 of 40 single-image requests has 10 samples above it.
 SINGLE_REQUESTS = 40
 BATCH_REQUESTS = 12
@@ -96,16 +121,37 @@ def cspn_problem(gen, b, h, w, *, sparse=True, strided=False):
     return guid, blur, sp
 
 
-def cspn_bound_ms(b, h, w, num_iters, sparse: bool):
-    """Least time for the function on this card: read the 8 guidance
-    planes, blur and sparse once, write the result once; 19 flop/px per
-    iteration plus 32 for the normalization."""
-    px = b * h * w
-    nbytes = 4 * px * (8 + 1 + int(sparse) + 1)
-    ops = px * (19 * num_iters + 32)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+def bound_ms(planes: int, px: int, ops: float):
+    """Least time on this card for work that moves `planes` f32 planes of
+    `px` pixels (each input read once, each output written once) and does
+    `ops` f32 operations: the larger of the two times, and which it is."""
+    t_bytes, t_ops = 4 * px * planes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+def cspn_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K1: read the 8 guidance planes, blur and sparse once, write the
+    result once; 19 flop/px per iteration plus 32 for the normalization."""
+    px = b * h * w
+    return bound_ms(8 + 1 + int(sparse) + 1, px, px * (19 * num_iters + 32))
+
+
+def stash_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K2: K1's planes plus the T stash planes written once."""
+    px = b * h * w
+    return bound_ms(8 + 1 + int(sparse) + 1 + num_iters, px,
+                    px * (19 * num_iters + 32))
+
+
+def bwd_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K3: read the 8 guidance planes, sparse, the cotangent and the T
+    stash planes once, write the 8 guidance gradients, d_blur and d_sparse
+    once; ~40 flop/px per iteration (the 9-tap gather and the 9 gate-sum
+    updates) plus ~80 for the normalizations and the chain rule."""
+    px = b * h * w
+    return bound_ms(8 + int(sparse) + 1 + num_iters + 8 + 1 + 1, px,
+                    px * (40 * num_iters + 80))
 
 
 def phase_toolchain() -> str:
@@ -127,16 +173,19 @@ def phase_toolchain() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    path = cspn_cuda.build()
+    paths = cspn_cuda.build()
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cspn_cuda.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", kernel="cspn_fwd", seconds=seconds, library=path.name,
-         ptxas=ptxas)
+    for name, path in paths.items():
+        ptxas = [ln.strip() for ln in
+                 cspn_cuda.build_log.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", source=f"csrc/{name}.cu", seconds=seconds,
+             library=path.name, ptxas=ptxas)
 
 
-def phase_kernels(gpu: str) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+def kernel_cases() -> list[dict]:
+    """B=2 228x304, T in {1, 24} x 3 norms x sparse on/off; 57x76; head
+    slices; batch 32."""
     cases = [dict(b=2, h=NYU_H, w=NYU_W, t=t, norm=n, sparse=s)
              for t in (1, 24) for n in NORM_TYPES for s in (True, False)]
     cases += [dict(b=1, h=57, w=76, t=24, norm=n, sparse=True)
@@ -146,7 +195,12 @@ def phase_kernels(gpu: str) -> dict:
                    sparse=True, strided=True),
               dict(b=32, h=NYU_H, w=NYU_W, t=24, norm="8sum_clamp",
                    sparse=True)]
-    for c in cases:
+    return cases
+
+
+def phase_kernels(gpu: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for c in kernel_cases():
         guid, blur, sp = cspn_problem(gen, c["b"], c["h"], c["w"],
                                       sparse=c["sparse"],
                                       strided=c.get("strided", False))
@@ -265,8 +319,10 @@ def device_profile(fn) -> dict:
 
 def kernel_class(name: str) -> str:
     """Coarse class of a device event by its name."""
-    if "cspn_fwd" in name:
+    if "cspn_" in name:
         return "cspn"
+    if "multi_tensor" in name or "foreach" in name:
+        return "optimizer"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy"
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
@@ -414,21 +470,353 @@ def phase_serving(gpu: str) -> tuple[int, float]:
     return launches, heads_abs
 
 
+def max_rel_or_zero(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max_rel, or 0 where both are exactly zero (d_sparse without a
+    sparse map; zero guidance under 8sum_abs); inf if only `want` is."""
+    if float(want.abs().max()) == 0.0:
+        return 0.0 if float(got.abs().max()) == 0.0 else float("inf")
+    return max_rel(got, want)
+
+
+def train_kernel_errors(guid, blur, sp, cot, kw) -> dict:
+    """K2 and K3 against their plain versions on the same inputs: the
+    largest max-relative error of each output (every stash plane on its
+    own), their largest absolute errors, and whether K2's output is K1's
+    bit for bit."""
+    out, stash = cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw)
+    k1 = cspn_cuda.cspn_fwd(guid, blur, sp, **kw)
+    grads = cspn_cuda.cspn_bwd(guid, sp, stash, cot, **kw)
+    want_out, want_stash = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp,
+                                                          **kw)
+    want_grads = cspn_cuda.cspn_bwd_plain(guid, sp, want_stash, cot, **kw)
+    torch.cuda.synchronize()
+    errs = {"out": max_rel(out, want_out),
+            "stash": max([max_rel(stash[:, t], want_stash[:, t])
+                          for t in range(stash.shape[1])], default=0.0)}
+    for name, got, want in zip(("d_guid", "d_blur", "d_sparse"), grads,
+                               want_grads):
+        errs[name] = max_rel_or_zero(got, want)
+    return dict(max_rel=errs, k2_equals_k1=bool(torch.equal(out, k1)),
+                k2_max_abs=max(float((out - want_out).abs().max()),
+                               float((stash - want_stash).abs().max())
+                               if stash.numel() else 0.0),
+                k3_max_abs=max(float((g - w).abs().max())
+                               for g, w in zip(grads, want_grads)))
+
+
+def phase_train_kernels(gpu: str) -> dict:
+    """K2 (stash forward) and K3 (adjoint) against their plain versions on
+    K1's case matrix plus zero guidance; the autograd Function's gradients
+    against torch autograd of the plain loop; K2/K3 times at batch 32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = kernel_cases() + [
+        dict(b=2, h=NYU_H, w=NYU_W, t=24, norm=n, sparse=True, zero=True)
+        for n in NORM_TYPES]
+    for c in cases:
+        guid, blur, sp = cspn_problem(gen, c["b"], c["h"], c["w"],
+                                      sparse=c["sparse"],
+                                      strided=c.get("strided", False))
+        if c.get("zero"):
+            guid = torch.zeros_like(guid)
+        cot = torch.randn(blur.shape, generator=gen, device="cuda")
+        r = train_kernel_errors(guid, blur, sp, cot,
+                                dict(num_iters=c["t"], norm_type=c["norm"]))
+        emit("train_kernel_case", kernels=["cspn_fwd_stash", "cspn_bwd"],
+             **c, **r, tol=KERNEL_TOL)
+        if not (max(r["max_rel"].values()) <= KERNEL_TOL
+                and r["k2_equals_k1"]):
+            raise AssertionError(f"K2/K3 disagree with their plain "
+                                 f"versions: {c} {r}")
+
+    # Gradients of every input through CSPNFunction (K2 + K3) against
+    # torch autograd of the plain loop, guidance and blur as head slices.
+    for c in (dict(b=2, h=NYU_H, w=NYU_W, t=24, norm="8sum_clamp",
+                   sparse=True),
+              dict(b=1, h=57, w=76, t=24, norm="8sum_abs", sparse=False)):
+        heads = torch.randn((c["b"], 9, c["h"], c["w"]), generator=gen,
+                            device="cuda")
+        heads[:, 0] = 0.5 + 9.0 * heads[:, 0].abs()
+        sp = None
+        if c["sparse"]:
+            keep = torch.rand(heads[:, 0].shape, generator=gen,
+                              device="cuda") < 0.01
+            sp = torch.where(keep, heads[:, 0] + 0.25,
+                             torch.zeros_like(heads[:, 0]))
+        cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
+        grads = {}
+        for impl in ("auto", "torch"):
+            h = heads.clone().requires_grad_()
+            s = None if sp is None else sp.clone().requires_grad_()
+            out = cspn_propagate(h[:, 1:], h[:, 0], s, num_iters=c["t"],
+                                 norm_type=c["norm"], impl=impl,
+                                 guidance_layout="NCHW")
+            inputs = [h] + ([s] if s is not None else [])
+            grads[impl] = torch.autograd.grad((out * cot).sum(), inputs)
+        errs = [max_rel(a, b) for a, b in zip(grads["auto"], grads["torch"])]
+        emit("function_grad_case", **c, max_rel=errs, tol=GRAD_TOL)
+        if not max(errs) <= GRAD_TOL:
+            raise AssertionError(f"CSPNFunction gradients vs torch autograd "
+                                 f"of the plain loop: {c} {errs}")
+
+    b, t, kw = TRAIN_BATCH, 24, dict(num_iters=24, norm_type="8sum_clamp")
+    guid, blur, sp = cspn_problem(gen, b, NYU_H, NYU_W, strided=True)
+    cot = torch.randn(blur.shape, generator=gen, device="cuda")
+    _, stash = cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw)
+    _, plain_stash = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw)
+    timing = {}
+    for name, fn, plain, bound in (
+            ("cspn_fwd_stash",
+             lambda: cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw),
+             lambda: cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw),
+             stash_bound_ms(b, NYU_H, NYU_W, t, True)),
+            ("cspn_bwd",
+             lambda: cspn_cuda.cspn_bwd(guid, sp, stash, cot, **kw),
+             lambda: cspn_cuda.cspn_bwd_plain(guid, sp, plain_stash, cot,
+                                              **kw),
+             bwd_bound_ms(b, NYU_H, NYU_W, t, True))):
+        ms = time_ms(fn, 30)
+        plain_ms = time_ms(plain, 3, warmup=1)
+        device_ms = device_profile(fn)["busy_ms"]
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1])
+        emit("kernel_time", kernel=name, b=b, h=NYU_H, w=NYU_W, t=t,
+             norm="8sum_clamp", ms=ms, device_ms=device_ms,
+             plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+             library_ms=None, gpu=gpu)
+    return timing
+
+
+def train_config():
+    """nyu_completion_500 at full width on synthetic data, batch 32."""
+    return get_config("nyu_completion_500").override(**{
+        "data.dataset": "synthetic", "train.batch_size": TRAIN_BATCH})
+
+
+def fixed_batch(trainer: Trainer, n: int) -> dict:
+    """The first n synthetic training records, packed, on the card."""
+    recs = [trainer.train_ds.get(i) for i in range(n)]
+    packed = pack_batch({k: np.stack([r[k] for r in recs])
+                         for k in ("rgb", "depth")})
+    return {k: torch.from_numpy(v).cuda() for k, v in packed.items()}
+
+
+def reset_counts():
+    for fn in (cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash,
+               cspn_cuda.cspn_bwd):
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {fn.__name__: fn.launches for fn in (
+        cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash, cspn_cuda.cspn_bwd)}
+
+
+def phase_train(gpu: str) -> dict:
+    cfg = train_config()
+    t0 = time.perf_counter()
+    variables = randomized_variables(cfg)
+    trainer = Trainer(cfg)
+    state = trainer.init_state(variables)
+    batch = fixed_batch(trainer, TRAIN_BATCH)
+    setup_s = time.perf_counter() - t0
+
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, loss, _ = trainer.train_step(state, batch)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path: TRAIN_STEPS train steps on one fixed batch.
+    reset_counts()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss, sums = trainer.train_step(state, batch)
+        losses.append(float(loss))          # waits for the step
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (launches["cspn_fwd_stash"] == launches["cspn_bwd"] == TRAIN_STEPS
+            and launches["cspn_fwd"] == 0):
+        raise AssertionError(f"the train path's kernel launches {launches},"
+                             f" expected K2 = K3 = {TRAIN_STEPS}, K1 = 0")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: "
+                             f"{losses}")
+    median = float(np.median(step_ms))
+    emit("train", config=cfg.name, arch=cfg.model.arch,
+         num_iters=cfg.model.num_iters, norm=cfg.model.norm_type,
+         dtype=cfg.model.dtype, batch=TRAIN_BATCH, h=NYU_H, w=NYU_W,
+         setup_s=setup_s, steps=len(step_ms), ms_per_step_p50=median,
+         ms_per_step_max=max(step_ms), img_per_s=TRAIN_BATCH / median * 1e3,
+         peak_mem_gb=peak_gb, launches=launches, losses=losses, gpu=gpu)
+
+    # One step under the profiler: device time by class, idle share.
+    emit("train_profile", batch=TRAIN_BATCH, gpu=gpu,
+         **device_profile(lambda: trainer.train_step(state, batch)))
+
+    # The loop through the data pipeline (pinned, non-blocking copies).
+    epoch_state, metrics = trainer.train_epoch(state, 0, log=lambda *a: None)
+    emit("train_epoch", steps=trainer.steps_per_epoch,
+         loss=metrics["loss"], step_time_s=metrics["step_time"],
+         data_time_s=metrics["data_time"], rmse=metrics["rmse"])
+    if not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"train_epoch loss {metrics['loss']}")
+
+    # Evaluation: BN on running statistics, K1 forward.
+    reset_counts()
+    ev = trainer.evaluate(epoch_state, log=lambda *a: None)
+    eval_launches = counts()
+    emit("evaluate", n_images=ev["n_images"], rmse=ev["rmse"],
+         mae=ev["mae"], delta1=ev["delta1"],
+         img_per_s=ev["images_per_sec"], launches=eval_launches)
+    if not (eval_launches["cspn_fwd"] > 0 and all(
+            np.isfinite(ev[k]) for k in ("rmse", "mae", "rel", "delta1"))):
+        raise AssertionError(f"evaluate: {ev} {eval_launches}")
+    del state, epoch_state, trainer
+
+    path = phase_train_vs_plain(cfg, variables, gpu)
+    phase_train_device_vs_cpu()
+    return dict(launches=launches, **path)
+
+
+def phase_train_vs_plain(cfg, variables, gpu: str) -> dict:
+    """One train step with the kernels against the same step with the
+    plain CSPN loop: identical weights, batch and sparse map, cuDNN
+    deterministic. The gradient clip is off here: its factor is the global
+    norm of every gradient, bf16 encoder gradients included, which rounds
+    differently as soon as the head's gradient differs in its last bits,
+    and would scale both head gradients by factors ~1e-4 apart. Also K2/K3
+    against their plain versions on the step's own heads."""
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    captured = []
+    sparse = None
+    for impl in ("auto", "torch"):
+        trainer = Trainer(cfg.override(**{"model.cspn_impl": impl,
+                                          "train.clip_norm": 0.0}))
+        batch = fixed_batch(trainer, TRAIN_BATCH)
+        if sparse is None:
+            sparse = trainer._sample_sparse(
+                trainer._rng(0, 0), trainer._unpack(batch)["depth"], None)
+        trainer._sample_sparse = lambda gen, d, rgb, _s=sparse: _s
+        state = trainer.init_state(variables)
+        hook = None
+        if impl == "auto":
+            hook = state.model.head.register_forward_hook(
+                lambda module, args, out: captured.append(out.detach()))
+        state, loss, _ = trainer.train_step(state, batch)
+        if hook is not None:
+            hook.remove()
+        results[impl] = dict(loss=float(loss), sparse=sparse,
+                             weight=state.model.head.weight.grad.clone(),
+                             bias=state.model.head.bias.grad.clone())
+        del state, trainer
+    torch.backends.cudnn.deterministic = False
+    k, p = results["auto"], results["torch"]
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    grad_errs = {n: max_rel(k[n], p[n]) for n in ("weight", "bias")}
+    grad_err = max(grad_errs.values())
+
+    heads = captured[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
+    r = train_kernel_errors(heads[:, 1:], heads[:, 0], k["sparse"], cot,
+                            dict(num_iters=cfg.model.num_iters,
+                                 norm_type=cfg.model.norm_type))
+    emit("train_vs_plain_cspn", batch=TRAIN_BATCH,
+         loss_kernel=k["loss"], loss_plain=p["loss"], loss_rel=loss_err,
+         loss_tol=STEP_LOSS_TOL, head_grad_max_rel=grad_errs,
+         head_grad_tol=GRAD_TOL, heads_kernels=r, gpu=gpu)
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= GRAD_TOL):
+        raise AssertionError(f"train step with the kernels vs the plain "
+                             f"CSPN: loss {loss_err}, head grads {grad_err}")
+    if not (max(r["max_rel"].values()) <= KERNEL_TOL and r["k2_equals_k1"]):
+        raise AssertionError(f"K2/K3 vs plain on the path's heads: {r}")
+    return dict(k2_max_abs=r["k2_max_abs"], k3_max_abs=r["k3_max_abs"])
+
+
+def phase_train_device_vs_cpu():
+    """One train step of a small f32 model (TF32 off) on the card against
+    the same step on the CPU: every parameter's gradient. Random rgb (no
+    exact max-pool ties, whose gradient each device may route to another
+    element). Held to DEVICE_TOL with cuDNN off (the card's own CUDA
+    convolutions, f32 sums in another order). With cuDNN on, its f32
+    weight-gradient algorithm for the 5x5 decoder convolutions lands a few
+    1e-3 from the CPU (and from f64), so that run is held to
+    CUDNN_WGRAD_TOL and reported beside it."""
+    torch.backends.cudnn.allow_tf32 = False
+    small = get_config("synthetic_tiny").override(**{
+        "model.dtype": "float32", "model.norm_type": "8sum_clamp"})
+    small_vars = randomized_variables(small)
+    b, h, w = small.train.batch_size, small.data.height, small.data.width
+    rng = np.random.default_rng(SEED + 3)
+    batch = {"rgb": rng.random((b, h, w, 3), dtype=np.float32),
+             "depth": rng.uniform(0.5, 9.5, (b, h, w)).astype(np.float32)}
+    sparse = np.where(rng.random((b, h, w)) < 0.01, batch["depth"],
+                      0.0).astype(np.float32)
+
+    def step_grads(device):
+        trainer = Trainer(small, device=device)
+        sp = torch.from_numpy(sparse).to(device)
+        trainer._sample_sparse = lambda gen, d, rgb, _s=sp: _s
+        state = trainer.init_state(small_vars)
+        trainer.train_step(state, batch)
+        return {n: p.grad.detach().cpu()
+                for n, p in state.model.named_parameters()}
+
+    def worst(got, want):
+        errs = {n: max_rel_or_zero(got[n], g) for n, g in want.items()}
+        name = max(errs, key=errs.get)
+        return name, errs[name]
+
+    want = step_grads("cpu")
+    with_cudnn = worst(step_grads("cuda"), want)
+    torch.backends.cudnn.enabled = False
+    try:
+        without = worst(step_grads("cuda"), want)
+    finally:
+        torch.backends.cudnn.enabled = True
+    emit("train_device_vs_cpu", config=small.name, h=h, w=w,
+         tensors=len(want), max_rel=without[1], worst=without[0],
+         tol=DEVICE_TOL, cudnn_max_rel=with_cudnn[1],
+         cudnn_worst=with_cudnn[0], cudnn_tol=CUDNN_WGRAD_TOL)
+    if not (without[1] <= DEVICE_TOL and with_cudnn[1] <= CUDNN_WGRAD_TOL):
+        raise AssertionError(f"small model's train step on the card vs the "
+                             f"CPU: {without}, with cuDNN {with_cudnn}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     gpu = phase_toolchain()
     phase_build()
     k1 = phase_kernels(gpu)
+    k23 = phase_train_kernels(gpu)
+    reset_counts()
     launches, max_abs_err = phase_serving(gpu)
-    print(json.dumps({"kernels": [{
-        "name": "cspn_fwd", "route": "cuda",
-        "source": "cspn_monodepth_tpu_torch/csrc/cspn_fwd.cu",
-        "replaces": "cspn_monodepth_tpu/ops/cspn_pallas.py:94",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}]}), flush=True)
+    train = phase_train(gpu)
+
+    def row(name, source, line, launches, max_abs, t):
+        return {"name": name, "route": "cuda",
+                "source": f"cspn_monodepth_tpu_torch/csrc/{source}",
+                "replaces": f"cspn_monodepth_tpu/ops/cspn_pallas.py:{line}",
+                "launches": launches, "max_abs_err": max_abs,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        row("cspn_fwd", "cspn_fwd.cu", 94, launches, max_abs_err, k1),
+        row("cspn_fwd_stash", "cspn_fwd.cu", 200,
+            train["launches"]["cspn_fwd_stash"], train["k2_max_abs"],
+            k23["cspn_fwd_stash"]),
+        row("cspn_bwd", "cspn_bwd.cu", 245, train["launches"]["cspn_bwd"],
+            train["k3_max_abs"], k23["cspn_bwd"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,15 @@
 // CSPN forward propagation on Hopper (sm_90a): affinity normalization,
 // d^0 anchoring and T iterations of the 8-neighbour gather stencil with
-// per-iteration sparse re-anchoring, in one C entry.
+// per-iteration sparse re-anchoring. Two C entries share one kernel:
+//   cspn_fwd        (K1) the eval and serving forward;
+//   cspn_fwd_stash  (K2) the training forward, which also writes every
+//                   pre-iteration plane d^t to a (B, T, H, W) stash that the
+//                   adjoint (csrc/cspn_bwd.cu) reads back in reverse.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_kernel (launched by
-// _cspn_pallas_fwd_impl), the whole-plane TPU kernel of the eval and serving
-// forward. It computes the same function; it does not copy the TPU layout.
+// _cspn_pallas_fwd_impl) and _cspn_kernel_stash (launched by
+// _cspn_pallas_stash_fwd), the whole-plane TPU kernels. They compute the
+// same functions; they do not copy the TPU layout.
 // The TPU kernel keeps a whole plane and 9 gate planes resident in VMEM; one
 // 228x304 f32 plane is 277 KB and a Hopper block has at most 227 KB of
 // shared memory, so here the plane is cut into tiles instead.
@@ -14,7 +19,8 @@
 // 44 B/px. At B=32 x 228x304 that is 97.6 MB, about 29 us; at B=1 about
 // 0.9 us, so a single image is launch-bound. The arithmetic, 19 flop/px per
 // iteration plus the normalization, is far below the f32 rate: the kernel
-// is bound by bytes.
+// is bound by bytes. K2 writes T more planes: (11 + T) * 4 B/px, 310.5 MB
+// at B=32, T=24, about 93 us.
 //
 // Design (simple first; making it fast is later work):
 // * Recompute-in-halo tiles. A block owns a TILE x TILE interior and loads
@@ -35,6 +41,10 @@
 // * d^0 is anchored before the first iteration. Every round re-anchors d
 //   on load, which is idempotent for a d that the previous round already
 //   anchored. The mask is sparse > 0.
+// * Stash (K2): at the start of each iteration every block writes its
+//   tile's interior of d^t. The interior is exact at every iteration of a
+//   round, and the interiors tile the image, so the stash is exact; K2's
+//   output is K1's bit for bit (the same code with one more store).
 // * Strides: each plane is contiguous (row stride W), the guidance planes
 //   of one image are H*W apart, and every input takes its own batch
 //   stride, so the model's head output (B, 9, H, W) is passed as
@@ -63,6 +73,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
                const float* __restrict__ d_in, int64_t d_in_bstride,
                const float* __restrict__ sparse, int64_t sp_bstride,
                float* __restrict__ d_out,
+               float* __restrict__ stash, int T, int t0,
                int H, int W, int iters, int norm) {
   __shared__ float buf[2][PITCH * PITCH];
 
@@ -74,6 +85,8 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
   const float* din = d_in + b * d_in_bstride;
   const float* sp = sparse ? sparse + b * sp_bstride : nullptr;
   float* dout = d_out + b * plane;
+  // stash[b, t] is plane b * T + t of a contiguous (B, T, H, W) array.
+  float* st = stash ? stash + ((int64_t)b * T + t0) * plane : nullptr;
   const float floor_ = norm == kSumClamp ? 1.0f : 1e-8f;
 
   for (int i = threadIdx.x; i < 2 * PITCH * PITCH; i += THREADS)
@@ -85,6 +98,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
   bool anchored[PPT];
   int off[PPT];
   int64_t gidx[PPT];    // -1 outside the image
+  bool interior[PPT];   // inside the image and in the tile's interior
 
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
@@ -94,6 +108,8 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     off[i] = (y + 1) * PITCH + (x + 1);
     const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
     gidx[i] = inside ? (int64_t)gy * W + gx : -1;
+    interior[i] = inside && y >= HALO && y < HALO + TILE && x >= HALO &&
+                  x < HALO + TILE;
     float d = 0.0f;
     anchor[i] = 0.0f;
     anchored[i] = false;
@@ -139,6 +155,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int o = off[i];
+      if (st && interior[i]) st[t * plane + gidx[i]] = dc[o];   // d^t
       float v = gate[i][0] * dc[o];
       v = fmaf(gate[i][1], dc[o - PITCH - 1], v);
       v = fmaf(gate[i][2], dc[o - PITCH], v);
@@ -155,13 +172,33 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
   }
 
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int p = threadIdx.x + i * THREADS;
-    const int y = p / SLAB, x = p % SLAB;
-    if (gidx[i] >= 0 && y >= HALO && y < HALO + TILE && x >= HALO &&
-        x < HALO + TILE)
-      dout[gidx[i]] = buf[cur][off[i]];
+  for (int i = 0; i < PPT; ++i)
+    if (interior[i]) dout[gidx[i]] = buf[cur][off[i]];
+}
+
+int launch_rounds(const float* guid, int64_t guid_bstride,
+                  const float* blur, int64_t blur_bstride,
+                  const float* sparse, int64_t sp_bstride,
+                  float* out, float* scratch, float* stash,
+                  int B, int H, int W, int T, int norm, void* stream) {
+  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
+  const int rounds = T == 0 ? 1 : (T + HALO - 1) / HALO;
+  const int64_t plane = (int64_t)H * W;
+  const float* src = blur;
+  int64_t src_bstride = blur_bstride;
+  for (int r = 0; r < rounds; ++r) {
+    // The last round writes `out`; earlier rounds alternate backwards.
+    float* dst = ((rounds - 1 - r) % 2 == 0) ? out : scratch;
+    const int iters = T - r * HALO < HALO ? T - r * HALO : HALO;
+    cspn_fwd_round<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        guid, guid_bstride, src, src_bstride, sparse, sp_bstride, dst,
+        stash, T, r * HALO, H, W, iters, norm);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = dst;
+    src_bstride = plane;
   }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -178,24 +215,21 @@ int cspn_fwd(const float* guid, int64_t guid_bstride,
              const float* sparse, int64_t sp_bstride,
              float* out, float* scratch,
              int B, int H, int W, int T, int norm, void* stream) {
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  const int rounds = T == 0 ? 1 : (T + HALO - 1) / HALO;
-  const int64_t plane = (int64_t)H * W;
-  const float* src = blur;
-  int64_t src_bstride = blur_bstride;
-  for (int r = 0; r < rounds; ++r) {
-    // The last round writes `out`; earlier rounds alternate backwards.
-    float* dst = ((rounds - 1 - r) % 2 == 0) ? out : scratch;
-    const int iters = T - r * HALO < HALO ? T - r * HALO : HALO;
-    cspn_fwd_round<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        guid, guid_bstride, src, src_bstride, sparse, sp_bstride, dst,
-        H, W, iters, norm);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = dst;
-    src_bstride = plane;
-  }
-  return (int)cudaSuccess;
+  return launch_rounds(guid, guid_bstride, blur, blur_bstride, sparse,
+                       sp_bstride, out, scratch, nullptr, B, H, W, T, norm,
+                       stream);
+}
+
+// As cspn_fwd, and also writes d^t, the plane iteration t starts from, to
+// stash[b, t] of a contiguous (B, T, H, W) array (K2).
+int cspn_fwd_stash(const float* guid, int64_t guid_bstride,
+                   const float* blur, int64_t blur_bstride,
+                   const float* sparse, int64_t sp_bstride,
+                   float* out, float* scratch, float* stash,
+                   int B, int H, int W, int T, int norm, void* stream) {
+  return launch_rounds(guid, guid_bstride, blur, blur_bstride, sparse,
+                       sp_bstride, out, scratch, stash, B, H, W, T, norm,
+                       stream);
 }
 
 const char* cspn_fwd_error_string(int err) {

@@ -118,11 +118,13 @@ def load_jax_variables(model: nn.Module, variables) -> nn.Module:
 
 def jax_variables(model: nn.Module) -> dict:
     """The inverse of load_jax_variables: the model's weights as the JAX
-    package's {"params", "batch_stats"} tree of float32 numpy arrays."""
+    package's {"params", "batch_stats"} tree of float32 numpy arrays. The
+    arrays are copies: a later in-place update of the model (an optimizer
+    step, a train-mode BN statistic) does not reach them."""
     state = model.state_dict()
     tree: dict = {"params": {}, "batch_stats": {}}
     for e in _spec(model):
-        a = state[e.tensor].detach().float().cpu().numpy()
+        a = state[e.tensor].detach().float().cpu().numpy().copy()
         if e.conv:
             a = a.transpose(2, 3, 1, 0)
         parts = (np.split(a, np.cumsum(e.sizes)[:-1], e.axis) if e.sizes

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from collections.abc import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -32,9 +33,35 @@ def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose train-mode update of `running_var` folds in the
+    biased batch variance, as flax's BatchNorm does; torch's own update
+    uses the unbiased one, n/(n-1) larger. Normalization itself uses the
+    biased variance in both. The statistics are reduced in float32 also
+    for a bf16 input under autocast (torch's kernels accumulate in f32),
+    as flax reduces them in f32."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        # torch's update goes into a copy (autograd keeps it, so the
+        # statistic itself may then change in place): it folds in
+        # m * v * n/(n-1); the statistic gets m * v in its place.
+        folded = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, folded, self.weight,
+                         self.bias, True, m, self.eps)
+        with torch.no_grad():
+            prev = (1 - m) * self.running_var
+            self.running_var.copy_(prev + (folded - prev) * ((n - 1) / n))
+        return y
+
+
+def batch_norm(c: int) -> BatchNorm2d:
     # flax momentum 0.9 on the running average is torch momentum 0.1.
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class Bottleneck(nn.Module):

@@ -1,16 +1,28 @@
 """CSPN propagation dispatcher.
 
 `cspn_propagate` is the public op the model calls. It sends a CUDA tensor
-to the hand-written Hopper kernel (ops/cspn_cuda.py) and a CPU tensor to
-the plain PyTorch loop (ops/cspn_ref.py). There is no fallback: a CUDA
-tensor whose kernel fails to build or launch raises.
+to the hand-written Hopper kernels (ops/cspn_cuda.py) and a CPU tensor to
+their plain PyTorch versions (ops/cspn_ref.py). There is no fallback: a
+CUDA tensor whose kernel fails to build or launch raises.
+
+Gradients (counterpart of the JAX package's `_cspn_pallas` custom VJP,
+ops/cspn_pallas.py): when an input needs one, `CSPNFunction` runs the
+stash forward (K2) and its backward the hand-written adjoint (K3); with
+no gradient wanted, the forward is K1 alone. `impl="torch"` is the
+independent plain loop under torch autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cspn_monodepth_tpu_torch.ops.cspn_cuda import cspn_fwd
+from torch.autograd.function import once_differentiable
+
+from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
+    cspn_bwd,
+    cspn_fwd,
+    cspn_fwd_stash,
+)
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     _squeeze_depth,
     cspn_propagate_ref_nchw,
@@ -26,6 +38,31 @@ def _planes(t: torch.Tensor) -> torch.Tensor:
     h, w = t.shape[-2:]
     inner = (h * w, w, 1) if t.dim() == 4 else (w, 1)
     return t if t.stride()[1:] == inner else t.contiguous()
+
+
+class CSPNFunction(torch.autograd.Function):
+    """CSPN propagation with the hand-written adjoint: guidance
+    (B, 8, H, W), blur and sparse (B, H, W) float32 with contiguous planes
+    (sparse may be None) -> (B, H, W). Gradients reach all three inputs;
+    sparse gets none when it is None."""
+
+    @staticmethod
+    def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
+        out, stash = cspn_fwd_stash(guidance, blur, sparse,
+                                    num_iters=num_iters, norm_type=norm_type)
+        ctx.save_for_backward(guidance, sparse, stash)
+        ctx.num_iters, ctx.norm_type = num_iters, norm_type
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        guidance, sparse, stash = ctx.saved_tensors
+        d_guid, d_blur, d_sparse = cspn_bwd(
+            guidance, sparse, stash, _planes(grad_out),
+            num_iters=ctx.num_iters, norm_type=ctx.norm_type)
+        return (d_guid, d_blur, None if sparse is None else d_sparse,
+                None, None)
 
 
 def cspn_propagate(
@@ -64,9 +101,12 @@ def cspn_propagate(
 
     squeeze = blur_depth.dim() == 4
     sp = _squeeze_depth(sparse_depth)
-    out = cspn_fwd(
-        _planes(guidance), _planes(_squeeze_depth(blur_depth)),
-        None if sp is None else _planes(sp),
-        num_iters=num_iters, norm_type=norm_type)
+    args = (_planes(guidance), _planes(_squeeze_depth(blur_depth)),
+            None if sp is None else _planes(sp))
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        out = CSPNFunction.apply(*args, num_iters, norm_type)
+    else:
+        out = cspn_fwd(*args, num_iters=num_iters, norm_type=norm_type)
     out = out.to(blur_depth.dtype)
     return out[..., None] if squeeze else out

@@ -1,14 +1,18 @@
-"""Wrapper of the hand-written Hopper CSPN forward kernel (csrc/cspn_fwd.cu).
+"""Wrappers of the hand-written Hopper CSPN kernels (csrc/*.cu).
 
-The kernel is compiled at first use with `nvcc` for sm_90a into a shared
-library with a plain C interface, keyed by a hash of its source, under
-`_build/` in this package, and bound with ctypes. Nothing is built or
-loaded when this module is imported.
+Each source under csrc/ is compiled at first use with `nvcc` for sm_90a
+into a shared library with a plain C interface, keyed by a hash of its
+source, under `_build/` in this package, and bound with ctypes; the
+sources compile in parallel, one `nvcc` each. Nothing is built or loaded
+when this module is imported.
 
-`cspn_fwd` is the kernel's wrapper: on CUDA tensors it launches the kernel
-(or raises); on CPU tensors it runs the kernel's plain version,
-`cspn_propagate_ref_nchw`. `cspn_fwd.launches` counts the calls that
-launched the kernel.
+The wrappers, one per kernel, each with a `.launches` count of the calls
+that launched its kernel:
+  cspn_fwd        K1, the forward (csrc/cspn_fwd.cu);
+  cspn_fwd_stash  K2, the forward that also stashes every d^t (same file);
+  cspn_bwd        K3, the adjoint over that stash (csrc/cspn_bwd.cu).
+On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
+it runs the kernel's plain version from ops/cspn_ref.py.
 """
 
 from __future__ import annotations
@@ -25,20 +29,22 @@ import torch
 
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
+    cspn_bwd_plain,
+    cspn_fwd_stash_plain,
     cspn_propagate_ref_nchw,
 )
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cspn_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# The plain PyTorch version of the kernel: the CPU path and the reference
-# the kernel is held to on the card.
+# The plain PyTorch versions of the kernels: the CPU path and the
+# references the kernels are held to on the card.
 cspn_fwd_plain = cspn_propagate_ref_nchw
 
-_lib = None
-build_log = ""
+_libs: dict = {}
+build_log: dict[str, str] = {}     # source name -> nvcc's output
 
 
 def nvcc() -> str:
@@ -50,48 +56,81 @@ def nvcc() -> str:
         return found
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CSPN kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CSPN kernels cannot be built")
 
 
-def library_path() -> Path:
+def sources() -> dict[str, Path]:
+    """Every kernel source under csrc/, by name (file stem)."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libcspn_fwd_{digest[:16]}.so"
+        sources()[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/cspn_fwd.cu unless a library of this source exists;
-    returns its path. The compiler's output (registers, spills) is kept in
+def build() -> dict[str, Path]:
+    """Compile every source under csrc/ that has no library of its current
+    source yet, all at once (one nvcc each); returns the library paths by
+    name. The compiler's output (registers, spills) is kept in
     `build_log`."""
-    global build_log
-    path = library_path()
-    if path.exists():
-        return path
+    paths = {name: library_path(name) for name in sources()}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, path)   # atomic against a concurrent build
-    return path
+    compiler = nvcc()
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(sources()[name])]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name} ({proc.returncode}):\n{build_log[name]}")
+        else:
+            os.replace(tmp, todo[name])   # atomic against a concurrent build
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _load(name: str):
+    if not _libs:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.cspn_fwd.argtypes = [p, i64, p, i64, p, i64, p, p,
-                                 i32, i32, i32, i32, i32, p]
-        lib.cspn_fwd.restype = i32
-        lib.cspn_fwd_error_string.argtypes = [i32]
-        lib.cspn_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        signatures = {
+            "cspn_fwd": {
+                "cspn_fwd": [p, i64, p, i64, p, i64, p, p,
+                             i32, i32, i32, i32, i32, p],
+                "cspn_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
+                                   i32, i32, i32, i32, i32, p]},
+            "cspn_bwd": {
+                "cspn_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p, p, p,
+                             i32, i32, i32, i32, i32, p]},
+        }
+        for lib_name, path in build().items():
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in signatures[lib_name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = i32
+            err_string = getattr(lib, f"{lib_name}_error_string")
+            err_string.argtypes = [i32]
+            err_string.restype = ctypes.c_char_p
+            _libs[lib_name] = lib
+    return _libs[name]
+
+
+def _raise_on(err: int, lib_name: str, what: str):
+    if err != 0:
+        msg = getattr(_load(lib_name), f"{lib_name}_error_string")(err)
+        raise RuntimeError(f"{what} launch failed: {msg.decode()}")
 
 
 def _check_planes(name: str, t: torch.Tensor, shape: tuple, device):
@@ -111,49 +150,133 @@ def _check_planes(name: str, t: torch.Tensor, shape: tuple, device):
                          f"{t.stride()}")
 
 
-def cspn_fwd(guidance: torch.Tensor, blur: torch.Tensor,
-             sparse: torch.Tensor | None, *, num_iters: int,
-             norm_type: str) -> torch.Tensor:
-    """CSPN forward: guidance (B, 8, H, W), blur and sparse (B, H, W), all
-    float32 with contiguous planes and any batch stride -> (B, H, W).
-
-    A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
-    """
+def _check_call(guidance: torch.Tensor, num_iters: int,
+                norm_type: str) -> bool:
+    """True for a CPU tensor (the plain version runs); checks what every
+    kernel needs of a CUDA one and raises on anything else."""
     if guidance.device.type == "cpu":
-        return cspn_fwd_plain(guidance, blur, sparse, num_iters=num_iters,
-                              norm_type=norm_type)
+        return True
     if guidance.device.type != "cuda":
         raise ValueError(f"no CSPN kernel for device {guidance.device}")
     if norm_type not in NORM_TYPES:
         raise ValueError(f"unknown norm_type: {norm_type!r}")
     if num_iters < 0:
         raise ValueError(f"num_iters must be >= 0, got {num_iters}")
+    if not 0 < guidance.shape[0] <= 65535:
+        raise ValueError(f"batch {guidance.shape[0]} outside the kernel's "
+                         f"grid (1..65535)")
+    return False
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _bstride(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+def _forward(guidance, blur, sparse, num_iters, norm_type, stash):
+    """Launch K1 (stash None) or K2 into `stash`; returns the output."""
     b, _, h, w = guidance.shape
-    if not 0 < b <= 65535:
-        raise ValueError(f"batch {b} outside the kernel's grid (1..65535)")
     dev = guidance.device
     _check_planes("guidance", guidance, (b, 8, h, w), dev)
     _check_planes("blur", blur, (b, h, w), dev)
     if sparse is not None:
         _check_planes("sparse", sparse, (b, h, w), dev)
-
-    lib = _load()
+    lib = _load("cspn_fwd")
     out = torch.empty((b, h, w), device=dev, dtype=torch.float32)
     scratch = torch.empty_like(out)     # ping-pong partner between rounds
+    args = (guidance.data_ptr(), guidance.stride(0),
+            blur.data_ptr(), blur.stride(0), _ptr(sparse), _bstride(sparse),
+            out.data_ptr(), scratch.data_ptr())
+    size = (b, h, w, num_iters, NORM_TYPES.index(norm_type))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cspn_fwd(
-            guidance.data_ptr(), guidance.stride(0),
-            blur.data_ptr(), blur.stride(0),
-            None if sparse is None else sparse.data_ptr(),
-            0 if sparse is None else sparse.stride(0),
-            out.data_ptr(), scratch.data_ptr(),
-            b, h, w, num_iters, NORM_TYPES.index(norm_type), stream)
-    if err != 0:
-        raise RuntimeError("cspn_fwd launch failed: "
-                           + lib.cspn_fwd_error_string(err).decode())
+        if stash is None:
+            err = lib.cspn_fwd(*args, *size, stream)
+        else:
+            err = lib.cspn_fwd_stash(*args, stash.data_ptr(), *size, stream)
+    _raise_on(err, "cspn_fwd",
+              "cspn_fwd" if stash is None else "cspn_fwd_stash")
+    return out
+
+
+def cspn_fwd(guidance: torch.Tensor, blur: torch.Tensor,
+             sparse: torch.Tensor | None, *, num_iters: int,
+             norm_type: str) -> torch.Tensor:
+    """CSPN forward (K1): guidance (B, 8, H, W), blur and sparse (B, H, W),
+    all float32 with contiguous planes and any batch stride -> (B, H, W).
+
+    A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
+    """
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_fwd_plain(guidance, blur, sparse, num_iters=num_iters,
+                              norm_type=norm_type)
+    out = _forward(guidance, blur, sparse, num_iters, norm_type, None)
     cspn_fwd.launches += 1
     return out
 
 
+def cspn_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
+                   sparse: torch.Tensor | None, *, num_iters: int,
+                   norm_type: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (K2): as cspn_fwd, and also returns the stash
+    (B, T, H, W) of every d^t, the plane iteration t starts from. Its
+    output equals cspn_fwd's."""
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_fwd_stash_plain(guidance, blur, sparse,
+                                    num_iters=num_iters, norm_type=norm_type)
+    b, _, h, w = guidance.shape
+    stash = torch.empty((b, num_iters, h, w), device=guidance.device,
+                        dtype=torch.float32)
+    out = _forward(guidance, blur, sparse, num_iters, norm_type, stash)
+    cspn_fwd_stash.launches += 1
+    return out, stash
+
+
+def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
+             stash: torch.Tensor, grad_out: torch.Tensor, *, num_iters: int,
+             norm_type: str
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adjoint (K3): guidance (B, 8, H, W), sparse (B, H, W) or None,
+    the stash of cspn_fwd_stash and the output's cotangent grad_out
+    (B, H, W) -> (d_guidance (B, 8, H, W), d_blur, d_sparse (B, H, W));
+    d_sparse is zero without a sparse map. Inputs are float32 with
+    contiguous planes; the stash is contiguous."""
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_bwd_plain(guidance, sparse, stash, grad_out,
+                              num_iters=num_iters, norm_type=norm_type)
+    b, _, h, w = guidance.shape
+    dev = guidance.device
+    _check_planes("guidance", guidance, (b, 8, h, w), dev)
+    _check_planes("grad_out", grad_out, (b, h, w), dev)
+    if sparse is not None:
+        _check_planes("sparse", sparse, (b, h, w), dev)
+    _check_planes("stash", stash, (b, num_iters, h, w), dev)
+    if not stash.is_contiguous():
+        raise ValueError("stash must be contiguous")
+    lib = _load("cspn_bwd")
+    d_guid = torch.empty((b, 8, h, w), device=dev, dtype=torch.float32)
+    d_blur = torch.empty((b, h, w), device=dev, dtype=torch.float32)
+    d_sparse = torch.empty_like(d_blur)
+    # G_0 sums and the two lam planes the rounds ping-pong between.
+    scratch = torch.empty((3, b, h, w), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cspn_bwd(
+            guidance.data_ptr(), guidance.stride(0),
+            _ptr(sparse), _bstride(sparse),
+            grad_out.data_ptr(), grad_out.stride(0), stash.data_ptr(),
+            d_guid.data_ptr(), d_blur.data_ptr(), d_sparse.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(),
+            scratch[2].data_ptr(),
+            b, h, w, num_iters, NORM_TYPES.index(norm_type), stream)
+    _raise_on(err, "cspn_bwd", "cspn_bwd")
+    cspn_bwd.launches += 1
+    return d_guid, d_blur, d_sparse
+
+
 cspn_fwd.launches = 0
+cspn_fwd_stash.launches = 0
+cspn_bwd.launches = 0

@@ -2,8 +2,15 @@
 
 Cheng, Wang, Yang - "Learning Depth with Convolutional Spatial Propagation
 Network", TPAMI 2019, arXiv:1810.02695, Eq. 1-5. This is the plain version
-of the Hopper kernel in `csrc/cspn_fwd.cu`: a Python loop of elementwise
-torch ops, one iteration per step, the same arithmetic in the same order.
+of the Hopper kernels in `csrc/`: Python loops of elementwise torch ops,
+one iteration per step, the same arithmetic in the same order.
+
+* `cspn_propagate_ref_nchw`: the forward (kernel K1, `csrc/cspn_fwd.cu`),
+  differentiable by torch autograd;
+* `cspn_fwd_stash_plain`: the forward that also returns every
+  pre-iteration depth plane d^t (kernel K2, the training forward);
+* `cspn_bwd_plain`: the hand-written adjoint that sweeps that stash in
+  reverse (kernel K3, `csrc/cspn_bwd.cu`).
 
 Layouts: the public entry `cspn_propagate_ref` takes channels-last guidance
 (B, H, W, 8) like the JAX package; `cspn_propagate_ref_nchw` takes the
@@ -76,9 +83,15 @@ def cspn_propagate_ref_nchw(
     Returns the refined depth with the shape of blur_depth.
     """
     squeeze = blur_depth.dim() == 4
-    d = _squeeze_depth(blur_depth)
-    sp = _squeeze_depth(sparse_depth)
+    d = _propagate(guidance, _squeeze_depth(blur_depth),
+                   _squeeze_depth(sparse_depth), num_iters, norm_type)
+    return d[..., None] if squeeze else d
 
+
+def _propagate(guidance, d, sp, num_iters: int, norm_type: str,
+               stash: list | None = None) -> torch.Tensor:
+    """The propagation loop on (B, H, W) planes; appends each d^t, the
+    plane iteration t starts from, to `stash` when one is given."""
     gates, g0 = normalize_affinity(guidance, norm_type, dim=1)
     g0 = g0[:, 0]
     mask = None
@@ -89,6 +102,8 @@ def cspn_propagate_ref_nchw(
 
     h, w = d.shape[-2:]
     for _ in range(num_iters):
+        if stash is not None:
+            stash.append(d)
         padded = F.pad(d, (1, 1, 1, 1))
         new = g0 * d
         for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
@@ -97,7 +112,101 @@ def cspn_propagate_ref_nchw(
         if mask is not None:
             new = (1.0 - mask) * new + mask * sp
         d = new
-    return d[..., None] if squeeze else d
+    return d
+
+
+def cspn_fwd_stash_plain(
+    guidance: torch.Tensor,
+    blur: torch.Tensor,
+    sparse: torch.Tensor | None,
+    *,
+    num_iters: int,
+    norm_type: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: guidance (B, 8, H, W), blur and sparse
+    (B, H, W) -> (out (B, H, W), stash (B, T, H, W)), where stash[:, t] is
+    d^t, the (anchored) depth plane iteration t starts from."""
+    stash: list[torch.Tensor] = []
+    out = _propagate(guidance, blur, sparse, num_iters, norm_type, stash)
+    b, h, w = blur.shape
+    return out, (torch.stack(stash, 1) if stash
+                 else blur.new_zeros((b, 0, h, w)))
+
+
+def cspn_bwd_plain(
+    guidance: torch.Tensor,
+    sparse: torch.Tensor | None,
+    stash: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    num_iters: int,
+    norm_type: str,
+    eps: float = 1e-8,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Adjoint of the propagation: (d_guidance (B, 8, H, W), d_blur,
+    d_sparse (B, H, W)) for the output cotangent grad_out (B, H, W), from
+    the raw guidance, the sparse map and the stash of
+    `cspn_fwd_stash_plain`. d_sparse is zero without a sparse map.
+
+    Reverse sweep, t = T-1 .. 0, with lam = dL/dd^{t+1} and m = [sparse > 0]:
+      lam_u = (1 - m) lam;  d_sparse += m lam;
+      G_k += lam_u * d^t(j + off_k);  G_0 += lam_u * d^t;
+      lam <- g0 lam_u + sum_k (g_k' lam_u)(j + off_k),  off_k' = -off_k,
+    the adjoint stencil written as a gather. Then d_blur = (1 - m) lam^0,
+    d_sparse += m lam^0, and the normalization's chain rule with
+    Ghat_k = G_k - G_0, c1 = sum_k Ghat_k gate_k, den = max(s, floor),
+    s = sum_k |g_k| and active = [s > floor]:
+      signed norms: (Ghat_l - active sign(g_l) c1) / den
+      8sum_abs:     sign(g_l) (Ghat_l - active c1) / den.
+    """
+    if norm_type not in NORM_TYPES:
+        raise ValueError(f"unknown norm_type: {norm_type!r}")
+    b, h, w = grad_out.shape
+    raw = guidance.abs() if norm_type == "8sum_abs" else guidance
+    s = guidance.abs().sum(1)
+    floor = 1.0 if norm_type == "8sum_clamp" else eps
+    den = s.clamp_min(floor)
+    gates = raw / den[:, None]
+    g0 = 1.0 - gates.sum(1)
+    active = (s > floor).to(grad_out.dtype)
+
+    masked = None if sparse is None else sparse > 0
+    zero = torch.zeros_like(grad_out)
+    g_acc = torch.zeros_like(guidance)
+    g0_acc = torch.zeros_like(grad_out)
+    d_sparse = torch.zeros_like(grad_out)
+    gpad = F.pad(gates, (1, 1, 1, 1))
+    lam = grad_out
+    for t in reversed(range(num_iters)):
+        lam_u = lam
+        if masked is not None:
+            lam_u = torch.where(masked, zero, lam)
+            d_sparse = d_sparse + torch.where(masked, lam, zero)
+        d = stash[:, t]
+        dpad = F.pad(d, (1, 1, 1, 1))
+        upad = F.pad(lam_u, (1, 1, 1, 1))
+        g0_acc = g0_acc + lam_u * d
+        new = g0 * lam_u
+        for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
+            win = (slice(None), slice(1 + dy, 1 + dy + h),
+                   slice(1 + dx, 1 + dx + w))
+            g_acc[:, k] += lam_u * dpad[win]
+            flip = NEIGHBOR_OFFSETS.index((-dy, -dx))
+            new = new + gpad[:, flip][win] * upad[win]
+        lam = new
+
+    d_blur = lam
+    if masked is not None:
+        d_blur = torch.where(masked, zero, lam)
+        d_sparse = d_sparse + torch.where(masked, lam, zero)
+    ghat = g_acc - g0_acc[:, None]
+    c1 = (ghat * gates).sum(1)
+    sgn = torch.sign(guidance)
+    if norm_type == "8sum_abs":
+        d_guid = sgn * (ghat - (active * c1)[:, None]) / den[:, None]
+    else:
+        d_guid = (ghat - sgn * (active * c1)[:, None]) / den[:, None]
+    return d_guid, d_blur, d_sparse
 
 
 def cspn_propagate_ref(

@@ -1,0 +1,250 @@
+"""Training and evaluation steps and epochs (PyTorch counterpart of
+cspn_monodepth_tpu/train/loop.py).
+
+    trainer = Trainer(get_config("nyu_completion_500"))      # on "cuda"
+    state = trainer.init_state()             # or init_state(jax_variables)
+    state, loss, sums = trainer.train_step(state, batch)
+    state, metrics = trainer.train_epoch(state, epoch=0)
+    metrics = trainer.evaluate(state)
+
+One train step, as in the JAX package: decode the packed batch on the
+device, sample the sparse input on the device, forward in train mode (BN on
+batch statistics), masked loss, backward (through the CSPN adjoint kernel
+on a CUDA device), clip, weight decay and SGD-momentum (or Adam), metric
+sums of the prediction. PyTorch runs eagerly: the step updates the state's
+model and optimizer in place and returns the state. The only host sync in
+an epoch is the loss read every `log_every` steps.
+
+Random numbers: the sparse samples of a train step come from a
+`torch.Generator` on the device seeded by (seed, epoch tag, step); those
+of an eval batch by (seed, eval tag, batch index), so evaluation is
+deterministic. They are not the JAX package's threefry samples.
+
+Not ported yet (the next slice): `fit`, checkpoints and mid-epoch resume,
+CSV/TensorBoard logs and image panels, mixed-dataset batches and the CLI.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from cspn_monodepth_tpu_torch.configs import Config
+from cspn_monodepth_tpu_torch.data.datasets import make_dataset
+from cspn_monodepth_tpu_torch.data.pipeline import (
+    DEPTH_SCALE,
+    device_prefetch,
+    make_eval_iterator,
+    make_train_iterator,
+)
+from cspn_monodepth_tpu_torch.models import CSPNDepthNet, load_jax_variables
+from cspn_monodepth_tpu_torch.ops.sparse import uniform_sparse_sample
+from cspn_monodepth_tpu_torch.train.loss import get_loss_fn
+from cspn_monodepth_tpu_torch.train.metrics import (
+    AverageMeter,
+    MetricSums,
+    finalize_metrics,
+    metric_sums_from_batch,
+)
+from cspn_monodepth_tpu_torch.train.train_state import (
+    TrainState,
+    make_lr_schedule,
+    make_optimizer,
+)
+
+EVAL_TAG = 9999
+
+
+class Trainer:
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+        if cfg.data.mix_dataset:
+            raise NotImplementedError("mixed-dataset training is not ported "
+                                      "yet")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.train_ds = make_dataset(cfg.data, "train", seed=cfg.train.seed)
+        self.val_ds = make_dataset(cfg.data, "val", seed=cfg.train.seed)
+        self.steps_per_epoch = cfg.train.steps_per_epoch or max(
+            len(self.train_ds) // cfg.train.batch_size, 1)
+        self.lr_schedule = make_lr_schedule(cfg.train, self.steps_per_epoch)
+        self.loss_fn = get_loss_fn(cfg.train.loss)
+
+    # ---------------------------------------------------------- state
+    def init_state(self, variables=None) -> TrainState:
+        """A fresh model from cfg.train.seed, or the JAX package's
+        {"params", "batch_stats"} tree `variables`, on the device, with
+        its optimizer, at step 0."""
+        cfg = self.cfg
+        if cfg.model.require_pretrained and not cfg.model.pretrained:
+            raise ValueError(
+                f"config {cfg.name!r} is a paper-exact recipe that is "
+                "unstable from scratch: set model.pretrained")
+        if cfg.model.pretrained:
+            raise NotImplementedError("loading a torchvision encoder "
+                                      "(model.pretrained) is not ported yet")
+        model = CSPNDepthNet.from_config(
+            cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed))
+        if variables is not None:
+            load_jax_variables(model, variables)
+        model.to(self.device)
+        return TrainState(step=0, model=model,
+                          optimizer=make_optimizer(cfg.train, model))
+
+    # ---------------------------------------------------------- model io
+    def _rng(self, tag: int, index: int) -> torch.Generator:
+        seed = np.random.SeedSequence(
+            [self.cfg.train.seed, tag, index]).generate_state(1)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    @staticmethod
+    def _unpack(batch: dict) -> dict:
+        """Decode the compact wire format (data/pipeline.py pack_batch) on
+        the device: uint8 rgb -> [0, 1] float32, uint16 depth -> meters.
+        Float batches pass through unchanged."""
+        out = dict(batch)
+        if batch["rgb"].dtype == torch.uint8:
+            out["rgb"] = batch["rgb"].float() / 255.0
+        if batch["depth"].dtype == torch.uint16:
+            out["depth"] = batch["depth"].float() / DEPTH_SCALE
+        return out
+
+    def _assemble_input(self, rgb, sparse):
+        """Stack the modality's input channels, channels-last."""
+        modality = self.cfg.model.modality
+        if modality == "rgb":
+            return rgb
+        if modality == "d":
+            return sparse[..., None]
+        return torch.cat([rgb, sparse[..., None]], dim=-1)
+
+    def _sample_sparse(self, generator, depth, rgb):
+        cfg = self.cfg
+        if cfg.data.num_samples <= 0:
+            return torch.zeros_like(depth)
+        if cfg.data.sampler == "stereo":
+            raise NotImplementedError("simulated-stereo sampling is not "
+                                      "ported yet; use data.sampler=uniform")
+        return uniform_sparse_sample(depth, cfg.data.num_samples,
+                                     max_depth=cfg.data.max_depth,
+                                     generator=generator)
+
+    # ---------------------------------------------------------- steps
+    def train_step(self, state: TrainState, batch: dict, tag: int = 0):
+        """One update of `state` (in place) on `batch` (numpy or tensors,
+        packed or float); the sparse input is drawn from (seed, tag,
+        state.step). Returns (state, loss, metric sums), both on the
+        device."""
+        cfg = self.cfg
+        batch = self._unpack(self._to_device(batch))
+        sparse = self._sample_sparse(self._rng(tag, state.step),
+                                     batch["depth"], batch["rgb"])
+        x = self._assemble_input(batch["rgb"], sparse)
+        target = batch["depth"][..., None]
+
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        pred = model(x)
+        loss = self.loss_fn(pred, target)
+        loss.backward()
+        state.apply_gradients(self.lr_schedule, cfg.train.clip_norm)
+        with torch.no_grad():
+            sums = metric_sums_from_batch(
+                pred, target, protocol=cfg.train.metrics_protocol)
+        return state, loss.detach(), sums
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict, batch_idx: int):
+        """Metric sums and prediction of one eval batch, BN on its running
+        statistics; the sparse input is a pure function of batch_idx."""
+        cfg = self.cfg
+        batch = self._unpack(self._to_device(batch))
+        sparse = self._sample_sparse(self._rng(EVAL_TAG, batch_idx),
+                                     batch["depth"], batch["rgb"])
+        x = self._assemble_input(batch["rgb"], sparse)
+        pred = state.model.eval()(x)
+        sums = metric_sums_from_batch(
+            pred, batch["depth"][..., None],
+            valid_image=batch.get("valid_image"),
+            max_depth=cfg.data.eval_max_depth,
+            protocol=cfg.train.metrics_protocol)
+        return sums, pred
+
+    # ---------------------------------------------------------- epochs
+    def train_epoch(self, state: TrainState, epoch: int, log=print):
+        """One epoch of `steps_per_epoch` train steps; returns the state
+        and the epoch's metrics (finalized sums, mean loss, step losses,
+        data and step times, learning rate)."""
+        cfg = self.cfg
+        tag = 17 * epoch + 1
+        it = make_train_iterator(
+            self.train_ds, global_batch=cfg.train.batch_size, epoch=epoch,
+            seed=cfg.train.seed, num_workers=cfg.data.num_workers,
+            steps=self.steps_per_epoch)
+        meter = AverageMeter()
+        sums = MetricSums.zeros(cfg.train.metrics_protocol, self.device)
+        losses = []
+        t_end = time.time()
+        try:
+            for step, batch in enumerate(device_prefetch(it, self.device)):
+                data_time = time.time() - t_end
+                state, loss, s = self.train_step(state, batch, tag)
+                if step % cfg.train.log_every == 0:
+                    loss_f = float(loss)  # the epoch's only host sync
+                    step_time = (time.time() - t_end) - data_time
+                    ips = cfg.train.batch_size / max(step_time, 1e-9)
+                    log(f"epoch {epoch} step {step}/{self.steps_per_epoch} "
+                        f"loss {loss_f:.4f} data {data_time*1000:.0f}ms "
+                        f"step {step_time*1000:.0f}ms ({ips:.1f} img/s)")
+                meter.update(data_time=data_time,
+                             step_time=time.time() - t_end - data_time)
+                losses.append(loss)
+                sums = sums + s
+                t_end = time.time()
+        finally:
+            it.close()
+
+        metrics = finalize_metrics(sums)
+        step_losses = torch.stack(losses).cpu() if losses else None
+        metrics["loss"] = (float(step_losses.mean()) if losses
+                           else float("nan"))
+        metrics["step_losses"] = ([float(x) for x in step_losses]
+                                  if losses else [])
+        metrics.update(meter.average())
+        metrics["lr"] = float(self.lr_schedule(state.step))
+        return state, metrics
+
+    def evaluate(self, state: TrainState, log=print) -> dict:
+        """Metrics of the validation set; images_per_sec leaves out the
+        first batch (warm-up) when there are more."""
+        cfg = self.cfg
+        it = make_eval_iterator(self.val_ds,
+                                global_batch=cfg.train.batch_size,
+                                num_workers=cfg.data.num_workers)
+        sums = MetricSums.zeros(cfg.train.metrics_protocol, self.device)
+        t0 = t_warm = time.time()
+        n_warm = 0.0
+        try:
+            for i, batch in enumerate(device_prefetch(it, self.device)):
+                s, _ = self.eval_step(state, batch, i)
+                sums = sums + s
+                if i == 0:
+                    n_warm = float(sums.n_images)
+                    t_warm = time.time()
+        finally:
+            it.close()
+        metrics = finalize_metrics(sums)
+        steady = metrics["n_images"] - n_warm
+        if steady > 0:
+            metrics["images_per_sec"] = steady / max(time.time() - t_warm,
+                                                     1e-9)
+        else:
+            metrics["images_per_sec"] = (metrics["n_images"]
+                                         / max(time.time() - t0, 1e-9))
+        log("eval " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()
+                               if isinstance(v, float)))
+        return metrics

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU (the hand-written kernel has no CPU mode)
 and skip without one. They import no JAX, so they also run on a machine
@@ -7,10 +7,13 @@ tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for the kernel.
-The kernel contracts to FMA and sums in its own order; random signed gates
+Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
+(K1 forward, K2 stash forward, K3 adjoint) and each of its outputs. The
+kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
-meaningless and `8sum_abs` is the absolute-scale control.
+meaningless and `8sum_abs` is the absolute-scale control. Gradients
+through the autograd Function against torch autograd of the plain loop:
+<= 1e-4, the reverse-mode sums of two different programs.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from cspn_monodepth_tpu_torch.models import CSPNDepthNet
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
 
 TOL = 1e-5
+GRAD_TOL = 1e-4
 # A small f32 network on the card vs the CPU with TF32 off: convolutions
 # sum in another order, then T=4 CSPN iterations.
 MODEL_TOL = 1e-3
@@ -154,3 +158,134 @@ def test_small_model_on_card_matches_cpu(cuda):
     assert np.abs(got - want).max() / np.abs(want).max() <= MODEL_TOL
     m = sparse > 0
     np.testing.assert_array_equal(got[m], sparse[m])
+
+
+GRAD_CASES = [
+    (1, (228, 304), "8sum_clamp", True),
+    (24, (228, 304), "8sum", True),
+    (24, (57, 76), "8sum_abs", True),
+    (24, (57, 76), "8sum_clamp", False),
+    (5, (13, 17), "8sum", False),
+    (0, (33, 65), "8sum_clamp", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_iters,hw,norm,with_sparse", GRAD_CASES)
+def test_stash_forward_and_adjoint_match_plain(cuda, num_iters, hw, norm,
+                                               with_sparse):
+    """K2 (out and every stash plane) and K3 (d_guid, d_blur, d_sparse)
+    against cspn_fwd_stash_plain and cspn_bwd_plain; K2's out is K1's."""
+    guid, blur, sparse = problem(11, 2, *hw, with_sparse)
+    cot = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        blur.shape).astype(np.float32))
+    kw = dict(num_iters=num_iters, norm_type=norm)
+    want_out, want_stash = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sparse,
+                                                          **kw)
+    want_grads = cspn_cuda.cspn_bwd_plain(guid, sparse, want_stash, cot, **kw)
+    g, b, s, c = to((guid, blur, sparse, cot), cuda)
+    before = (cspn_cuda.cspn_fwd_stash.launches, cspn_cuda.cspn_bwd.launches)
+    out, stash = cspn_cuda.cspn_fwd_stash(g, b, s, **kw)
+    grads = cspn_cuda.cspn_bwd(g, s, stash, c, **kw)
+    torch.cuda.synchronize()
+    assert (cspn_cuda.cspn_fwd_stash.launches,
+            cspn_cuda.cspn_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert stash.shape == (2, num_iters, *hw)
+    assert max_rel(out, want_out) <= TOL
+    torch.testing.assert_close(out, cspn_cuda.cspn_fwd(g, b, s, **kw),
+                               rtol=0, atol=0)
+    for t in range(num_iters):
+        assert max_rel(stash[:, t], want_stash[:, t]) <= TOL, t
+    for got, want in zip(grads, want_grads):
+        assert got.shape == want.shape
+        if want.abs().max() == 0:       # d_sparse without a sparse map
+            assert got.abs().max() == 0
+        else:
+            assert max_rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
+def test_adjoint_of_zero_guidance_matches_plain(cuda, norm):
+    """A fresh model's head is zero: every gate 0, s = 0 below the floor."""
+    _, blur, sparse = problem(13, 1, 40, 50)
+    guid = torch.zeros(1, 8, 40, 50)
+    cot = torch.ones_like(blur)
+    kw = dict(num_iters=6, norm_type=norm)
+    _, want_stash = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sparse, **kw)
+    want = cspn_cuda.cspn_bwd_plain(guid, sparse, want_stash, cot, **kw)
+    g, b, s, c = to((guid, blur, sparse, cot), cuda)
+    _, stash = cspn_cuda.cspn_fwd_stash(g, b, s, **kw)
+    got = cspn_cuda.cspn_bwd(g, s, stash, c, **kw)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        if w.abs().max() == 0:
+            assert a.abs().max() == 0
+        else:
+            assert max_rel(a, w) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sparse", [True, False])
+def test_autograd_function_matches_torch_autograd(cuda, with_sparse):
+    """Gradients of every input through the kernels (K2 forward, K3
+    backward) against torch autograd of the plain loop, with guidance and
+    blur as strided slices of one head tensor, as the model passes them."""
+    gen = torch.Generator().manual_seed(5)
+    heads = torch.randn(2, 9, 45, 70, generator=gen)
+    heads[:, 0] = 0.5 + 9 * torch.rand(2, 45, 70, generator=gen)
+    _, _, sparse = problem(6, 2, 45, 70, with_sparse)
+    cot = torch.randn(2, 45, 70, generator=gen)
+    kw = dict(num_iters=24, norm_type="8sum_clamp", guidance_layout="NCHW")
+
+    def grads(device, impl):
+        h = heads.to(device).requires_grad_()
+        sp = None if sparse is None else sparse.to(device).requires_grad_()
+        out = cspn_propagate(h[:, 1:], h[:, 0], sp, impl=impl, **kw)
+        inputs = [h] + ([sp] if sp is not None else [])
+        return torch.autograd.grad((out * cot.to(device)).sum(), inputs)
+
+    before = (cspn_cuda.cspn_fwd_stash.launches, cspn_cuda.cspn_bwd.launches)
+    got = grads(cuda, "auto")
+    assert (cspn_cuda.cspn_fwd_stash.launches,
+            cspn_cuda.cspn_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = grads("cpu", "torch")
+    for a, w in zip(got, want):
+        assert max_rel(a, w) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_gradient_reaches_the_head_through_the_kernels(cuda):
+    """A train-mode step of a small model on the card: the loss's gradient
+    reaches head.weight through K2/K3 and equals the plain-CSPN model's."""
+    cfg = get_config("synthetic_tiny").override(**{"model.dtype": "float32"})
+    gen = torch.Generator().manual_seed(0)
+    model = CSPNDepthNet.from_config(cfg.model, generator=gen)
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.05, generator=gen)
+        model.head.bias.fill_(0.5)
+    h, w = cfg.data.height, cfg.data.width
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.random((2, h, w, 3), dtype=np.float32),
+                        np.where(rng.random((2, h, w, 1)) < 0.01, 3.0,
+                                 0.0).astype(np.float32)], -1)
+    target = torch.from_numpy(rng.uniform(1, 5, (2, h, w, 1)).astype(
+        np.float32))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grads = {}
+        for impl in ("auto", "torch"):
+            model.cspn_impl = impl
+            m = model.to(cuda).train()
+            m.zero_grad()
+            before = cspn_cuda.cspn_bwd.launches
+            pred = m(torch.from_numpy(x).to(cuda))
+            ((pred - target.to(cuda)) ** 2).mean().backward()
+            torch.cuda.synchronize()
+            assert cspn_cuda.cspn_bwd.launches == before + (impl == "auto")
+            grads[impl] = m.head.weight.grad.clone()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert grads["auto"].abs().max() > 0
+    assert max_rel(grads["auto"], grads["torch"]) <= MODEL_TOL

@@ -60,7 +60,9 @@ def test_matcher_allows_the_port(name):
 def test_sources_are_found():
     rel = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"chip_smoke.py", "cspn_monodepth_tpu_torch/serving.py",
-            "cspn_monodepth_tpu_torch/ops/cspn_cuda.py"} <= rel
+            "cspn_monodepth_tpu_torch/ops/cspn_cuda.py",
+            "cspn_monodepth_tpu_torch/train/loop.py",
+            "cspn_monodepth_tpu_torch/data/pipeline.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -79,6 +81,9 @@ def test_port_imports_without_jax():
         "import cspn_monodepth_tpu_torch.models.convert\n"
         "import cspn_monodepth_tpu_torch.ops.cspn_cuda\n"
         "import cspn_monodepth_tpu_torch.serving\n"
+        "import cspn_monodepth_tpu_torch.train\n"
+        "import cspn_monodepth_tpu_torch.data\n"
+        "import cspn_monodepth_tpu_torch.ops.sparse\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(sorted(bad))\n"
