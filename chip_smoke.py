@@ -23,7 +23,22 @@ exits non-zero:
      memory, a profile of one step, the loss falling on a fixed batch),
      Trainer.evaluate (K1), one step with the kernels against one with the
      plain CSPN loop, and a small f32 model's train step on the card
-     against the CPU.
+     against the CPU;
+  6. kitti_kernels: the H-tiled route's kernels (K4 forward, K5 stash
+     forward, K6 adjoint, on prenormalized gates) against their plain
+     versions at KITTI's 352x1216 and at edge cases, TiledCSPNFunction's
+     gradients against torch autograd of the plain loop, the tiled route
+     against K1 on the same raw guidance; K4-K6, K1, the plain versions
+     and the prenormalization timed at batch 8;
+  7. kitti_serving: DepthPredictor at the full width of kitti_1216 (one
+     device) with seeded random weights, single requests and batches of 8,
+     the K4/K1 launch counts of that run, a profile of one batch, the path
+     against the plain CSPN loop;
+  8. kitti_train: Trainer.train_step of kitti_1216 at batch 8 on synthetic
+     records (timed steps, K5/K6 launch counts, peak memory, a profile, the
+     loss falling), one step against the plain CSPN loop, then train_epoch
+     and evaluate (K4) through KITTIDataset on raw 375x1242 npz frames the
+     script writes, with the augmentation executor that ran.
 Then a line with the kernel table and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
 """
@@ -34,16 +49,22 @@ import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from cspn_monodepth_tpu_torch import DepthPredictor, get_config
-from cspn_monodepth_tpu_torch.data import pack_batch
+from cspn_monodepth_tpu_torch import DepthPredictor, get_config, native
+from cspn_monodepth_tpu_torch.data import make_train_iterator, pack_batch
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
-from cspn_monodepth_tpu_torch.ops.cspn_ref import NORM_TYPES
+from cspn_monodepth_tpu_torch.ops.cspn_ref import (
+    NORM_TYPES,
+    anchor,
+    prenorm_gates9,
+)
 from cspn_monodepth_tpu_torch.train import Trainer
 
 # H100 SXM published peaks (NVIDIA data sheet, full 700 W power limit).
@@ -80,6 +101,11 @@ TRAIN_STEPS = 10
 # Timed requests: p75 of 40 single-image requests has 10 samples above it.
 SINGLE_REQUESTS = 40
 BATCH_REQUESTS = 12
+KITTI_H, KITTI_W = 352, 1216
+KITTI_RAW = (375, 1242)         # a raw frame, bottom-cropped to 352x1216
+KITTI_BATCH = 8
+KITTI_MAX_DEPTH = 85.0
+KITTI_FRAMES = {"train": 48, "val": 8}
 
 
 def emit(phase: str, **kw):
@@ -154,6 +180,29 @@ def bwd_bound_ms(b, h, w, num_iters, sparse: bool):
                     px * (40 * num_iters + 80))
 
 
+def tiled_fwd_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K4: read the 9 gate planes, d0 and sparse once, write the result
+    once; 19 flop/px per iteration (no normalization)."""
+    px = b * h * w
+    return bound_ms(9 + 1 + int(sparse) + 1, px, px * 19 * num_iters)
+
+
+def tiled_stash_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K5: K4's planes plus the T stash planes written once."""
+    px = b * h * w
+    return bound_ms(9 + 1 + int(sparse) + 1 + num_iters, px,
+                    px * 19 * num_iters)
+
+
+def tiled_bwd_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K6: read the 9 gate planes, sparse, the cotangent and the T stash
+    planes once, write the 9 gate gradients, lam0 and the sparse sums once;
+    ~40 flop/px per iteration, no chain rule."""
+    px = b * h * w
+    return bound_ms(9 + int(sparse) + 1 + num_iters + 9 + 1 + 1, px,
+                    px * 40 * num_iters)
+
+
 def phase_toolchain() -> str:
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -176,9 +225,12 @@ def phase_build():
     paths = cspn_cuda.build()
     seconds = time.perf_counter() - t0
     for name, path in paths.items():
+        # Each kernel's entry line (its mangled name: ILb0E is the raw
+        # contract, ILb1E the prenormalized one) before its registers.
         ptxas = [ln.strip() for ln in
                  cspn_cuda.build_log.get(name, "").splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if any(k in ln for k in ("Compiling entry", "registers",
+                                          "spill"))]
         emit("build", source=f"csrc/{name}.cu", seconds=seconds,
              library=path.name, ptxas=ptxas)
 
@@ -266,12 +318,12 @@ def randomized_variables(cfg) -> dict:
     return jax_variables(model)
 
 
-def requests(rng, b, h, w, n_sparse=500):
+def requests(rng, b, h, w, n_sparse=500, depth_range=(0.5, 9.5)):
     rgb = rng.random((b, h, w, 3), dtype=np.float32)
     sparse = np.zeros((b, h * w), np.float32)
     for i in range(b):
         idx = rng.choice(h * w, n_sparse, replace=False)
-        sparse[i, idx] = rng.uniform(0.5, 9.5, n_sparse)
+        sparse[i, idx] = rng.uniform(*depth_range, n_sparse)
     return rgb, sparse.reshape(b, h, w)
 
 
@@ -345,69 +397,93 @@ def host_ms(fn, runs: int = 6) -> float:
     return float(np.median(times))
 
 
-def phase_serving(gpu: str) -> tuple[int, float]:
-    cfg = get_config("nyu_completion_500")
-    t0 = time.perf_counter()
-    variables = randomized_variables(cfg)
-    predictor = DepthPredictor.from_variables(cfg, variables)
-    setup_s = time.perf_counter() - t0
-
-    rng = np.random.default_rng(SEED)
-    batch = 32
-    rgb, sparse = requests(rng, batch, NYU_H, NYU_W)
-    # Warm-up at both request shapes (cuDNN chooses algorithms per shape).
+def serve(cfg, predictor, rgb, sparse, gpu: str, phase: str) -> dict:
+    """The serving main path: warm-up at both request shapes (cuDNN
+    chooses algorithms per shape), then, with the launch counts set to 0,
+    SINGLE_REQUESTS single-image requests and BATCH_REQUESTS batches, each
+    checked; emits `phase` and `phase`_profile (the host-to-device copy of
+    the model's input, the model's forward on an input already on the
+    card, the rest of a predict_batch call being the host's preparation
+    and the copy back; one batch under the profiler). Returns the launch
+    counts of the main path and the last batch's output."""
+    batch, h, w = sparse.shape
     predictor.predict(rgb[0], sparse[0])
     predictor.predict_batch(rgb, sparse)
     torch.cuda.synchronize()
 
-    # The main path: single-image requests, then batches of 32.
-    cspn_cuda.cspn_fwd.launches = 0
+    reset_counts()
     single_ms = []
     for i in range(SINGLE_REQUESTS):
         t0 = time.perf_counter()
         depth = predictor.predict(rgb[i % batch], sparse[i % batch])
         single_ms.append(1e3 * (time.perf_counter() - t0))
-        check_depth(depth, sparse[i % batch], (NYU_H, NYU_W))
+        check_depth(depth, sparse[i % batch], (h, w))
     batch_ms = []
     for _ in range(BATCH_REQUESTS):
         t0 = time.perf_counter()
         out = predictor.predict_batch(rgb, sparse)
         batch_ms.append(1e3 * (time.perf_counter() - t0))
-        check_depth(out, sparse, (batch, NYU_H, NYU_W))
-    launches = cspn_cuda.cspn_fwd.launches
-    if launches == 0:
-        raise AssertionError("the serving path never launched cspn_fwd")
-    emit("serving", config=cfg.name, arch=cfg.model.arch,
+        check_depth(out, sparse, (batch, h, w))
+    launches = counts()
+    emit(phase, config=cfg.name, arch=cfg.model.arch,
          modality=cfg.model.modality, num_iters=cfg.model.num_iters,
-         norm=cfg.model.norm_type, dtype=cfg.model.dtype, h=NYU_H, w=NYU_W,
-         setup_s=setup_s, requests=len(single_ms),
+         norm=cfg.model.norm_type, dtype=cfg.model.dtype, h=h, w=w,
+         requests=len(single_ms),
          ms_per_request_p50=float(np.median(single_ms)),
          ms_per_request_p75=float(np.percentile(single_ms, 75)),
          batch=batch, batches=len(batch_ms),
          batch_ms_p50=float(np.median(batch_ms)),
          batch_ms_max=max(batch_ms),
          img_per_s=batch / (float(np.median(batch_ms)) / 1e3),
-         cspn_fwd_launches=launches,
-         max_abs_depth=float(np.abs(out).max()), gpu=gpu)
-    # Layers of one batch: the host-to-device copy of the model's input and
-    # the model's forward on an input already on the card; the rest of a
-    # predict_batch call is the host's preparation and the copy back.
+         launches=launches, max_abs_depth=float(np.abs(out).max()), gpu=gpu)
     x = np.concatenate([rgb, sparse[..., None]], axis=-1)
     x_dev = torch.from_numpy(x).cuda()
     with torch.inference_mode():
         model_ms = host_ms(lambda: predictor.model(x_dev))
-    emit("serving_profile", batch=batch, gpu=gpu,
+    emit(f"{phase}_profile", batch=batch, gpu=gpu,
          h2d_ms=host_ms(lambda: torch.from_numpy(x).cuda()),
          model_ms=model_ms,
          **device_profile(lambda: predictor.predict_batch(rgb, sparse)))
+    return dict(launches=launches, out=out)
 
-    # The kernel against its plain version on the heads the path computed.
+
+def path_heads(predictor, rgb, sparse) -> torch.Tensor:
+    """The head output (B, 9, H, W) of one predict_batch call."""
     captured = []
     hook = predictor.model.head.register_forward_hook(
         lambda module, args, out: captured.append(out))
     predictor.predict_batch(rgb, sparse)
     hook.remove()
-    heads = captured[0]
+    return captured[0]
+
+
+def path_vs_plain(cfg, variables, predictor, rgb, sparse):
+    """Max-relative error of the serving path against the same model with
+    the plain CSPN loop, and that plain predictor. The same convolution
+    algorithms in both, so that they differ only in their CSPN."""
+    torch.backends.cudnn.deterministic = True
+    out = predictor.predict_batch(rgb, sparse)
+    plain = DepthPredictor.from_variables(
+        cfg.override(**{"model.cspn_impl": "torch"}), variables)
+    want = plain.predict_batch(rgb, sparse)
+    torch.backends.cudnn.deterministic = False
+    return float(np.abs(out - want).max() / np.abs(want).max()), plain
+
+
+def phase_serving(gpu: str) -> tuple[int, float]:
+    cfg = get_config("nyu_completion_500")
+    variables = randomized_variables(cfg)
+    predictor = DepthPredictor.from_variables(cfg, variables)
+    rng = np.random.default_rng(SEED)
+    batch = 32
+    rgb, sparse = requests(rng, batch, NYU_H, NYU_W)
+    launches = serve(cfg, predictor, rgb, sparse, gpu,
+                     "serving")["launches"]["cspn_fwd"]
+    if launches == 0:
+        raise AssertionError("the serving path never launched cspn_fwd")
+
+    # The kernel against its plain version on the heads the path computed.
+    heads = path_heads(predictor, rgb, sparse)
     sp = torch.from_numpy(sparse).cuda()
     kw = dict(num_iters=cfg.model.num_iters, norm_type=cfg.model.norm_type)
     got = cspn_cuda.cspn_fwd(heads[:, 1:], heads[:, 0], sp, **kw)
@@ -418,16 +494,7 @@ def phase_serving(gpu: str) -> tuple[int, float]:
         raise AssertionError(f"cspn_fwd vs plain on the path's heads: "
                              f"max_rel {heads_err} > {KERNEL_TOL}")
 
-    # The whole path against the same model with the plain CSPN loop. The
-    # same convolution algorithms in both, so that they differ only in
-    # their CSPN.
-    torch.backends.cudnn.deterministic = True
-    out = predictor.predict_batch(rgb, sparse)
-    plain = DepthPredictor.from_variables(
-        cfg.override(**{"model.cspn_impl": "torch"}), variables)
-    want = plain.predict_batch(rgb, sparse)
-    torch.backends.cudnn.deterministic = False
-    path_err = float(np.abs(out - want).max() / np.abs(want).max())
+    path_err, plain = path_vs_plain(cfg, variables, predictor, rgb, sparse)
 
     # Batch time with the kernel and with the plain CSPN loop, in turns
     # (kernel, plain, plain, kernel) so that drift hits both alike.
@@ -447,7 +514,7 @@ def phase_serving(gpu: str) -> tuple[int, float]:
     if not path_err <= PATH_TOL:
         raise AssertionError(f"serving path with the kernel vs the plain "
                              f"CSPN: max_rel {path_err} > {PATH_TOL}")
-    del predictor, plain, heads, captured
+    del predictor, plain, heads
 
     # A small f32 model on the card against the same weights on the CPU.
     torch.backends.cudnn.allow_tf32 = False
@@ -504,6 +571,37 @@ def train_kernel_errors(guid, blur, sp, cot, kw) -> dict:
                                for g, w in zip(grads, want_grads)))
 
 
+def grad_case(gen, c: dict, impl: str, phase: str):
+    """Gradients of every input of cspn_propagate(impl) for a random
+    cotangent against torch autograd of the plain loop, guidance and blur
+    as slices of one random head tensor; emits `phase`, raises past
+    GRAD_TOL."""
+    heads = torch.randn((c["b"], 9, c["h"], c["w"]), generator=gen,
+                        device="cuda")
+    heads[:, 0] = 0.5 + 9.0 * heads[:, 0].abs()
+    sp = None
+    if c["sparse"]:
+        keep = torch.rand(heads[:, 0].shape, generator=gen,
+                          device="cuda") < 0.01
+        sp = torch.where(keep, heads[:, 0] + 0.25,
+                         torch.zeros_like(heads[:, 0]))
+    cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
+    grads = {}
+    for route in (impl, "torch"):
+        h = heads.clone().requires_grad_()
+        s = None if sp is None else sp.clone().requires_grad_()
+        out = cspn_propagate(h[:, 1:], h[:, 0], s, num_iters=c["t"],
+                             norm_type=c["norm"], impl=route,
+                             guidance_layout="NCHW")
+        inputs = [h] + ([s] if s is not None else [])
+        grads[route] = torch.autograd.grad((out * cot).sum(), inputs)
+    errs = [max_rel(a, b) for a, b in zip(grads[impl], grads["torch"])]
+    emit(phase, **c, impl=impl, max_rel=errs, tol=GRAD_TOL)
+    if not max(errs) <= GRAD_TOL:
+        raise AssertionError(f"{impl} gradients vs torch autograd of the "
+                             f"plain loop: {c} {errs}")
+
+
 def phase_train_kernels(gpu: str) -> dict:
     """K2 (stash forward) and K3 (adjoint) against their plain versions on
     K1's case matrix plus zero guidance; the autograd Function's gradients
@@ -533,30 +631,7 @@ def phase_train_kernels(gpu: str) -> dict:
     for c in (dict(b=2, h=NYU_H, w=NYU_W, t=24, norm="8sum_clamp",
                    sparse=True),
               dict(b=1, h=57, w=76, t=24, norm="8sum_abs", sparse=False)):
-        heads = torch.randn((c["b"], 9, c["h"], c["w"]), generator=gen,
-                            device="cuda")
-        heads[:, 0] = 0.5 + 9.0 * heads[:, 0].abs()
-        sp = None
-        if c["sparse"]:
-            keep = torch.rand(heads[:, 0].shape, generator=gen,
-                              device="cuda") < 0.01
-            sp = torch.where(keep, heads[:, 0] + 0.25,
-                             torch.zeros_like(heads[:, 0]))
-        cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
-        grads = {}
-        for impl in ("auto", "torch"):
-            h = heads.clone().requires_grad_()
-            s = None if sp is None else sp.clone().requires_grad_()
-            out = cspn_propagate(h[:, 1:], h[:, 0], s, num_iters=c["t"],
-                                 norm_type=c["norm"], impl=impl,
-                                 guidance_layout="NCHW")
-            inputs = [h] + ([s] if s is not None else [])
-            grads[impl] = torch.autograd.grad((out * cot).sum(), inputs)
-        errs = [max_rel(a, b) for a, b in zip(grads["auto"], grads["torch"])]
-        emit("function_grad_case", **c, max_rel=errs, tol=GRAD_TOL)
-        if not max(errs) <= GRAD_TOL:
-            raise AssertionError(f"CSPNFunction gradients vs torch autograd "
-                                 f"of the plain loop: {c} {errs}")
+        grad_case(gen, c, "cuda", "function_grad_case")
 
     b, t, kw = TRAIN_BATCH, 24, dict(num_iters=24, norm_type="8sum_clamp")
     guid, blur, sp = cspn_problem(gen, b, NYU_H, NYU_W, strided=True)
@@ -601,25 +676,26 @@ def fixed_batch(trainer: Trainer, n: int) -> dict:
 
 
 def reset_counts():
-    for fn in (cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash,
-               cspn_cuda.cspn_bwd):
+    for fn in cspn_cuda.WRAPPERS:
         fn.launches = 0
 
 
 def counts() -> dict:
-    return {fn.__name__: fn.launches for fn in (
-        cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash, cspn_cuda.cspn_bwd)}
+    return {fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS}
 
 
-def phase_train(gpu: str) -> dict:
-    cfg = train_config()
-    t0 = time.perf_counter()
-    variables = randomized_variables(cfg)
+def timed_train(cfg, variables, batch_size: int, kernels: tuple,
+                gpu: str, phase: str):
+    """The train main path: a Trainer of cfg from `variables`, TRAIN_WARMUP
+    steps, then, with the launch counts set to 0, TRAIN_STEPS steps on one
+    fixed batch of the first batch_size records; each of `kernels` must
+    have launched once per step and no other kernel. Emits `phase` (step
+    times, peak memory, launches, losses, which must be finite and fall)
+    and `phase`_profile (one step under the profiler: device time by
+    class, idle share). Returns the trainer, its state and the launches."""
     trainer = Trainer(cfg)
     state = trainer.init_state(variables)
-    batch = fixed_batch(trainer, TRAIN_BATCH)
-    setup_s = time.perf_counter() - t0
-
+    batch = fixed_batch(trainer, batch_size)
     losses = []
     for _ in range(TRAIN_WARMUP):
         state, loss, _ = trainer.train_step(state, batch)
@@ -627,36 +703,42 @@ def phase_train(gpu: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # The main path: TRAIN_STEPS train steps on one fixed batch.
     reset_counts()
     step_ms = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        state, loss, sums = trainer.train_step(state, batch)
+        state, loss, _ = trainer.train_step(state, batch)
         losses.append(float(loss))          # waits for the step
         step_ms.append(1e3 * (time.perf_counter() - t0))
     launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if not (launches["cspn_fwd_stash"] == launches["cspn_bwd"] == TRAIN_STEPS
-            and launches["cspn_fwd"] == 0):
-        raise AssertionError(f"the train path's kernel launches {launches},"
-                             f" expected K2 = K3 = {TRAIN_STEPS}, K1 = 0")
+    want = {k: TRAIN_STEPS if k in kernels else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"the {phase} path's kernel launches "
+                             f"{launches}, expected {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: "
                              f"{losses}")
     median = float(np.median(step_ms))
-    emit("train", config=cfg.name, arch=cfg.model.arch,
+    emit(phase, config=cfg.name, arch=cfg.model.arch,
          num_iters=cfg.model.num_iters, norm=cfg.model.norm_type,
-         dtype=cfg.model.dtype, batch=TRAIN_BATCH, h=NYU_H, w=NYU_W,
-         setup_s=setup_s, steps=len(step_ms), ms_per_step_p50=median,
-         ms_per_step_max=max(step_ms), img_per_s=TRAIN_BATCH / median * 1e3,
+         dtype=cfg.model.dtype, batch=batch_size, h=cfg.data.height,
+         w=cfg.data.width, steps=len(step_ms), ms_per_step_p50=median,
+         ms_per_step_max=max(step_ms), img_per_s=batch_size / median * 1e3,
          peak_mem_gb=peak_gb, launches=launches, losses=losses, gpu=gpu)
-
-    # One step under the profiler: device time by class, idle share.
-    emit("train_profile", batch=TRAIN_BATCH, gpu=gpu,
+    emit(f"{phase}_profile", batch=batch_size, gpu=gpu,
          **device_profile(lambda: trainer.train_step(state, batch)))
+    return trainer, state, launches
+
+
+def phase_train(gpu: str) -> dict:
+    cfg = train_config()
+    variables = randomized_variables(cfg)
+    trainer, state, launches = timed_train(
+        cfg, variables, TRAIN_BATCH, ("cspn_fwd_stash", "cspn_bwd"), gpu,
+        "train")
 
     # The loop through the data pipeline (pinned, non-blocking copies).
     epoch_state, metrics = trainer.train_epoch(state, 0, log=lambda *a: None)
@@ -683,14 +765,15 @@ def phase_train(gpu: str) -> dict:
     return dict(launches=launches, **path)
 
 
-def phase_train_vs_plain(cfg, variables, gpu: str) -> dict:
+def step_vs_plain(cfg, variables, batch_size: int):
     """One train step with the kernels against the same step with the
     plain CSPN loop: identical weights, batch and sparse map, cuDNN
     deterministic. The gradient clip is off here: its factor is the global
     norm of every gradient, bf16 encoder gradients included, which rounds
     differently as soon as the head's gradient differs in its last bits,
-    and would scale both head gradients by factors ~1e-4 apart. Also K2/K3
-    against their plain versions on the step's own heads."""
+    and would scale both head gradients by factors ~1e-4 apart. Returns the
+    comparison, the kernel step's heads and its sparse map; raises past the
+    tolerances."""
     torch.backends.cudnn.deterministic = True
     results = {}
     captured = []
@@ -698,7 +781,7 @@ def phase_train_vs_plain(cfg, variables, gpu: str) -> dict:
     for impl in ("auto", "torch"):
         trainer = Trainer(cfg.override(**{"model.cspn_impl": impl,
                                           "train.clip_norm": 0.0}))
-        batch = fixed_batch(trainer, TRAIN_BATCH)
+        batch = fixed_batch(trainer, batch_size)
         if sparse is None:
             sparse = trainer._sample_sparse(
                 trainer._rng(0, 0), trainer._unpack(batch)["depth"], None)
@@ -720,20 +803,25 @@ def phase_train_vs_plain(cfg, variables, gpu: str) -> dict:
     loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     grad_errs = {n: max_rel(k[n], p[n]) for n in ("weight", "bias")}
     grad_err = max(grad_errs.values())
-
-    heads = captured[0]
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
-    r = train_kernel_errors(heads[:, 1:], heads[:, 0], k["sparse"], cot,
-                            dict(num_iters=cfg.model.num_iters,
-                                 norm_type=cfg.model.norm_type))
-    emit("train_vs_plain_cspn", batch=TRAIN_BATCH,
-         loss_kernel=k["loss"], loss_plain=p["loss"], loss_rel=loss_err,
-         loss_tol=STEP_LOSS_TOL, head_grad_max_rel=grad_errs,
-         head_grad_tol=GRAD_TOL, heads_kernels=r, gpu=gpu)
     if not (loss_err <= STEP_LOSS_TOL and grad_err <= GRAD_TOL):
         raise AssertionError(f"train step with the kernels vs the plain "
                              f"CSPN: loss {loss_err}, head grads {grad_err}")
+    return (dict(batch=batch_size, loss_kernel=k["loss"],
+                 loss_plain=p["loss"], loss_rel=loss_err,
+                 loss_tol=STEP_LOSS_TOL, head_grad_max_rel=grad_errs,
+                 head_grad_tol=GRAD_TOL), captured[0], k["sparse"])
+
+
+def phase_train_vs_plain(cfg, variables, gpu: str) -> dict:
+    """step_vs_plain on the NYU path, and K2/K3 against their plain
+    versions on the step's own heads."""
+    line, heads, sparse = step_vs_plain(cfg, variables, TRAIN_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
+    r = train_kernel_errors(heads[:, 1:], heads[:, 0], sparse, cot,
+                            dict(num_iters=cfg.model.num_iters,
+                                 norm_type=cfg.model.norm_type))
+    emit("train_vs_plain_cspn", **line, heads_kernels=r, gpu=gpu)
     if not (max(r["max_rel"].values()) <= KERNEL_TOL and r["k2_equals_k1"]):
         raise AssertionError(f"K2/K3 vs plain on the path's heads: {r}")
     return dict(k2_max_abs=r["k2_max_abs"], k3_max_abs=r["k3_max_abs"])
@@ -789,6 +877,300 @@ def phase_train_device_vs_cpu():
                              f"CPU: {without}, with cuDNN {with_cudnn}")
 
 
+def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
+                        norm_type: str) -> dict:
+    """K4, K5 and K6 against their plain versions on the prenormalized
+    gates of raw guidance `guid` and the anchored d^0: the largest
+    max-relative error of each output (every stash plane on its own),
+    their largest absolute errors, anchors exact, and whether K5's output
+    is K4's bit for bit."""
+    gates9, d0 = prenorm_gates9(guid, norm_type), anchor(blur, sp)
+    kw = dict(num_iters=num_iters)
+    k4 = cspn_cuda.cspn_tiled_fwd(gates9, d0, sp, **kw)
+    out, stash = cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp, **kw)
+    grads = cspn_cuda.cspn_tiled_bwd(gates9, sp, stash, cot, **kw)
+    want_out, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(
+        gates9, d0, sp, **kw)
+    want_grads = cspn_cuda.cspn_tiled_bwd_plain(gates9, sp, want_stash, cot,
+                                                **kw)
+    torch.cuda.synchronize()
+    errs = {"k4_out": max_rel(k4, want_out),
+            "k5_stash": max([max_rel(stash[:, t], want_stash[:, t])
+                             for t in range(stash.shape[1])], default=0.0)}
+    for name, got, want in zip(("d_gates9", "lam0", "d_sparse"), grads,
+                               want_grads):
+        errs[name] = max_rel_or_zero(got, want)
+    anchors_exact = True
+    if sp is not None:
+        m = sp > 0
+        anchors_exact = bool(torch.equal(k4[m], sp[m]))
+    return dict(max_rel=errs, k5_equals_k4=bool(torch.equal(out, k4)),
+                anchors_exact=anchors_exact,
+                k4_max_abs=float((k4 - want_out).abs().max()),
+                k5_max_abs=float((stash - want_stash).abs().max())
+                if stash.numel() else 0.0,
+                k6_max_abs=max(float((g - w).abs().max())
+                               for g, w in zip(grads, want_grads)))
+
+
+def tiled_ok(r: dict) -> bool:
+    return (max(r["max_rel"].values()) <= KERNEL_TOL and r["k5_equals_k4"]
+            and r["anchors_exact"])
+
+
+def kitti_kernel_cases() -> list[dict]:
+    """B=2 352x1216, T in {1, 24} x 3 norms x sparse on/off; 37x48 and
+    13x17 at T=5 (H not a tile multiple, a remainder round); zero guidance
+    x 3 norms; head slices; batch 8."""
+    cases = [dict(b=2, h=KITTI_H, w=KITTI_W, t=t, norm=n, sparse=s)
+             for t in (1, 24) for n in NORM_TYPES for s in (True, False)]
+    cases += [dict(b=2, h=37, w=48, t=5, norm="8sum", sparse=True),
+              dict(b=2, h=13, w=17, t=5, norm="8sum_abs", sparse=False)]
+    cases += [dict(b=1, h=KITTI_H, w=KITTI_W, t=24, norm=n, sparse=True,
+                   zero=True) for n in NORM_TYPES]
+    cases += [dict(b=2, h=KITTI_H, w=KITTI_W, t=24, norm="8sum_clamp",
+                   sparse=s, strided=True) for s in (True, False)]
+    cases += [dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24,
+                   norm="8sum_clamp", sparse=True)]
+    return cases
+
+
+def phase_kitti_kernels(gpu: str) -> dict:
+    """K4, K5 and K6 against their plain versions; TiledCSPNFunction's
+    gradients against torch autograd of the plain loop; the tiled route
+    against K1 on the same raw guidance; times at batch 8, 352x1216."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for c in kitti_kernel_cases():
+        guid, blur, sp = cspn_problem(gen, c["b"], c["h"], c["w"],
+                                      sparse=c["sparse"],
+                                      strided=c.get("strided", False))
+        if c.get("zero"):
+            guid = torch.zeros_like(guid)
+        cot = torch.randn(blur.shape, generator=gen, device="cuda")
+        r = tiled_kernel_errors(guid, blur, sp, cot, c["t"], c["norm"])
+        emit("kitti_kernel_case", kernels=["cspn_tiled_fwd",
+                                           "cspn_tiled_fwd_stash",
+                                           "cspn_tiled_bwd"],
+             **c, **r, tol=KERNEL_TOL)
+        if not tiled_ok(r):
+            raise AssertionError(f"K4/K5/K6 disagree with their plain "
+                                 f"versions: {c} {r}")
+
+    # Gradients of every input through prenorm_gates9, the anchor and
+    # TiledCSPNFunction (K5 + K6) against torch autograd of the plain loop.
+    for c in (dict(b=2, h=KITTI_H, w=KITTI_W, t=24, norm="8sum_clamp",
+                   sparse=True),
+              dict(b=1, h=37, w=48, t=10, norm="8sum_abs", sparse=False)):
+        grad_case(gen, c, "cuda_tiled", "tiled_function_grad_case")
+
+    # The same function by two routes: the tiled kernels on prenormalized
+    # gates against K1 on the raw guidance.
+    for norm in NORM_TYPES:
+        guid, blur, sp = cspn_problem(gen, 2, KITTI_H, KITTI_W)
+        kw = dict(num_iters=24, norm_type=norm, guidance_layout="NCHW")
+        tiled = cspn_propagate(guid, blur, sp, impl="cuda_tiled", **kw)
+        whole = cspn_propagate(guid, blur, sp, impl="cuda", **kw)
+        err = max_rel(tiled, whole)
+        emit("tiled_vs_whole_plane_route", norm=norm, max_rel=err,
+             tol=KERNEL_TOL)
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"tiled route vs K1 ({norm}): {err}")
+
+    b, t = KITTI_BATCH, 24
+    guid, blur, sp = cspn_problem(gen, b, KITTI_H, KITTI_W, strided=True)
+    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
+    cot = torch.randn(blur.shape, generator=gen, device="cuda")
+    kw = dict(num_iters=t)
+    _, stash = cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp, **kw)
+    _, plain_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(gates9, d0, sp,
+                                                          **kw)
+    timing = {}
+    for name, fn, plain, bound in (
+            ("cspn_tiled_fwd",
+             lambda: cspn_cuda.cspn_tiled_fwd(gates9, d0, sp, **kw),
+             lambda: cspn_cuda.cspn_tiled_fwd_plain(gates9, d0, sp, **kw),
+             tiled_fwd_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+            ("cspn_tiled_fwd_stash",
+             lambda: cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp, **kw),
+             lambda: cspn_cuda.cspn_tiled_fwd_stash_plain(gates9, d0, sp,
+                                                          **kw),
+             tiled_stash_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+            ("cspn_tiled_bwd",
+             lambda: cspn_cuda.cspn_tiled_bwd(gates9, sp, stash, cot, **kw),
+             lambda: cspn_cuda.cspn_tiled_bwd_plain(gates9, sp, plain_stash,
+                                                    cot, **kw),
+             tiled_bwd_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+            ("cspn_fwd",
+             lambda: cspn_cuda.cspn_fwd(guid, blur, sp, num_iters=t,
+                                        norm_type="8sum_clamp"),
+             lambda: cspn_cuda.cspn_fwd_plain(guid, blur, sp, num_iters=t,
+                                              norm_type="8sum_clamp"),
+             cspn_bound_ms(b, KITTI_H, KITTI_W, t, True))):
+        ms = time_ms(fn, 20)
+        plain_ms = time_ms(plain, 3, warmup=1)
+        device_ms = device_profile(fn)["busy_ms"]
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1])
+        emit("kernel_time", kernel=name, b=b, h=KITTI_H, w=KITTI_W, t=t,
+             norm="8sum_clamp", ms=ms, device_ms=device_ms,
+             plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+             library_ms=None, gpu=gpu)
+
+    # The prenormalization and its chain rule, plain torch outside the
+    # kernels, on the same inputs.
+    g = guid.detach().clone().requires_grad_()
+    d_gates9 = torch.randn((b, 9, KITTI_H, KITTI_W), generator=gen,
+                           device="cuda")
+
+    def prenorm_fwd_bwd():
+        torch.autograd.grad(prenorm_gates9(g, "8sum_clamp"), g, d_gates9)
+
+    emit("prenorm_time", b=b, h=KITTI_H, w=KITTI_W, norm="8sum_clamp",
+         fwd_ms=time_ms(lambda: prenorm_gates9(guid, "8sum_clamp"), 20),
+         fwd_bwd_ms=time_ms(prenorm_fwd_bwd, 20),
+         anchor_ms=time_ms(lambda: anchor(blur, sp), 20), gpu=gpu)
+    return timing
+
+
+def kitti_config(**overrides):
+    """kitti_1216 on one device (the mesh the JAX bench clamps it to)."""
+    return get_config("kitti_1216").override(**{
+        "mesh.data": 1, "mesh.spatial": 1, **overrides})
+
+
+def phase_kitti_serving(gpu: str) -> tuple[int, float]:
+    cfg = kitti_config()
+    variables = randomized_variables(cfg)
+    predictor = DepthPredictor.from_variables(cfg, variables)
+    rgb, sparse = requests(np.random.default_rng(SEED + 5), KITTI_BATCH,
+                           KITTI_H, KITTI_W,
+                           depth_range=(1.0, KITTI_MAX_DEPTH))
+    launches = serve(cfg, predictor, rgb, sparse, gpu,
+                     "kitti_serving")["launches"]
+    if not (launches["cspn_tiled_fwd"] == SINGLE_REQUESTS + BATCH_REQUESTS
+            and launches["cspn_fwd"] == 0):
+        raise AssertionError(f"the KITTI serving path's launches "
+                             f"{launches}: expected K4 on every request, "
+                             f"K1 never")
+
+    # K4 against its plain version on the heads the path computed.
+    heads = path_heads(predictor, rgb, sparse)
+    sp = torch.from_numpy(sparse).cuda()
+    gates9 = prenorm_gates9(heads[:, 1:], cfg.model.norm_type)
+    d0 = anchor(heads[:, 0], sp)
+    kw = dict(num_iters=cfg.model.num_iters)
+    got = cspn_cuda.cspn_tiled_fwd(gates9, d0, sp, **kw)
+    want = cspn_cuda.cspn_tiled_fwd_plain(gates9, d0, sp, **kw)
+    heads_err = max_rel(got, want)
+    heads_abs = float((got - want).abs().max())
+    if not heads_err <= KERNEL_TOL:
+        raise AssertionError(f"cspn_tiled_fwd vs plain on the path's heads:"
+                             f" max_rel {heads_err} > {KERNEL_TOL}")
+
+    path_err, _ = path_vs_plain(cfg, variables, predictor, rgb, sparse)
+    emit("kitti_serving_vs_plain_cspn", batch=KITTI_BATCH,
+         heads_kernel_max_rel=heads_err, heads_kernel_max_abs=heads_abs,
+         heads_tol=KERNEL_TOL, path_max_rel=path_err, path_tol=PATH_TOL,
+         gpu=gpu)
+    if not path_err <= PATH_TOL:
+        raise AssertionError(f"KITTI serving path with the kernel vs the "
+                             f"plain CSPN: max_rel {path_err} > {PATH_TOL}")
+    return launches["cspn_tiled_fwd"], heads_abs
+
+
+def write_kitti_frames(root: Path, rng) -> None:
+    """Raw 375x1242 KITTI-like npz records: uint8 rgb (smooth gradients and
+    noise) and lidar-like depth, ~5% of pixels with a return in 1..85 m, 0
+    elsewhere."""
+    h, w = KITTI_RAW
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+    for split, n in KITTI_FRAMES.items():
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            base = np.stack([yy, xx, 0.5 * (yy + xx)], -1) * 200.0
+            rgb = np.clip(base + rng.normal(0.0, 20.0, (h, w, 3)), 0, 255)
+            depth = 1.0 + (KITTI_MAX_DEPTH - 1.0) * (1.0 - yy) * rng.uniform(
+                0.5, 1.0)
+            depth = np.where(rng.random((h, w)) < 0.05, depth, 0.0)
+            np.savez(root / split / f"{i:06d}.npz",
+                     rgb=rgb.astype(np.uint8), depth=depth.astype(np.float32))
+
+
+def phase_kitti_train(gpu: str) -> dict:
+    cfg = kitti_config(**{"data.dataset": "synthetic"})
+    variables = randomized_variables(cfg)
+    trainer, state, launches = timed_train(
+        cfg, variables, KITTI_BATCH,
+        ("cspn_tiled_fwd_stash", "cspn_tiled_bwd"), gpu, "kitti_train")
+    del state, trainer
+
+    line, heads, sparse = step_vs_plain(cfg, variables, KITTI_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
+    r = tiled_kernel_errors(heads[:, 1:], heads[:, 0], sparse, cot,
+                            cfg.model.num_iters, cfg.model.norm_type)
+    emit("kitti_train_vs_plain_cspn", **line, heads_kernels=r, gpu=gpu)
+    if not tiled_ok(r):
+        raise AssertionError(f"K4/K5/K6 vs plain on the path's heads: {r}")
+    del heads
+
+    epoch = phase_kitti_epoch(variables, gpu)
+    return dict(launches=launches, eval_launches=epoch["launches"],
+                k5_max_abs=r["k5_max_abs"], k6_max_abs=r["k6_max_abs"])
+
+
+def phase_kitti_epoch(variables, gpu: str) -> dict:
+    """train_epoch and evaluate through KITTIDataset on raw frames that
+    this run writes: the records' host time against the step time, the
+    input pipeline's own batch interval (the iterator drained with no step
+    in between: what it can deliver once started), and the augmentation
+    executor that ran."""
+    with tempfile.TemporaryDirectory(prefix="kitti_smoke_") as root:
+        write_kitti_frames(Path(root), np.random.default_rng(SEED + 7))
+        cfg = kitti_config(**{"data.root": root})
+        trainer = Trainer(cfg)
+        state = trainer.init_state(variables)
+        executor = native.executor()    # builds the C++ executor, untimed
+        t0 = time.perf_counter()
+        recs = [trainer.train_ds.get(i, 0) for i in range(KITTI_BATCH)]
+        record_ms = 1e3 * (time.perf_counter() - t0) / KITTI_BATCH
+        if recs[0]["rgb"].shape != (KITTI_H, KITTI_W, 3):
+            raise AssertionError(f"KITTI record {recs[0]['rgb'].shape}")
+        it = make_train_iterator(
+            trainer.train_ds, global_batch=KITTI_BATCH, epoch=1,
+            seed=cfg.train.seed, num_workers=cfg.data.num_workers,
+            steps=trainer.steps_per_epoch)
+        arrivals = [time.perf_counter()]
+        try:
+            for _ in it:
+                arrivals.append(time.perf_counter())
+        finally:
+            it.close()
+        batch_s = np.diff(arrivals)
+        state, metrics = trainer.train_epoch(state, 0, log=lambda *a: None)
+        reset_counts()
+        ev = trainer.evaluate(state, log=lambda *a: None)
+        launches = counts()
+    emit("kitti_epoch", executor=executor,
+         train_frames=KITTI_FRAMES["train"], steps=trainer.steps_per_epoch,
+         record_ms_one_thread=record_ms, workers=cfg.data.num_workers,
+         pipeline_first_batch_s=float(batch_s[0]),
+         pipeline_batch_s_median=float(np.median(batch_s[1:])),
+         loss=metrics["loss"], step_time_s=metrics["step_time"],
+         data_time_s=metrics["data_time"], n_eval=ev["n_images"],
+         rmse=ev["rmse"], mae=ev["mae"], delta1=ev["delta1"],
+         eval_img_per_s=ev["images_per_sec"], eval_launches=launches,
+         gpu=gpu)
+    if not (np.isfinite(metrics["loss"]) and launches["cspn_tiled_fwd"] > 0
+            and launches["cspn_fwd"] == 0 and all(
+                np.isfinite(ev[k]) for k in ("rmse", "mae", "rel",
+                                             "delta1"))):
+        raise AssertionError(f"KITTI epoch: {metrics['loss']} {ev} "
+                             f"{launches}")
+    return dict(launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -796,9 +1178,12 @@ def main():
     phase_build()
     k1 = phase_kernels(gpu)
     k23 = phase_train_kernels(gpu)
+    k456 = phase_kitti_kernels(gpu)
     reset_counts()
     launches, max_abs_err = phase_serving(gpu)
     train = phase_train(gpu)
+    k4_launches, k4_max_abs = phase_kitti_serving(gpu)
+    kitti = phase_kitti_train(gpu)
 
     def row(name, source, line, launches, max_abs, t):
         return {"name": name, "route": "cuda",
@@ -816,6 +1201,14 @@ def main():
             k23["cspn_fwd_stash"]),
         row("cspn_bwd", "cspn_bwd.cu", 245, train["launches"]["cspn_bwd"],
             train["k3_max_abs"], k23["cspn_bwd"]),
+        row("cspn_tiled_fwd", "cspn_fwd.cu", 632, k4_launches, k4_max_abs,
+            k456["cspn_tiled_fwd"]),
+        row("cspn_tiled_fwd_stash", "cspn_fwd.cu", 828,
+            kitti["launches"]["cspn_tiled_fwd_stash"], kitti["k5_max_abs"],
+            k456["cspn_tiled_fwd_stash"]),
+        row("cspn_tiled_bwd", "cspn_bwd.cu", 1008,
+            kitti["launches"]["cspn_tiled_bwd"], kitti["k6_max_abs"],
+            k456["cspn_tiled_bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ The port's own copy of cspn_monodepth_tpu/configs.py (the port imports
 nothing of the JAX package): the same fields, names and values, so that
 `get_config(name)` describes the same model and data in both packages.
 Differences: `model.cspn_impl` takes the port's values (auto | torch |
-cuda), and `synthetic_tiny` uses "auto" where the JAX package forces its
-plain "jnp" loop (on the CPU "auto" is the plain loop here).
+cuda | cuda_tiled), and `synthetic_tiny` uses "auto" where the JAX package
+forces its plain "jnp" loop (on the CPU "auto" is the plain loop here).
 """
 
 from __future__ import annotations
@@ -19,7 +19,12 @@ class ModelConfig:
     modality: str = "rgbd"          # rgb | rgbd | d
     num_iters: int = 24             # CSPN prop_time (12 or 24 headline)
     norm_type: str = "8sum_clamp"   # 8sum | 8sum_abs | 8sum_clamp
-    cspn_impl: str = "auto"         # auto | torch | cuda (ops/cspn.py)
+    # CSPN route (ops/cspn.py): "auto" picks by image size as the JAX
+    # package does on a TPU (NYU 228x304 -> "cuda", KITTI 352x1216 ->
+    # "cuda_tiled"); "cuda" forces the whole-plane kernels K1-K3 (JAX's
+    # "pallas"), "cuda_tiled" the H-tiled kernels K4-K6 on prenormalized
+    # gates (JAX's "pallas_tiled"), "torch" the plain loop.
+    cspn_impl: str = "auto"
     dtype: str = "bfloat16"         # encoder/decoder compute dtype
     # Architecture (defaults = ResNet-50 UNet, the reference headline).
     # arch: resnet18 | resnet34 | resnet50 preset, or "" to use the

@@ -1,12 +1,24 @@
 // CSPN adjoint on Hopper (sm_90a): the gradients of the propagation of
-// csrc/cspn_fwd.cu with respect to the raw guidance, the blur depth and the
-// sparse depth, from the output's cotangent and the stash of every
-// pre-iteration plane d^t that cspn_fwd_stash (K2) wrote.
+// csrc/cspn_fwd.cu, from the output's cotangent and the stash of every
+// pre-iteration plane d^t that the stash forward wrote. One kernel,
+// templated on the contract, behind two C entries:
+//   cspn_bwd        (K3) with respect to the raw guidance, the blur depth
+//                   and the sparse depth, the chain rule of the affinity
+//                   normalization included (stash of K2);
+//   cspn_tiled_bwd  (K6) the prenormalized contract of the H-tiled route
+//                   (stash of K5): with respect to the nine gate planes
+//                   (B, 9, H, W), [G_0, G_1..8], and to d^0 (lam^0, no anchor
+//                   mask), and the sparse sum sum_t m lam^{t+1} of the
+//                   per-iteration anchors. No chain rule: the caller's
+//                   autograd of the normalization and of d^0's anchoring
+//                   supplies it.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_bwd_kernel
 // (launched by _cspn_pallas_bwd_impl), the whole-plane TPU adjoint of the
-// training step (K3). It computes the same function; it does not copy the
-// TPU layout, which keeps ~28 planes of one image resident in VMEM.
+// training step (K3), and _cspn_tiled_bwd_kernel (launched by
+// _tiled_bwd_launch), the H-tiled one (K6). They compute the same
+// functions; they do not copy the TPU layout, which keeps ~28 planes of one
+// image (K3) or of one row tile (K6) resident in VMEM.
 //
 // The function, with lam = dL/dd^{t+1}, m = [sparse > 0] and t = T-1 .. 0:
 //   lam_u = (1 - m) lam;  d_sparse += m lam;
@@ -20,7 +32,10 @@
 // the 8 guidance planes, sparse, the cotangent and the T stash planes once
 // and write the 8 guidance gradients, d_blur and d_sparse once: (22 + T) * 4
 // B/px, 390.4 MB at B=32, 228x304, T=24, about 117 us. Its ~40 flop/px per
-// iteration are far below the f32 rate: bound by bytes.
+// iteration are far below the f32 rate: bound by bytes. K6 reads 9 gate
+// planes, sparse, the cotangent and the stash and writes 9 gate gradients,
+// lam^0 and the sparse sum: (23 + T) * 4 B/px, 630.1 MB at KITTI's B=8 x
+// 352x1216, T=24, about 188 us.
 //
 // Design (simple first; making it fast is later work):
 // * The same recompute-in-halo tiles as the forward, in reverse. A block
@@ -38,8 +53,11 @@
 //   holds it: kept in registers within a round and added to device memory
 //   once per round (the first round stores, later rounds read-modify-write,
 //   the last one applies the chain rule and writes d_guid, d_blur and
-//   d_sparse). No atomics, so the result is deterministic. G_k accumulates
-//   in d_guid itself, G_0 in a scratch plane.
+//   d_sparse). No atomics, so the result is deterministic. K3: G_k
+//   accumulates in d_guid itself, G_0 in a scratch plane; K6: G_0 and G_k
+//   in the nine planes of d_gates9, which its last round leaves as they are.
+// * K6 reads g0 from gate plane 0 instead of recomputing it; outside the
+//   image every gate, g0 included, is 0 (the apron and unread pixels).
 // * The image border: slab pixels outside the image have all gates 0 and
 //   are masked like anchors, so lam there stays 0 and nothing flows back
 //   from outside; d^t outside the image is 0, as in the forward.
@@ -74,6 +92,10 @@ enum Norm { kSum = 0, kSumAbs = 1, kSumClamp = 2 };
 __constant__ int kDy[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
 __constant__ int kDx[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
 
+// PRENORM false: K3 (guid = raw (B, 8, H, W), d_guid (B, 8, H, W), g0_acc
+// a scratch plane, d_blur). PRENORM true: K6 (guid = gates9 (B, 9, H, W),
+// d_guid = d_gates9 (B, 9, H, W), g0_acc unused, d_blur receives lam^0).
+template <bool PRENORM>
 __global__ void __launch_bounds__(THREADS)
 cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
                const float* __restrict__ sparse, int64_t sp_bstride,
@@ -121,23 +143,30 @@ cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     g0[p] = 0.0f;
     if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
     const int64_t idx = (int64_t)gy * W + gx;
-    float a[8];
-    float abs_sum = 0.0f;
+    if constexpr (PRENORM) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      a[k] = g[k * plane + idx];
-      if (norm == kSumAbs) a[k] = fabsf(a[k]);
-      abs_sum += fabsf(a[k]);
-    }
-    const float den = fmaxf(abs_sum, floor_);
-    float gsum = 0.0f;
+      for (int k = 0; k < 8; ++k)
+        gate[k * APRON + o] = g[(k + 1) * plane + idx];
+      g0[p] = g[idx];
+    } else {
+      float a[8];
+      float abs_sum = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float gk = a[k] / den;
-      gate[k * APRON + o] = gk;
-      gsum += gk;
+      for (int k = 0; k < 8; ++k) {
+        a[k] = g[k * plane + idx];
+        if (norm == kSumAbs) a[k] = fabsf(a[k]);
+        abs_sum += fabsf(a[k]);
+      }
+      const float den = fmaxf(abs_sum, floor_);
+      float gsum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float gk = a[k] / den;
+        gate[k * APRON + o] = gk;
+        gsum += gk;
+      }
+      g0[p] = 1.0f - gsum;
     }
-    g0[p] = 1.0f - gsum;
     anchor[i] = sp && sp[idx] > 0.0f;
     masked[i] = anchor[i];
     lam[i] = lin[idx];
@@ -211,7 +240,9 @@ cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
       continue;
     const int64_t idx = b * plane + (int64_t)gy * W + gx;
     float ds = (first ? 0.0f : d_sparse[idx]) + dsp[i];
-    if (last) {
+    if (last && PRENORM) {
+      d_blur[idx] = lam[i];                 // K6: lam^0, unmasked
+    } else if (last) {
       d_blur[idx] = anchor[i] ? 0.0f : lam[i];
       if (anchor[i]) ds += lam[i];
     } else {
@@ -227,14 +258,22 @@ cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     const int gy = ty0 + q / TILE, gx = tx0 + q % TILE;
     if (gy >= H || gx >= W) continue;
     const int64_t pix = (int64_t)gy * W + gx;
-    float* dg = d_guid + b * 8 * plane + pix;
-    float* g0a = g0_acc + b * plane + pix;
+    // G_k at dg[k * plane], G_0 at *g0a.
+    float* dg;
+    float* g0a;
+    if constexpr (PRENORM) {
+      g0a = d_guid + b * 9 * plane + pix;
+      dg = g0a + plane;
+    } else {
+      dg = d_guid + b * 8 * plane + pix;
+      g0a = g0_acc + b * plane + pix;
+    }
     if (!first) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc[j][k] += dg[k * plane];
       acc[j][8] += *g0a;
     }
-    if (!last) {
+    if (PRENORM || !last) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) dg[k * plane] = acc[j][k];
       *g0a = acc[j][8];
@@ -266,6 +305,41 @@ cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
   }
 }
 
+template <bool PRENORM>
+int launch_rounds(const float* guid, int64_t guid_bstride,
+                  const float* sparse, int64_t sp_bstride,
+                  const float* grad_out, int64_t go_bstride,
+                  const float* stash,
+                  float* d_guid, float* d_blur, float* d_sparse,
+                  float* g0_acc, float* lam_a, float* lam_b,
+                  int B, int H, int W, int T, int norm, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cspn_bwd_round<PRENORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
+  const int rounds = T == 0 ? 1 : (T + HALO - 1) / HALO;
+  const int64_t plane = (int64_t)H * W;
+  const float* src = grad_out;
+  int64_t src_bstride = go_bstride;
+  for (int n = 0; n < rounds; ++n) {
+    const int r = rounds - 1 - n;            // the forward's round, reversed
+    const int t_lo = r * HALO;
+    const int iters = T - t_lo < HALO ? T - t_lo : HALO;
+    float* dst = n % 2 == 0 ? lam_a : lam_b;
+    cspn_bwd_round<PRENORM>
+        <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+            guid, guid_bstride, sparse, sp_bstride, src, src_bstride, stash,
+            T, t_lo, iters, dst, d_guid, g0_acc, d_blur, d_sparse, H, W,
+            norm, n == 0, r == 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = dst;
+    src_bstride = plane;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -286,30 +360,28 @@ int cspn_bwd(const float* guid, int64_t guid_bstride,
              float* d_guid, float* d_blur, float* d_sparse,
              float* g0_acc, float* lam_a, float* lam_b,
              int B, int H, int W, int T, int norm, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cspn_bwd_round, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  const int rounds = T == 0 ? 1 : (T + HALO - 1) / HALO;
-  const int64_t plane = (int64_t)H * W;
-  const float* src = grad_out;
-  int64_t src_bstride = go_bstride;
-  for (int n = 0; n < rounds; ++n) {
-    const int r = rounds - 1 - n;            // the forward's round, reversed
-    const int t_lo = r * HALO;
-    const int iters = T - t_lo < HALO ? T - t_lo : HALO;
-    float* dst = n % 2 == 0 ? lam_a : lam_b;
-    cspn_bwd_round<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        guid, guid_bstride, sparse, sp_bstride, src, src_bstride, stash, T,
-        t_lo, iters, dst, d_guid, g0_acc, d_blur, d_sparse, H, W, norm,
-        n == 0, r == 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = dst;
-    src_bstride = plane;
-  }
-  return (int)cudaSuccess;
+  return launch_rounds<false>(guid, guid_bstride, sparse, sp_bstride,
+                              grad_out, go_bstride, stash, d_guid, d_blur,
+                              d_sparse, g0_acc, lam_a, lam_b, B, H, W, T,
+                              norm, stream);
+}
+
+// K6. gates9: (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
+// g_bstride; sparse, grad_out as in cspn_bwd; stash: contiguous
+// (B, T, H, W) from cspn_tiled_fwd_stash. Outputs, contiguous: d_gates9
+// (B, 9, H, W) = [G_0, G_1..8], lam0 (B, H, W) = dL/dd^0, d_sparse
+// (B, H, W) = sum_t m lam^{t+1} (0 without a sparse map). Scratch lam_a,
+// lam_b: contiguous (B, H, W), used when T > HALO.
+int cspn_tiled_bwd(const float* gates9, int64_t g_bstride,
+                   const float* sparse, int64_t sp_bstride,
+                   const float* grad_out, int64_t go_bstride,
+                   const float* stash,
+                   float* d_gates9, float* lam0, float* d_sparse,
+                   float* lam_a, float* lam_b,
+                   int B, int H, int W, int T, void* stream) {
+  return launch_rounds<true>(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                             go_bstride, stash, d_gates9, lam0, d_sparse,
+                             nullptr, lam_a, lam_b, B, H, W, T, 0, stream);
 }
 
 const char* cspn_bwd_error_string(int err) {

@@ -1,15 +1,26 @@
 // CSPN forward propagation on Hopper (sm_90a): affinity normalization,
 // d^0 anchoring and T iterations of the 8-neighbour gather stencil with
-// per-iteration sparse re-anchoring. Two C entries share one kernel:
-//   cspn_fwd        (K1) the eval and serving forward;
+// per-iteration sparse re-anchoring. Four C entries share one kernel,
+// templated on the contract:
+//   cspn_fwd        (K1) the eval and serving forward of raw guidance;
 //   cspn_fwd_stash  (K2) the training forward, which also writes every
 //                   pre-iteration plane d^t to a (B, T, H, W) stash that the
-//                   adjoint (csrc/cspn_bwd.cu) reads back in reverse.
+//                   adjoint (csrc/cspn_bwd.cu) reads back in reverse;
+//   cspn_tiled_fwd, cspn_tiled_fwd_stash  (K4, K5) the same two on the
+//                   prenormalized contract of the H-tiled route: nine gate
+//                   planes (B, 9, H, W), centre first, read as they are (no
+//                   normalization), and d^0 taken as given (the caller
+//                   anchors it); the anchor still follows every iteration.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_kernel (launched by
 // _cspn_pallas_fwd_impl) and _cspn_kernel_stash (launched by
-// _cspn_pallas_stash_fwd), the whole-plane TPU kernels. They compute the
-// same functions; they do not copy the TPU layout.
+// _cspn_pallas_stash_fwd), the whole-plane TPU kernels, and
+// _cspn_tiled_kernel (launched by _tiled_launch) and
+// _cspn_tiled_stash_kernel (launched by _tiled_stash_launch), the H-tiled
+// ones. They compute the same functions; they do not copy the TPU layout
+// (the TPU tiles H only, pads W to 128 lanes and stashes each tile's
+// interior +-1 rows; here the 2-D tiles below serve both routes, and the
+// stash is the plain (B, T, H, W) array).
 // The TPU kernel keeps a whole plane and 9 gate planes resident in VMEM; one
 // 228x304 f32 plane is 277 KB and a Hopper block has at most 227 KB of
 // shared memory, so here the plane is cut into tiles instead.
@@ -20,7 +31,9 @@
 // 0.9 us, so a single image is launch-bound. The arithmetic, 19 flop/px per
 // iteration plus the normalization, is far below the f32 rate: the kernel
 // is bound by bytes. K2 writes T more planes: (11 + T) * 4 B/px, 310.5 MB
-// at B=32, T=24, about 93 us.
+// at B=32, T=24, about 93 us. K4 reads nine gate planes instead of eight:
+// 48 B/px, 164.4 MB at KITTI's B=8 x 352x1216, about 49 us; K5 adds the
+// T stash planes, 493.1 MB, about 147 us.
 //
 // Design (simple first; making it fast is later work):
 // * Recompute-in-halo tiles. A block owns a TILE x TILE interior and loads
@@ -31,20 +44,24 @@
 //   rounds, ping-ponging d between `out` and `scratch`, so device-memory
 //   traffic is ~11 planes per round instead of per iteration.
 // * Gates live in registers: each thread owns PPT fixed slab pixels,
-//   normalizes their 8 raw affinities once per round into 9 gates and
-//   keeps them with the pixel's anchor for all iterations. Only d is in
+//   normalizes their 8 raw affinities once per round into 9 gates (K4/K5
+//   read the 9 gates as they are) and keeps them with the pixel's anchor
+//   for all iterations. Only d is in
 //   shared memory, as a ping-pong pair with a zero apron, so the block
 //   needs 14 KB of static shared memory (no opt-in above 48 KB).
 // * Zero border at the image edge only: slab pixels outside the image
 //   get d = 0, all nine gates 0 and an anchor of 0, so they stay exactly
 //   0. A tile edge inside the image is covered by the halo, never zeroed.
-// * d^0 is anchored before the first iteration. Every round re-anchors d
-//   on load, which is idempotent for a d that the previous round already
-//   anchored. The mask is sparse > 0.
-// * Stash (K2): at the start of each iteration every block writes its
+// * K1/K2: d^0 is anchored before the first iteration. Every round
+//   re-anchors d on load, which is idempotent for a d that the previous
+//   round already anchored. K4/K5 never anchor on load: d^0 comes anchored
+//   by the caller, and every later round loads planes that the previous
+//   round's last iteration anchored. The mask is sparse > 0.
+// * Stash (K2, K5): at the start of each iteration every block writes its
 //   tile's interior of d^t. The interior is exact at every iteration of a
 //   round, and the interiors tile the image, so the stash is exact; K2's
-//   output is K1's bit for bit (the same code with one more store).
+//   output is K1's (K5's is K4's) bit for bit: the same code with one more
+//   store. H and W need not be multiples of the tile.
 // * Strides: each plane is contiguous (row stride W), the guidance planes
 //   of one image are H*W apart, and every input takes its own batch
 //   stride, so the model's head output (B, 9, H, W) is passed as
@@ -68,6 +85,9 @@ static_assert(PPT * THREADS == SLAB * SLAB, "threads must tile the slab");
 
 enum Norm { kSum = 0, kSumAbs = 1, kSumClamp = 2 };
 
+// PRENORM false: K1/K2, raw guidance (B, 8, H, W) normalized per `norm`.
+// PRENORM true: K4/K5, gates (B, 9, H, W) = [g0, g_1..8]; `norm` unused.
+template <bool PRENORM>
 __global__ void __launch_bounds__(THREADS)
 cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
                const float* __restrict__ d_in, int64_t d_in_bstride,
@@ -115,27 +135,32 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     anchored[i] = false;
     if (inside) {
       const int64_t idx = gidx[i];
-      float a[8];
-      float abs_sum = 0.0f;
+      if constexpr (PRENORM) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        a[k] = g[k * plane + idx];
-        if (norm == kSumAbs) a[k] = fabsf(a[k]);
-        abs_sum += fabsf(a[k]);
-      }
-      const float den = fmaxf(abs_sum, floor_);
-      float gsum = 0.0f;
+        for (int k = 0; k < 9; ++k) gate[i][k] = g[k * plane + idx];
+      } else {
+        float a[8];
+        float abs_sum = 0.0f;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        gate[i][k + 1] = a[k] / den;
-        gsum += gate[i][k + 1];
+        for (int k = 0; k < 8; ++k) {
+          a[k] = g[k * plane + idx];
+          if (norm == kSumAbs) a[k] = fabsf(a[k]);
+          abs_sum += fabsf(a[k]);
+        }
+        const float den = fmaxf(abs_sum, floor_);
+        float gsum = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          gate[i][k + 1] = a[k] / den;
+          gsum += gate[i][k + 1];
+        }
+        gate[i][0] = 1.0f - gsum;
       }
-      gate[i][0] = 1.0f - gsum;
       d = din[idx];
       if (sp) {
         anchor[i] = sp[idx];
         anchored[i] = anchor[i] > 0.0f;
-        if (anchored[i]) d = anchor[i];
+        if (!PRENORM && anchored[i]) d = anchor[i];
       }
     } else {
       // Outside the image: all gates 0 and anchored to 0, so d stays
@@ -176,6 +201,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     if (interior[i]) dout[gidx[i]] = buf[cur][off[i]];
 }
 
+template <bool PRENORM>
 int launch_rounds(const float* guid, int64_t guid_bstride,
                   const float* blur, int64_t blur_bstride,
                   const float* sparse, int64_t sp_bstride,
@@ -190,7 +216,7 @@ int launch_rounds(const float* guid, int64_t guid_bstride,
     // The last round writes `out`; earlier rounds alternate backwards.
     float* dst = ((rounds - 1 - r) % 2 == 0) ? out : scratch;
     const int iters = T - r * HALO < HALO ? T - r * HALO : HALO;
-    cspn_fwd_round<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    cspn_fwd_round<PRENORM><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         guid, guid_bstride, src, src_bstride, sparse, sp_bstride, dst,
         stash, T, r * HALO, H, W, iters, norm);
     const cudaError_t err = cudaGetLastError();
@@ -215,9 +241,9 @@ int cspn_fwd(const float* guid, int64_t guid_bstride,
              const float* sparse, int64_t sp_bstride,
              float* out, float* scratch,
              int B, int H, int W, int T, int norm, void* stream) {
-  return launch_rounds(guid, guid_bstride, blur, blur_bstride, sparse,
-                       sp_bstride, out, scratch, nullptr, B, H, W, T, norm,
-                       stream);
+  return launch_rounds<false>(guid, guid_bstride, blur, blur_bstride,
+                              sparse, sp_bstride, out, scratch, nullptr, B,
+                              H, W, T, norm, stream);
 }
 
 // As cspn_fwd, and also writes d^t, the plane iteration t starts from, to
@@ -227,9 +253,35 @@ int cspn_fwd_stash(const float* guid, int64_t guid_bstride,
                    const float* sparse, int64_t sp_bstride,
                    float* out, float* scratch, float* stash,
                    int B, int H, int W, int T, int norm, void* stream) {
-  return launch_rounds(guid, guid_bstride, blur, blur_bstride, sparse,
-                       sp_bstride, out, scratch, stash, B, H, W, T, norm,
-                       stream);
+  return launch_rounds<false>(guid, guid_bstride, blur, blur_bstride,
+                              sparse, sp_bstride, out, scratch, stash, B, H,
+                              W, T, norm, stream);
+}
+
+// K4: gates9 (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
+// g_bstride; d0 (B, H, W), already anchored by the caller, batch stride
+// d0_bstride; sparse and the rest as in cspn_fwd. The gates are 0 outside
+// the image, so the zero border stays exactly 0.
+int cspn_tiled_fwd(const float* gates9, int64_t g_bstride,
+                   const float* d0, int64_t d0_bstride,
+                   const float* sparse, int64_t sp_bstride,
+                   float* out, float* scratch,
+                   int B, int H, int W, int T, void* stream) {
+  return launch_rounds<true>(gates9, g_bstride, d0, d0_bstride, sparse,
+                             sp_bstride, out, scratch, nullptr, B, H, W, T,
+                             0, stream);
+}
+
+// K5: as cspn_tiled_fwd, and also writes d^t to stash[b, t] of a
+// contiguous (B, T, H, W) array; its output is K4's bit for bit.
+int cspn_tiled_fwd_stash(const float* gates9, int64_t g_bstride,
+                         const float* d0, int64_t d0_bstride,
+                         const float* sparse, int64_t sp_bstride,
+                         float* out, float* scratch, float* stash,
+                         int B, int H, int W, int T, void* stream) {
+  return launch_rounds<true>(gates9, g_bstride, d0, d0_bstride, sparse,
+                             sp_bstride, out, scratch, stash, B, H, W, T, 0,
+                             stream);
 }
 
 const char* cspn_fwd_error_string(int err) {

@@ -1,4 +1,8 @@
-from cspn_monodepth_tpu_torch.data.datasets import SyntheticDataset, make_dataset
+from cspn_monodepth_tpu_torch.data.datasets import (
+    KITTIDataset,
+    SyntheticDataset,
+    make_dataset,
+)
 from cspn_monodepth_tpu_torch.data.pipeline import (
     DEPTH_SCALE,
     device_prefetch,
@@ -8,6 +12,7 @@ from cspn_monodepth_tpu_torch.data.pipeline import (
 )
 
 __all__ = [
+    "KITTIDataset",
     "SyntheticDataset",
     "make_dataset",
     "DEPTH_SCALE",

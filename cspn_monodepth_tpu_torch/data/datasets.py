@@ -5,16 +5,22 @@ depth (H, W) in meters, 0 = invalid. Sparse sampling is not done here; it
 runs on the device (ops/sparse.py). Records are random-access
 (`__len__`/`get(index, epoch)`) and deterministic in (seed, index).
 
-Only the synthetic set is ported so far; NYU-Depth-v2 and KITTI readers
-(h5, packed memmaps, npz) and their augmentation come with the loop and
-checkpoint slice, and raise until then.
+Ported: the synthetic set and the KITTI npz reader with its augmentation
+(data/transforms.py). The NYU-Depth-v2 readers (h5, packed memmaps) come
+with the loop and checkpoint slice, and raise until then.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from cspn_monodepth_tpu_torch.configs import DataConfig
+from cspn_monodepth_tpu_torch.data.transforms import (
+    train_transform,
+    val_transform,
+)
 
 
 class SyntheticDataset:
@@ -70,11 +76,57 @@ class SyntheticDataset:
         return {"rgb": np.clip(rgb, 0, 1), "depth": depth}
 
 
+class KITTIDataset:
+    """KITTI depth completion: `<root>/{train,val}/*.npz`, each with `rgb`
+    (H, W, 3) uint8 and `depth` (H, W) float meters (0 = no lidar return),
+    exported from the raw KITTI distribution; bottom crop to (height,
+    width), 352x1216 in `kitti_1216`. The same records as the JAX package's
+    KITTIDataset: training draws hflip and color jitter (no rotation or
+    scale) from (seed, epoch, index); validation is the plain bottom crop.
+    """
+
+    def __init__(self, cfg: DataConfig, split: str, seed: int = 0):
+        self.cfg = cfg
+        self.split = split
+        self.seed = seed
+        split_dir = os.path.join(cfg.root,
+                                 "train" if split == "train" else "val")
+        self.files = []
+        if os.path.isdir(split_dir):
+            self.files = [os.path.join(split_dir, f)
+                          for f in sorted(os.listdir(split_dir))
+                          if f.endswith(".npz")]
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def get(self, index: int, epoch: int = 0) -> dict[str, np.ndarray]:
+        with np.load(self.files[index]) as data:
+            # float32 0..255 rgb: transforms._rgb_gain folds the 1/255 in.
+            rgb = np.asarray(data["rgb"], np.float32)
+            depth = np.asarray(data["depth"], np.float32)
+        c = self.cfg
+        if self.split == "train":
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, epoch, index]))
+            rgb, depth = train_transform(
+                rgb, depth, rng, out_h=c.height, out_w=c.width,
+                rotate_deg=0.0, scale_max=1.0, hflip_prob=c.hflip_prob,
+                jitter=c.jitter, crop="bottom")
+        else:
+            rgb, depth = val_transform(rgb, depth, out_h=c.height,
+                                       out_w=c.width, crop="bottom")
+        return {"rgb": rgb.astype(np.float32),
+                "depth": depth.astype(np.float32)}
+
+
 def make_dataset(cfg: DataConfig, split: str, seed: int = 0):
     if cfg.dataset == "synthetic":
         return SyntheticDataset(cfg, split, seed)
-    if cfg.dataset in ("nyudepthv2", "kitti"):
+    if cfg.dataset == "kitti":
+        return KITTIDataset(cfg, split, seed)
+    if cfg.dataset == "nyudepthv2":
         raise NotImplementedError(
-            f"the {cfg.dataset} reader is not ported yet; use "
-            "data.dataset=synthetic")
+            "the nyudepthv2 readers are not ported yet; use "
+            "data.dataset=synthetic or kitti")
     raise ValueError(f"unknown dataset {cfg.dataset!r}")

@@ -7,10 +7,14 @@ sources compile in parallel, one `nvcc` each. Nothing is built or loaded
 when this module is imported.
 
 The wrappers, one per kernel, each with a `.launches` count of the calls
-that launched its kernel:
+that launched its kernel. The whole-plane route, on raw guidance:
   cspn_fwd        K1, the forward (csrc/cspn_fwd.cu);
   cspn_fwd_stash  K2, the forward that also stashes every d^t (same file);
   cspn_bwd        K3, the adjoint over that stash (csrc/cspn_bwd.cu).
+The H-tiled route, on prenormalized gates9 and an anchored d^0:
+  cspn_tiled_fwd        K4, the forward (csrc/cspn_fwd.cu);
+  cspn_tiled_fwd_stash  K5, K4 that also stashes every d^t (same file);
+  cspn_tiled_bwd        K6, the adjoint over that stash (csrc/cspn_bwd.cu).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs the kernel's plain version from ops/cspn_ref.py.
 """
@@ -32,6 +36,9 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_bwd_plain,
     cspn_fwd_stash_plain,
     cspn_propagate_ref_nchw,
+    cspn_tiled_bwd_plain,
+    cspn_tiled_fwd_plain,
+    cspn_tiled_fwd_stash_plain,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -110,10 +117,16 @@ def _load(name: str):
                 "cspn_fwd": [p, i64, p, i64, p, i64, p, p,
                              i32, i32, i32, i32, i32, p],
                 "cspn_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
-                                   i32, i32, i32, i32, i32, p]},
+                                   i32, i32, i32, i32, i32, p],
+                "cspn_tiled_fwd": [p, i64, p, i64, p, i64, p, p,
+                                   i32, i32, i32, i32, p],
+                "cspn_tiled_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
+                                         i32, i32, i32, i32, p]},
             "cspn_bwd": {
                 "cspn_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p, p, p,
-                             i32, i32, i32, i32, i32, p]},
+                             i32, i32, i32, i32, i32, p],
+                "cspn_tiled_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p,
+                                   p, i32, i32, i32, i32, p]},
         }
         for lib_name, path in build().items():
             lib = ctypes.CDLL(str(path))
@@ -151,14 +164,15 @@ def _check_planes(name: str, t: torch.Tensor, shape: tuple, device):
 
 
 def _check_call(guidance: torch.Tensor, num_iters: int,
-                norm_type: str) -> bool:
+                norm_type: str | None) -> bool:
     """True for a CPU tensor (the plain version runs); checks what every
-    kernel needs of a CUDA one and raises on anything else."""
+    kernel needs of a CUDA one and raises on anything else. norm_type is
+    None for the prenormalized kernels (K4-K6)."""
     if guidance.device.type == "cpu":
         return True
     if guidance.device.type != "cuda":
         raise ValueError(f"no CSPN kernel for device {guidance.device}")
-    if norm_type not in NORM_TYPES:
+    if norm_type is not None and norm_type not in NORM_TYPES:
         raise ValueError(f"unknown norm_type: {norm_type!r}")
     if num_iters < 0:
         raise ValueError(f"num_iters must be >= 0, got {num_iters}")
@@ -176,11 +190,14 @@ def _bstride(t: torch.Tensor | None) -> int:
     return 0 if t is None else t.stride(0)
 
 
-def _forward(guidance, blur, sparse, num_iters, norm_type, stash):
-    """Launch K1 (stash None) or K2 into `stash`; returns the output."""
+def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash):
+    """Launch the forward C entry `entry` of csrc/cspn_fwd.cu: K1/K2 on raw
+    guidance (B, 8, H, W) with norm_type, K4/K5 on gates9 (B, 9, H, W)
+    with norm_type None; K2/K5 write into `stash`. Returns the output."""
     b, _, h, w = guidance.shape
     dev = guidance.device
-    _check_planes("guidance", guidance, (b, 8, h, w), dev)
+    _check_planes("guidance" if norm_type else "gates9", guidance,
+                  (b, 8 if norm_type else 9, h, w), dev)
     _check_planes("blur", blur, (b, h, w), dev)
     if sparse is not None:
         _check_planes("sparse", sparse, (b, h, w), dev)
@@ -190,16 +207,22 @@ def _forward(guidance, blur, sparse, num_iters, norm_type, stash):
     args = (guidance.data_ptr(), guidance.stride(0),
             blur.data_ptr(), blur.stride(0), _ptr(sparse), _bstride(sparse),
             out.data_ptr(), scratch.data_ptr())
-    size = (b, h, w, num_iters, NORM_TYPES.index(norm_type))
+    if stash is not None:
+        args += (stash.data_ptr(),)
+    size = (b, h, w, num_iters)
+    if norm_type:
+        size += (NORM_TYPES.index(norm_type),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if stash is None:
-            err = lib.cspn_fwd(*args, *size, stream)
-        else:
-            err = lib.cspn_fwd_stash(*args, stash.data_ptr(), *size, stream)
-    _raise_on(err, "cspn_fwd",
-              "cspn_fwd" if stash is None else "cspn_fwd_stash")
+        err = getattr(lib, entry)(*args, *size, stream)
+    _raise_on(err, "cspn_fwd", entry)
     return out
+
+
+def _stash_like(blur: torch.Tensor, num_iters: int) -> torch.Tensor:
+    b, h, w = blur.shape
+    return torch.empty((b, num_iters, h, w), device=blur.device,
+                       dtype=torch.float32)
 
 
 def cspn_fwd(guidance: torch.Tensor, blur: torch.Tensor,
@@ -213,7 +236,8 @@ def cspn_fwd(guidance: torch.Tensor, blur: torch.Tensor,
     if _check_call(guidance, num_iters, norm_type):
         return cspn_fwd_plain(guidance, blur, sparse, num_iters=num_iters,
                               norm_type=norm_type)
-    out = _forward(guidance, blur, sparse, num_iters, norm_type, None)
+    out = _forward("cspn_fwd", guidance, blur, sparse, num_iters, norm_type,
+                   None)
     cspn_fwd.launches += 1
     return out
 
@@ -227,10 +251,9 @@ def cspn_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
     if _check_call(guidance, num_iters, norm_type):
         return cspn_fwd_stash_plain(guidance, blur, sparse,
                                     num_iters=num_iters, norm_type=norm_type)
-    b, _, h, w = guidance.shape
-    stash = torch.empty((b, num_iters, h, w), device=guidance.device,
-                        dtype=torch.float32)
-    out = _forward(guidance, blur, sparse, num_iters, norm_type, stash)
+    stash = _stash_like(blur, num_iters)
+    out = _forward("cspn_fwd_stash", guidance, blur, sparse, num_iters,
+                   norm_type, stash)
     cspn_fwd_stash.launches += 1
     return out, stash
 
@@ -277,6 +300,81 @@ def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
     return d_guid, d_blur, d_sparse
 
 
-cspn_fwd.launches = 0
-cspn_fwd_stash.launches = 0
-cspn_bwd.launches = 0
+def cspn_tiled_fwd(gates9: torch.Tensor, d0: torch.Tensor,
+                   sparse: torch.Tensor | None, *,
+                   num_iters: int) -> torch.Tensor:
+    """The H-tiled route's forward (K4): prenormalized gates9
+    (B, 9, H, W) [centre, 8 gates], d0 (B, H, W) taken as given (already
+    anchored), sparse (B, H, W) or None, all float32 with contiguous planes
+    and any batch stride -> (B, H, W); the anchor follows every iteration.
+
+    A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
+    """
+    if _check_call(gates9, num_iters, None):
+        return cspn_tiled_fwd_plain(gates9, d0, sparse, num_iters=num_iters)
+    out = _forward("cspn_tiled_fwd", gates9, d0, sparse, num_iters, None,
+                   None)
+    cspn_tiled_fwd.launches += 1
+    return out
+
+
+def cspn_tiled_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
+                         sparse: torch.Tensor | None, *, num_iters: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The H-tiled route's training forward (K5): as cspn_tiled_fwd, and
+    also returns the stash (B, T, H, W) of every d^t. Its output equals
+    cspn_tiled_fwd's."""
+    if _check_call(gates9, num_iters, None):
+        return cspn_tiled_fwd_stash_plain(gates9, d0, sparse,
+                                          num_iters=num_iters)
+    stash = _stash_like(d0, num_iters)
+    out = _forward("cspn_tiled_fwd_stash", gates9, d0, sparse, num_iters,
+                   None, stash)
+    cspn_tiled_fwd_stash.launches += 1
+    return out, stash
+
+
+def cspn_tiled_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
+                   stash: torch.Tensor, grad_out: torch.Tensor, *,
+                   num_iters: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The H-tiled route's adjoint (K6): gates9 (B, 9, H, W), sparse
+    (B, H, W) or None, the stash of cspn_tiled_fwd_stash and the output's
+    cotangent grad_out (B, H, W) -> (d_gates9 (B, 9, H, W) = [G_0,
+    G_1..8], lam0 = dL/dd^0 (B, H, W), d_sparse = sum_t m lam^{t+1}
+    (B, H, W), zero without a sparse map). No chain rule and no mask on
+    lam0 (ops/cspn_ref.py:cspn_tiled_bwd_plain)."""
+    if _check_call(gates9, num_iters, None):
+        return cspn_tiled_bwd_plain(gates9, sparse, stash, grad_out,
+                                    num_iters=num_iters)
+    b, _, h, w = gates9.shape
+    dev = gates9.device
+    _check_planes("gates9", gates9, (b, 9, h, w), dev)
+    _check_planes("grad_out", grad_out, (b, h, w), dev)
+    if sparse is not None:
+        _check_planes("sparse", sparse, (b, h, w), dev)
+    _check_planes("stash", stash, (b, num_iters, h, w), dev)
+    if not stash.is_contiguous():
+        raise ValueError("stash must be contiguous")
+    lib = _load("cspn_bwd")
+    d_gates9 = torch.empty((b, 9, h, w), device=dev, dtype=torch.float32)
+    # lam0, the sparse sums and the two lam planes the rounds ping-pong
+    # between.
+    planes = torch.empty((4, b, h, w), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cspn_tiled_bwd(
+            gates9.data_ptr(), gates9.stride(0), _ptr(sparse),
+            _bstride(sparse), grad_out.data_ptr(), grad_out.stride(0),
+            stash.data_ptr(), d_gates9.data_ptr(), planes[0].data_ptr(),
+            planes[1].data_ptr(), planes[2].data_ptr(), planes[3].data_ptr(),
+            b, h, w, num_iters, stream)
+    _raise_on(err, "cspn_bwd", "cspn_tiled_bwd")
+    cspn_tiled_bwd.launches += 1
+    return d_gates9, planes[0], planes[1]
+
+
+WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
+            cspn_tiled_fwd_stash, cspn_tiled_bwd)
+for _wrapper in WRAPPERS:
+    _wrapper.launches = 0

@@ -10,7 +10,12 @@ one iteration per step, the same arithmetic in the same order.
 * `cspn_fwd_stash_plain`: the forward that also returns every
   pre-iteration depth plane d^t (kernel K2, the training forward);
 * `cspn_bwd_plain`: the hand-written adjoint that sweeps that stash in
-  reverse (kernel K3, `csrc/cspn_bwd.cu`).
+  reverse (kernel K3, `csrc/cspn_bwd.cu`);
+* `prenorm_gates9` and `cspn_propagate_prenorm_ref`: the prenormalized
+  contract of the H-tiled route (gates9 (B, 9, H, W) with the centre in
+  channel 0, d^0 taken as given, an anchor after every iteration), and the
+  plain versions of its kernels: `cspn_tiled_fwd_plain` (K4),
+  `cspn_tiled_fwd_stash_plain` (K5) and `cspn_tiled_bwd_plain` (K6).
 
 Layouts: the public entry `cspn_propagate_ref` takes channels-last guidance
 (B, H, W, 8) like the JAX package; `cspn_propagate_ref_nchw` takes the
@@ -88,18 +93,28 @@ def cspn_propagate_ref_nchw(
     return d[..., None] if squeeze else d
 
 
+def anchor(d: torch.Tensor, sp: torch.Tensor | None) -> torch.Tensor:
+    """d with the sparse points put in: (1 - m) d + m sp, m = [sp > 0]."""
+    if sp is None:
+        return d
+    mask = (sp > 0).to(d.dtype)
+    return (1.0 - mask) * d + mask * sp
+
+
 def _propagate(guidance, d, sp, num_iters: int, norm_type: str,
                stash: list | None = None) -> torch.Tensor:
     """The propagation loop on (B, H, W) planes; appends each d^t, the
     plane iteration t starts from, to `stash` when one is given."""
     gates, g0 = normalize_affinity(guidance, norm_type, dim=1)
-    g0 = g0[:, 0]
-    mask = None
-    if sp is not None:
-        mask = (sp > 0).to(d.dtype)
-        # Anchor d^0 as well so iteration 1 already sees the sparse points.
-        d = (1.0 - mask) * d + mask * sp
+    # Anchor d^0 as well so iteration 1 already sees the sparse points.
+    return _iterate(g0[:, 0], gates, anchor(d, sp), sp, num_iters, stash)
 
+
+def _iterate(g0, gates, d, sp, num_iters: int,
+             stash: list | None = None) -> torch.Tensor:
+    """`num_iters` iterations from d as given, each ending with the anchor:
+    d <- g0 d + sum_k gates[:, k] d(j + off_k), zero outside the image."""
+    mask = None if sp is None else (sp > 0).to(d.dtype)
     h, w = d.shape[-2:]
     for _ in range(num_iters):
         if stash is not None:
@@ -115,6 +130,12 @@ def _propagate(guidance, d, sp, num_iters: int, norm_type: str,
     return d
 
 
+def _stacked(stash: list, d: torch.Tensor) -> torch.Tensor:
+    """The stash list as a (B, T, H, W) tensor (T may be 0)."""
+    b, h, w = d.shape
+    return torch.stack(stash, 1) if stash else d.new_zeros((b, 0, h, w))
+
+
 def cspn_fwd_stash_plain(
     guidance: torch.Tensor,
     blur: torch.Tensor,
@@ -128,9 +149,7 @@ def cspn_fwd_stash_plain(
     d^t, the (anchored) depth plane iteration t starts from."""
     stash: list[torch.Tensor] = []
     out = _propagate(guidance, blur, sparse, num_iters, norm_type, stash)
-    b, h, w = blur.shape
-    return out, (torch.stack(stash, 1) if stash
-                 else blur.new_zeros((b, 0, h, w)))
+    return out, _stacked(stash, blur)
 
 
 def cspn_bwd_plain(
@@ -161,7 +180,6 @@ def cspn_bwd_plain(
     """
     if norm_type not in NORM_TYPES:
         raise ValueError(f"unknown norm_type: {norm_type!r}")
-    b, h, w = grad_out.shape
     raw = guidance.abs() if norm_type == "8sum_abs" else guidance
     s = guidance.abs().sum(1)
     floor = 1.0 if norm_type == "8sum_clamp" else eps
@@ -170,9 +188,31 @@ def cspn_bwd_plain(
     g0 = 1.0 - gates.sum(1)
     active = (s > floor).to(grad_out.dtype)
 
+    g_acc, g0_acc, d_sparse, lam = _reverse_sweep(g0, gates, sparse, stash,
+                                                  grad_out, num_iters)
+    d_blur = lam
+    if sparse is not None:
+        masked, zero = sparse > 0, torch.zeros_like(lam)
+        d_blur = torch.where(masked, zero, lam)
+        d_sparse = d_sparse + torch.where(masked, lam, zero)
+    ghat = g_acc - g0_acc[:, None]
+    c1 = (ghat * gates).sum(1)
+    sgn = torch.sign(guidance)
+    if norm_type == "8sum_abs":
+        d_guid = sgn * (ghat - (active * c1)[:, None]) / den[:, None]
+    else:
+        d_guid = (ghat - sgn * (active * c1)[:, None]) / den[:, None]
+    return d_guid, d_blur, d_sparse
+
+
+def _reverse_sweep(g0, gates, sparse, stash, grad_out, num_iters: int):
+    """The reverse sweep of both adjoints (see cspn_bwd_plain) from the
+    gates (g0 (B, H, W), gates (B, 8, H, W)): returns the sums G_k
+    (B, 8, H, W), G_0 and sum_t m lam^{t+1} (B, H, W), and lam^0."""
+    h, w = grad_out.shape[-2:]
     masked = None if sparse is None else sparse > 0
     zero = torch.zeros_like(grad_out)
-    g_acc = torch.zeros_like(guidance)
+    g_acc = torch.zeros_like(gates)
     g0_acc = torch.zeros_like(grad_out)
     d_sparse = torch.zeros_like(grad_out)
     gpad = F.pad(gates, (1, 1, 1, 1))
@@ -194,19 +234,76 @@ def cspn_bwd_plain(
             flip = NEIGHBOR_OFFSETS.index((-dy, -dx))
             new = new + gpad[:, flip][win] * upad[win]
         lam = new
+    return g_acc, g0_acc, d_sparse, lam
 
-    d_blur = lam
-    if masked is not None:
-        d_blur = torch.where(masked, zero, lam)
-        d_sparse = d_sparse + torch.where(masked, lam, zero)
-    ghat = g_acc - g0_acc[:, None]
-    c1 = (ghat * gates).sum(1)
-    sgn = torch.sign(guidance)
-    if norm_type == "8sum_abs":
-        d_guid = sgn * (ghat - (active * c1)[:, None]) / den[:, None]
-    else:
-        d_guid = (ghat - sgn * (active * c1)[:, None]) / den[:, None]
-    return d_guid, d_blur, d_sparse
+
+# ---------------------------------------------------------------------------
+# The prenormalized contract of the H-tiled route (the JAX package's
+# ops/cspn_pallas.py:_cspn_pallas_tiled): the normalization runs once in
+# plain torch as `prenorm_gates9`, the caller anchors d^0, and the kernels
+# K4-K6 see only gates9, d^0 and the sparse map. The normalization's chain
+# rule is torch autograd of `prenorm_gates9`, outside any kernel.
+
+
+def prenorm_gates9(guidance: torch.Tensor, norm_type: str,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """(B, 8, H, W) raw guidance -> (B, 9, H, W) float32 gates: channel 0
+    the centre gate 1 - sum_k gate_k, channels 1..8 the normalized gates
+    in NEIGHBOR_OFFSETS order (the JAX package's `_prenorm_gates9`,
+    channels first). Differentiable by torch autograd, which takes
+    d|g|/dg = sign(g) = 0 at g = 0, as the adjoint kernel K3 does."""
+    gates, center = normalize_affinity(guidance.float(), norm_type, eps,
+                                       dim=1)
+    return torch.cat([center, gates], dim=1)
+
+
+def cspn_propagate_prenorm_ref(
+    gates9: torch.Tensor,
+    d0: torch.Tensor,
+    sparse_depth: torch.Tensor | None = None,
+    *,
+    num_iters: int,
+) -> torch.Tensor:
+    """Propagation with prenormalized gates9 (B, 9, H, W) and NO anchoring
+    of d^0 (B, H, W) on entry: zero border, the anchor after every
+    iteration (the JAX package's `cspn_propagate_prenorm_ref`)."""
+    return _iterate(gates9[:, 0], gates9[:, 1:], d0, sparse_depth,
+                    num_iters)
+
+
+cspn_tiled_fwd_plain = cspn_propagate_prenorm_ref   # K4's plain version
+
+
+def cspn_tiled_fwd_stash_plain(
+    gates9: torch.Tensor,
+    d0: torch.Tensor,
+    sparse: torch.Tensor | None,
+    *,
+    num_iters: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version: cspn_tiled_fwd_plain's output and the stash
+    (B, T, H, W), stash[:, t] = d^t, the plane iteration t starts from."""
+    stash: list[torch.Tensor] = []
+    out = _iterate(gates9[:, 0], gates9[:, 1:], d0, sparse, num_iters, stash)
+    return out, _stacked(stash, d0)
+
+
+def cspn_tiled_bwd_plain(
+    gates9: torch.Tensor,
+    sparse: torch.Tensor | None,
+    stash: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    num_iters: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's plain version, the adjoint of cspn_tiled_fwd_plain from the
+    stash of cspn_tiled_fwd_stash_plain: (d_gates9 (B, 9, H, W) = [G_0,
+    G_1..8], lam0 = dL/dd^0 (B, H, W), d_sparse_acc = sum_t m lam^{t+1}
+    (B, H, W), zero without a sparse map). No chain rule, and no mask on
+    lam0: the anchoring of d^0 and the normalization are the caller's."""
+    g_acc, g0_acc, d_sparse, lam = _reverse_sweep(
+        gates9[:, 0], gates9[:, 1:], sparse, stash, grad_out, num_iters)
+    return torch.cat([g0_acc[:, None], g_acc], dim=1), lam, d_sparse
 
 
 def cspn_propagate_ref(

@@ -62,6 +62,14 @@ class Trainer:
         if cfg.data.mix_dataset:
             raise NotImplementedError("mixed-dataset training is not ported "
                                       "yet")
+        if cfg.mesh.data * cfg.mesh.spatial > 1:
+            # The JAX package's make_mesh refuses a mesh larger than its
+            # devices; this Trainer runs on one device and has no mesh yet.
+            raise NotImplementedError(
+                f"config {cfg.name!r} asks for a {cfg.mesh.data}x"
+                f"{cfg.mesh.spatial} (data x spatial) mesh: data and spatial "
+                "parallelism come with the multi-GPU slice, not ported yet; "
+                "train on one device with mesh.data=1, mesh.spatial=1")
         self.cfg = cfg
         self.device = torch.device(device)
         self.train_ds = make_dataset(cfg.data, "train", seed=cfg.train.seed)

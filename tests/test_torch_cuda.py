@@ -8,7 +8,8 @@ tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
-(K1 forward, K2 stash forward, K3 adjoint) and each of its outputs. The
+(K1 forward, K2 stash forward, K3 adjoint; K4-K6, their counterparts on
+the prenormalized gates of the H-tiled route) and each output. The
 kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
 meaningless and `8sum_abs` is the absolute-scale control. Gradients
@@ -23,6 +24,7 @@ import torch
 from cspn_monodepth_tpu_torch import DepthPredictor, get_config
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
+from cspn_monodepth_tpu_torch.ops.cspn_ref import anchor, prenorm_gates9
 
 TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -289,3 +291,107 @@ def test_gradient_reaches_the_head_through_the_kernels(cuda):
         torch.backends.cudnn.allow_tf32 = prev
     assert grads["auto"].abs().max() > 0
     assert max_rel(grads["auto"], grads["torch"]) <= MODEL_TOL
+
+
+TILED_CASES = [
+    (1, (37, 48), "8sum", True),
+    (10, (50, 40), "8sum_clamp", True),      # a remainder round (4, 4, 2)
+    (24, (13, 17), "8sum_abs", False),
+    (24, (97, 130), "8sum", True),
+    (0, (33, 65), "8sum_clamp", True),
+]
+
+
+def tiled_launches():
+    return (cspn_cuda.cspn_tiled_fwd.launches,
+            cspn_cuda.cspn_tiled_fwd_stash.launches,
+            cspn_cuda.cspn_tiled_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_iters,hw,norm,with_sparse", TILED_CASES)
+def test_tiled_kernels_match_plain(cuda, num_iters, hw, norm, with_sparse):
+    """K4 (forward), K5 (out and every stash plane) and K6 (d_gates9, lam0,
+    the sparse sums) against their plain versions on prenormalized gates
+    and an anchored d^0; K5's out is K4's bit for bit, anchors exact."""
+    guid, blur, sparse = problem(21, 2, *hw, with_sparse)
+    gates9, d0 = prenorm_gates9(guid, norm), anchor(blur, sparse)
+    cot = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        blur.shape).astype(np.float32))
+    kw = dict(num_iters=num_iters)
+    want = cspn_cuda.cspn_tiled_fwd_plain(gates9, d0, sparse, **kw)
+    want_out, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(
+        gates9, d0, sparse, **kw)
+    want_grads = cspn_cuda.cspn_tiled_bwd_plain(gates9, sparse, want_stash,
+                                                cot, **kw)
+    g, d, s, c = to((gates9, d0, sparse, cot), cuda)
+    before = tiled_launches()
+    got = cspn_cuda.cspn_tiled_fwd(g, d, s, **kw)
+    out, stash = cspn_cuda.cspn_tiled_fwd_stash(g, d, s, **kw)
+    grads = cspn_cuda.cspn_tiled_bwd(g, s, stash, c, **kw)
+    torch.cuda.synchronize()
+    assert tiled_launches() == tuple(n + 1 for n in before)
+    assert max_rel(got, want) <= TOL
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
+    assert stash.shape == (2, num_iters, *hw)
+    for t in range(num_iters):
+        assert max_rel(stash[:, t], want_stash[:, t]) <= TOL, t
+    for a, w in zip(grads, want_grads):
+        assert a.shape == w.shape
+        if w.abs().max() == 0:          # the sparse sums without anchors
+            assert a.abs().max() == 0
+        else:
+            assert max_rel(a, w) <= TOL
+    if with_sparse:
+        m = sparse > 0
+        assert torch.equal(got.cpu()[m], sparse[m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
+def test_tiled_route_matches_whole_plane_route(cuda, norm):
+    """The same function by two routes on the card: K4 on prenormalized
+    gates against K1 on the raw guidance."""
+    guid, blur, sparse = to(problem(23, 2, 70, 90), cuda)
+    kw = dict(num_iters=24, norm_type=norm, guidance_layout="NCHW")
+    tiled = cspn_propagate(guid, blur, sparse, impl="cuda_tiled", **kw)
+    whole = cspn_propagate(guid, blur, sparse, impl="cuda", **kw)
+    assert max_rel(tiled, whole) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sparse", [True, False])
+def test_tiled_function_matches_torch_autograd(cuda, with_sparse):
+    """Gradients of every input through TiledCSPNFunction (K5, K6) and
+    torch autograd of prenorm_gates9 and the anchor, against torch autograd
+    of the plain loop, guidance and blur as head slices."""
+    gen = torch.Generator().manual_seed(7)
+    heads = torch.randn(2, 9, 45, 70, generator=gen)
+    heads[:, 0] = 0.5 + 9 * torch.rand(2, 45, 70, generator=gen)
+    _, _, sparse = problem(8, 2, 45, 70, with_sparse)
+    cot = torch.randn(2, 45, 70, generator=gen)
+    kw = dict(num_iters=10, norm_type="8sum_clamp", guidance_layout="NCHW")
+
+    def grads(device, impl):
+        h = heads.to(device).requires_grad_()
+        sp = None if sparse is None else sparse.to(device).requires_grad_()
+        out = cspn_propagate(h[:, 1:], h[:, 0], sp, impl=impl, **kw)
+        inputs = [h] + ([sp] if sp is not None else [])
+        return torch.autograd.grad((out * cot.to(device)).sum(), inputs)
+
+    before = tiled_launches()
+    got = grads(cuda, "cuda_tiled")
+    assert tiled_launches() == (before[0], before[1] + 1, before[2] + 1)
+    want = grads("cpu", "torch")
+    for a, w in zip(got, want):
+        assert max_rel(a, w) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_auto_sends_kitti_images_to_the_tiled_kernels(cuda):
+    guid, blur, sparse = to(problem(9, 1, 352, 1216), cuda)
+    before = (cspn_cuda.cspn_fwd.launches, cspn_cuda.cspn_tiled_fwd.launches)
+    cspn_propagate(guid, blur, sparse, num_iters=2, norm_type="8sum_clamp",
+                   guidance_layout="NCHW")
+    assert (cspn_cuda.cspn_fwd.launches,
+            cspn_cuda.cspn_tiled_fwd.launches) == (before[0], before[1] + 1)

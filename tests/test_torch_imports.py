@@ -62,7 +62,9 @@ def test_sources_are_found():
     assert {"chip_smoke.py", "cspn_monodepth_tpu_torch/serving.py",
             "cspn_monodepth_tpu_torch/ops/cspn_cuda.py",
             "cspn_monodepth_tpu_torch/train/loop.py",
-            "cspn_monodepth_tpu_torch/data/pipeline.py"} <= rel
+            "cspn_monodepth_tpu_torch/data/pipeline.py",
+            "cspn_monodepth_tpu_torch/data/transforms.py",
+            "cspn_monodepth_tpu_torch/native/__init__.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -84,6 +86,10 @@ def test_port_imports_without_jax():
         "import cspn_monodepth_tpu_torch.train\n"
         "import cspn_monodepth_tpu_torch.data\n"
         "import cspn_monodepth_tpu_torch.ops.sparse\n"
+        "import cspn_monodepth_tpu_torch.ops.cspn\n"
+        "import cspn_monodepth_tpu_torch.data.datasets\n"
+        "import cspn_monodepth_tpu_torch.data.transforms\n"
+        "import cspn_monodepth_tpu_torch.native\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(sorted(bad))\n"
