@@ -38,8 +38,22 @@ exits non-zero:
      records (timed steps, K5/K6 launch counts, peak memory, a profile, the
      loss falling), one step against the plain CSPN loop, then train_epoch
      and evaluate (K4) through KITTIDataset on raw 375x1242 npz frames the
-     script writes, with the augmentation executor that ran.
-Then a line with the kernel table and, last, the device line.
+     script writes, with the augmentation executor that ran;
+  9. spatial_kernels: the spatial path's slab kernels (K7 forward, K8
+     stash forward, K9 adjoint) against their plain versions on the
+     deployed slabs (kitti_1216 on 2x4: 4 x 96x1216; multihost on 16x2:
+     16 x 122x304), a remainder round, B=1 and a first and a last shard;
+     timed beside their plain versions and bounds;
+ 10. spatial: ranks on the one card, each a process on cuda:0 over gloo
+     (NCCL refuses two ranks on one device): cspn_propagate_spatial on a
+     1x4 spatial group against the whole-image tiled route (K4-K6), then
+     the kitti_1216 Trainer at its own 2x4 mesh on 8 ranks at full width
+     (an f32 step against the 1x1 Trainer's, timed bf16 steps and an
+     eval step with the K7/K8/K9 launch counts of that run, peak memory
+     per rank, the ranks' parameters bit for bit). Times of this phase are
+     one card time-shared by 8 processes, not a multi-GPU figure.
+The kernel checks (3, 6, 9) run first. Then a line with the kernel table
+and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -57,6 +71,7 @@ import numpy as np
 import torch
 
 from cspn_monodepth_tpu_torch import DepthPredictor, get_config, native
+from cspn_monodepth_tpu_torch.configs import MeshConfig
 from cspn_monodepth_tpu_torch.data import make_train_iterator, pack_batch
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
@@ -64,6 +79,12 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
     anchor,
     prenorm_gates9,
+)
+from cspn_monodepth_tpu_torch.parallel import (
+    cspn_propagate_spatial,
+    exchange_halo,
+    make_mesh,
+    spawn_ranks,
 )
 from cspn_monodepth_tpu_torch.train import Trainer
 
@@ -106,6 +127,20 @@ KITTI_RAW = (375, 1242)         # a raw frame, bottom-cropped to 352x1216
 KITTI_BATCH = 8
 KITTI_MAX_DEPTH = 85.0
 KITTI_FRAMES = {"train": 48, "val": 8}
+# The spatial path: halo_k rows on each side of a shard; the deployed slabs
+# (kitti_1216 on 2x4: 4 images of 352/4 + 2k rows; multihost on 16x2: 256/16
+# images of 228/2 + 2k rows).
+HALO_K = 4
+KITTI_SLAB = (4, KITTI_H // 4 + 2 * HALO_K, KITTI_W)
+NYU_SLAB = (16, NYU_H // 2 + 2 * HALO_K, NYU_W)
+SPATIAL_STEPS = 3
+# Ranks on the one card: one process each, all on cuda:0 over gloo.
+RANK_DEADLINE_S = 420
+# The kitti_1216 2x4 Trainer's f32 step against the 1x1 Trainer's: cuDNN
+# picks its algorithms for batch 1 per rank and batch 8 on one device, and
+# BatchNorm sums per rank before the all_reduce. On an H100 the loss came
+# 1.0e-4 and the head gradients 1.4e-4 apart (PERF.md); held to 5e-4.
+MESH_STEP_TOL = 5e-4
 
 
 def emit(phase: str, **kw):
@@ -1171,6 +1206,338 @@ def phase_kitti_epoch(variables, gpu: str) -> dict:
     return dict(launches=launches)
 
 
+def slab_problem(gen, b, h, w, r, sparse=True, edge=None):
+    """A rank's halo'd slab: prenormalized gates of N(0, 1) guidance, an
+    anchored d^0, ~1% anchors and a cotangent, on the card. edge "first"
+    or "last" zeroes the outer HALO_K rows, as the exchange leaves them on
+    the first and last shard."""
+    guid, blur, sp = cspn_problem(gen, b, h, w, sparse=sparse)
+    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
+    if edge is not None:
+        rows = slice(0, HALO_K) if edge == "first" else slice(h - HALO_K, h)
+        for t in (gates9[:, :, rows], d0[:, rows]) + (
+                () if sp is None else (sp[:, rows],)):
+            t.zero_()
+    cot = torch.randn((b, h, w), generator=gen, device="cuda")
+    return gates9, d0, sp, cot, dict(num_iters=r)
+
+
+def slab_kernel_errors(gates9, d0, sp, cot, kw) -> dict:
+    """K7, K8 and K9 against their plain versions: the largest max-relative
+    error of each output (every stash plane on its own), their largest
+    absolute errors, and whether K8's output is K7's bit for bit."""
+    k7 = cspn_cuda.cspn_prenorm_fwd(gates9, d0, sp, **kw)
+    out, stash = cspn_cuda.cspn_prenorm_fwd_stash(gates9, d0, sp, **kw)
+    grads = cspn_cuda.cspn_prenorm_bwd(gates9, sp, stash, cot, **kw)
+    want_out, want_stash = cspn_cuda.cspn_prenorm_fwd_stash_plain(
+        gates9, d0, sp, **kw)
+    want_grads = cspn_cuda.cspn_prenorm_bwd_plain(gates9, sp, want_stash, cot,
+                                                  **kw)
+    torch.cuda.synchronize()
+    errs = {"k7_out": max_rel(k7, want_out),
+            "k8_stash": max(max_rel_or_zero(stash[:, t], want_stash[:, t])
+                            for t in range(stash.shape[1]))}
+    for name, got, want in zip(("d_gates9", "lam0", "d_sparse"), grads,
+                               want_grads):
+        errs[name] = max_rel_or_zero(got, want)
+    return dict(max_rel=errs, k8_equals_k7=bool(torch.equal(out, k7)),
+                k7_max_abs=float((k7 - want_out).abs().max()),
+                k8_max_abs=float((stash - want_stash).abs().max()),
+                k9_max_abs=max(float((g - w).abs().max())
+                               for g, w in zip(grads, want_grads)))
+
+
+def phase_spatial_kernels(gpu: str) -> dict:
+    """K7, K8 and K9 against their plain versions on the deployed slabs and
+    at edge cases; times at both deployed slabs. Returns the KITTI slab's
+    times and errors for the kernel table."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cases = [dict(slab=KITTI_SLAB, r=HALO_K), dict(slab=NYU_SLAB, r=HALO_K),
+             dict(slab=KITTI_SLAB, r=2), dict(slab=KITTI_SLAB, r=3,
+                                              sparse=False),
+             dict(slab=(1,) + KITTI_SLAB[1:], r=HALO_K),
+             dict(slab=KITTI_SLAB, r=HALO_K, edge="first"),
+             dict(slab=KITTI_SLAB, r=HALO_K, edge="last")]
+    max_abs = {}
+    for c in cases:
+        *args, kw = slab_problem(gen, *c["slab"], c["r"],
+                                 sparse=c.get("sparse", True),
+                                 edge=c.get("edge"))
+        r = slab_kernel_errors(*args, kw)
+        emit("spatial_kernel_case", kernels=["cspn_prenorm_fwd",
+                                             "cspn_prenorm_fwd_stash",
+                                             "cspn_prenorm_bwd"],
+             **c, **r, tol=KERNEL_TOL)
+        if not (max(r["max_rel"].values()) <= KERNEL_TOL
+                and r["k8_equals_k7"]):
+            raise AssertionError(f"K7/K8/K9 disagree with their plain "
+                                 f"versions: {c} {r}")
+        if c["slab"] == KITTI_SLAB and c["r"] == HALO_K and "edge" not in c:
+            max_abs = r
+
+    timing = {}
+    for name, slab in (("kitti_2x4", KITTI_SLAB), ("nyu_16x2", NYU_SLAB)):
+        gates9, d0, sp, cot, kw = slab_problem(gen, *slab, HALO_K)
+        b, h, w = slab
+        _, stash = cspn_cuda.cspn_prenorm_fwd_stash(gates9, d0, sp, **kw)
+        _, plain_stash = cspn_cuda.cspn_prenorm_fwd_stash_plain(gates9, d0,
+                                                                sp, **kw)
+        for kernel, fn, plain, bound in (
+                ("cspn_prenorm_fwd",
+                 lambda: cspn_cuda.cspn_prenorm_fwd(gates9, d0, sp, **kw),
+                 lambda: cspn_cuda.cspn_prenorm_fwd_plain(gates9, d0, sp,
+                                                          **kw),
+                 tiled_fwd_bound_ms(b, h, w, HALO_K, True)),
+                ("cspn_prenorm_fwd_stash",
+                 lambda: cspn_cuda.cspn_prenorm_fwd_stash(gates9, d0, sp,
+                                                          **kw),
+                 lambda: cspn_cuda.cspn_prenorm_fwd_stash_plain(gates9, d0,
+                                                                sp, **kw),
+                 tiled_stash_bound_ms(b, h, w, HALO_K, True)),
+                ("cspn_prenorm_bwd",
+                 lambda: cspn_cuda.cspn_prenorm_bwd(gates9, sp, stash, cot,
+                                                    **kw),
+                 lambda: cspn_cuda.cspn_prenorm_bwd_plain(
+                     gates9, sp, plain_stash, cot, **kw),
+                 tiled_bwd_bound_ms(b, h, w, HALO_K, True))):
+            ms = time_ms(fn, 50)
+            plain_ms = time_ms(plain, 10)
+            device_ms = device_profile(fn)["busy_ms"]
+            emit("kernel_time", kernel=kernel, slab=name, b=b, h=h, w=w,
+                 t=HALO_K, norm="8sum_clamp", ms=ms, device_ms=device_ms,
+                 plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                 library_ms=None, gpu=gpu)
+            if name == "kitti_2x4":
+                timing[kernel] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound[0], bound_by=bound[1])
+    return dict(timing=timing, max_abs=max_abs)
+
+
+def spatial_op_rank(rank: int) -> dict:
+    """One rank of a 1x4 spatial group on cuda:0: this rank's rows of 4
+    images of 352x1216 through cspn_propagate_spatial, without a gradient
+    (K7) and with one (K8, K9), against the whole-image tiled route (K4-K6)
+    on all the rows; returns the largest errors of its rows, the largest
+    values of the reference, the launch and exchange counts."""
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MeshConfig(data=1, spatial=4), device="cuda:0")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    guid, blur, sp = cspn_problem(gen, 4, KITTI_H, KITTI_W)
+    cot = torch.randn(blur.shape, generator=gen, device="cuda")
+    h = KITTI_H // 4
+    rows = slice(rank * h, (rank + 1) * h)
+    kw = dict(num_iters=24, norm_type="8sum_clamp", halo_k=HALO_K)
+    mine = [x[..., rows, :].contiguous() for x in (guid, blur, sp)]
+
+    reset_counts()
+    exchange_halo.calls = 0
+    with torch.no_grad():
+        fwd = cspn_propagate_spatial(*mine, mesh=mesh, **kw)
+    inputs = [x.clone().requires_grad_() for x in mine]
+    out = cspn_propagate_spatial(*inputs, mesh=mesh, **kw)
+    grads = torch.autograd.grad((out * cot[:, rows]).sum(), inputs)
+    torch.cuda.synchronize()
+    launches, exchanges = counts(), exchange_halo.calls
+
+    whole = [x.clone().requires_grad_() for x in (guid, blur, sp)]
+    want = cspn_propagate(whole[0], whole[1], whole[2], num_iters=24,
+                          norm_type="8sum_clamp", impl="cuda_tiled",
+                          guidance_layout="NCHW")
+    want_grads = torch.autograd.grad((want * cot).sum(), whole)
+    want = want.detach()
+    mine_want = [want[:, rows]] + [g[..., rows, :] for g in want_grads]
+    got = [fwd, out.detach()] + list(grads)
+    errs = [float((a - b).abs().max()) for a, b in zip(
+        got, [mine_want[0]] + mine_want)]
+    scale = [float(x.abs().max()) for x in [want, want] + list(want_grads)]
+    return dict(errs=errs, scale=scale, launches=launches,
+                exchanges=exchanges)
+
+
+def mesh_config(**overrides):
+    """kitti_1216 at its own 2x4 mesh on synthetic records, full width."""
+    return get_config("kitti_1216").override(**{"data.dataset": "synthetic",
+                                                **overrides})
+
+
+def param_digest(model) -> str:
+    """A digest of every parameter and BN statistic, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + list(model.buffers()):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def f32_step(cfg, variables, batch) -> dict:
+    """One float32 train step (TF32 off, cuDNN deterministic, no clip) from
+    `variables` on `batch` with the Trainer's own sparse samples: the loss,
+    the head's gradients and the samples' sum and count."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(cfg.override(**{"model.dtype": "float32",
+                                          "train.clip_norm": 0.0}),
+                          device="cuda:0")
+        state = trainer.init_state(variables)
+        drawn = trainer._sample_sparse(trainer._rng(0, state.step),
+                                       trainer._unpack(batch)["depth"], None)
+        state, loss, _ = trainer.train_step(state, batch)
+        return dict(loss=float(loss),
+                    weight=state.model.head.weight.grad.cpu().numpy(),
+                    bias=state.model.head.bias.grad.cpu().numpy(),
+                    sparse_sum=float(drawn.double().sum()),
+                    sparse_count=int((drawn > 0).sum()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = False
+
+
+def mesh_rank(rank: int, batch_np: dict) -> dict:
+    """One rank of the kitti_1216 2x4 Trainer on cuda:0: the f32 step
+    against which the 1x1 step is held, then one warm-up and SPATIAL_STEPS
+    timed bf16 steps with the launch counts set to 0 just before and read
+    just after, one eval step (K7) the same way, peak memory and a digest
+    of the parameters."""
+    torch.cuda.set_device(0)
+    cfg = mesh_config()
+    variables = randomized_variables(cfg)
+    b = KITTI_BATCH // 8
+    mine = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).cuda()
+            for k, v in batch_np.items()}
+    ref = f32_step(cfg, variables, mine)
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, device="cuda:0")
+    state = trainer.init_state(variables)
+    state, loss, _ = trainer.train_step(state, mine)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    exchange_halo.calls = 0
+    step_ms, losses = [], [float(loss)]
+    for _ in range(SPATIAL_STEPS):
+        t0 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, mine)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    train_launches, train_exchanges = counts(), exchange_halo.calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    reset_counts()
+    eval_batch = dict(mine, valid_image=torch.ones(b, device="cuda:0"))
+    t0 = time.perf_counter()
+    sums, pred = trainer.eval_step(state, eval_batch, 0)
+    rmse = float(sums.rmse / sums.n_images)
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    eval_launches = counts()
+    return dict(ref=ref, losses=losses, step_ms=step_ms,
+                launches=train_launches, exchanges=train_exchanges,
+                eval_launches=eval_launches, eval_ms=eval_ms,
+                eval_n_images=float(sums.n_images), eval_rmse=rmse,
+                pred_finite=bool(torch.isfinite(pred).all()),
+                pred_shape=list(pred.shape), peak_gb=peak_gb,
+                digest=param_digest(state.model),
+                trainer_mesh=[trainer.mesh.data, trainer.mesh.spatial])
+
+
+def phase_spatial(gpu: str) -> dict:
+    """(a) the sharded CSPN op on 4 ranks against K4-K6; (b) the kitti_1216
+    2x4 Trainer on 8 ranks against the 1x1 Trainer. Every rank is a
+    process on cuda:0 over gloo."""
+    t0 = time.perf_counter()
+    op = spawn_ranks(spatial_op_rank, 4, timeout=RANK_DEADLINE_S)
+    rounds = -(-24 // HALO_K)
+    errs = [max(r["errs"][i] for r in op) / op[0]["scale"][i]
+            for i in range(5)]
+    emit("spatial_op", ranks=4, mesh=[1, 4], b=4, h=KITTI_H, w=KITTI_W,
+         t=24, halo_k=HALO_K, norm="8sum_clamp",
+         max_rel={"k7_forward": errs[0], "k8_forward": errs[1],
+                  "d_guidance": errs[2], "d_blur": errs[3],
+                  "d_sparse": errs[4]},
+         fwd_tol=KERNEL_TOL, grad_tol=GRAD_TOL,
+         launches=[r["launches"] for r in op],
+         exchanges=[r["exchanges"] for r in op],
+         seconds=time.perf_counter() - t0, gpu=gpu)
+    want = {k: rounds if k.startswith("cspn_prenorm") else 0
+            for k in op[0]["launches"]}
+    if not (max(errs[:2]) <= KERNEL_TOL and max(errs[2:]) <= GRAD_TOL
+            and all(r["launches"] == want for r in op)
+            and all(r["exchanges"] == 2 * (rounds + 2) for r in op)):
+        raise AssertionError(f"the sharded CSPN op on 4 ranks: {errs} "
+                             f"{[r['launches'] for r in op]}")
+
+    # The 1x1 reference step, freed before the ranks start.
+    cfg = mesh_config()
+    variables = randomized_variables(cfg)
+    batch_np = {k: v.cpu().numpy() for k, v in fixed_batch(
+        Trainer(cfg.override(**{"mesh.data": 1, "mesh.spatial": 1}),
+                device="cpu"), KITTI_BATCH).items()}
+    single = f32_step(cfg.override(**{"mesh.data": 1, "mesh.spatial": 1}),
+                      variables,
+                      {k: torch.from_numpy(v).cuda()
+                       for k, v in batch_np.items()})
+    del variables
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, 8, batch_np, timeout=RANK_DEADLINE_S)
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    mesh_ref = r0["ref"]
+    loss_err = abs(mesh_ref["loss"] - single["loss"]) / abs(single["loss"])
+    grad_errs = {n: float(np.abs(mesh_ref[n] - single[n]).max()
+                          / np.abs(single[n]).max()) for n in ("weight",
+                                                               "bias")}
+    sparse_same = (sum(r["ref"]["sparse_count"] for r in ranks)
+                   == single["sparse_count"] and abs(
+                       sum(r["ref"]["sparse_sum"] for r in ranks)
+                       - single["sparse_sum"]) <= 1e-9 * single["sparse_sum"])
+    rounds_per_forward = rounds
+    want_train = {k: (SPATIAL_STEPS * rounds_per_forward
+                      if k in ("cspn_prenorm_fwd_stash", "cspn_prenorm_bwd")
+                      else 0) for k in r0["launches"]}
+    want_eval = {k: rounds_per_forward if k == "cspn_prenorm_fwd" else 0
+                 for k in r0["eval_launches"]}
+    digests = {r["digest"] for r in ranks}
+    emit("spatial_train", config=cfg.name, mesh=r0["trainer_mesh"], ranks=8,
+         arch=cfg.model.arch, dtype=cfg.model.dtype, batch=KITTI_BATCH,
+         h=KITTI_H, w=KITTI_W, num_iters=cfg.model.num_iters,
+         f32_step_vs_1x1={"loss_mesh": mesh_ref["loss"],
+                          "loss_1x1": single["loss"], "loss_rel": loss_err,
+                          "head_grad_max_rel": grad_errs,
+                          "sparse_samples_equal": sparse_same,
+                          "tol": MESH_STEP_TOL},
+         losses=r0["losses"],
+         step_ms_rank0=r0["step_ms"],
+         step_ms_median_all=float(np.median(
+             [ms for r in ranks for ms in r["step_ms"]])),
+         eval_ms_rank0=r0["eval_ms"],
+         eval_n_images=r0["eval_n_images"], eval_rmse=r0["eval_rmse"],
+         launches_per_rank=[r["launches"] for r in ranks],
+         eval_launches_per_rank=[r["eval_launches"] for r in ranks],
+         exchanges_per_rank=[r["exchanges"] for r in ranks],
+         peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+         params_identical=len(digests) == 1, seconds=seconds,
+         timing="one card time-shared by 8 processes, collectives through "
+                "the host over gloo: not a multi-GPU figure", gpu=gpu)
+    if not (loss_err <= MESH_STEP_TOL
+            and max(grad_errs.values()) <= MESH_STEP_TOL and sparse_same
+            and all(r["launches"] == want_train for r in ranks)
+            and all(r["eval_launches"] == want_eval for r in ranks)
+            and len(digests) == 1 and r0["eval_n_images"] == KITTI_BATCH
+            and all(r["pred_finite"] for r in ranks)
+            and all(np.isfinite(r["losses"]).all() for r in ranks)):
+        raise AssertionError(f"the kitti_1216 2x4 Trainer on 8 ranks: loss "
+                             f"{loss_err}, head grads {grad_errs}, sparse "
+                             f"{sparse_same}, digests {len(digests)}, "
+                             f"launches {[r['launches'] for r in ranks]}")
+    return dict(train_launches=r0["launches"],
+                eval_launches=r0["eval_launches"])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -1179,11 +1546,15 @@ def main():
     k1 = phase_kernels(gpu)
     k23 = phase_train_kernels(gpu)
     k456 = phase_kitti_kernels(gpu)
+    # Beside the other kernel checks: torch.profiler has recorded no device
+    # time once the KITTI epoch's phase has run.
+    k789 = phase_spatial_kernels(gpu)
     reset_counts()
     launches, max_abs_err = phase_serving(gpu)
     train = phase_train(gpu)
     k4_launches, k4_max_abs = phase_kitti_serving(gpu)
     kitti = phase_kitti_train(gpu)
+    spatial = phase_spatial(gpu)
 
     def row(name, source, line, launches, max_abs, t):
         return {"name": name, "route": "cuda",
@@ -1209,6 +1580,16 @@ def main():
         row("cspn_tiled_bwd", "cspn_bwd.cu", 1008,
             kitti["launches"]["cspn_tiled_bwd"], kitti["k6_max_abs"],
             k456["cspn_tiled_bwd"]),
+        row("cspn_prenorm_fwd", "cspn_fwd.cu", 1360,
+            spatial["eval_launches"]["cspn_prenorm_fwd"],
+            k789["max_abs"]["k7_max_abs"], k789["timing"]["cspn_prenorm_fwd"]),
+        row("cspn_prenorm_fwd_stash", "cspn_fwd.cu", 1418,
+            spatial["train_launches"]["cspn_prenorm_fwd_stash"],
+            k789["max_abs"]["k8_max_abs"],
+            k789["timing"]["cspn_prenorm_fwd_stash"]),
+        row("cspn_prenorm_bwd", "cspn_bwd.cu", 1496,
+            spatial["train_launches"]["cspn_prenorm_bwd"],
+            k789["max_abs"]["k9_max_abs"], k789["timing"]["cspn_prenorm_bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 // CSPN adjoint on Hopper (sm_90a): the gradients of the propagation of
 // csrc/cspn_fwd.cu, from the output's cotangent and the stash of every
 // pre-iteration plane d^t that the stash forward wrote. One kernel,
-// templated on the contract, behind two C entries:
+// templated on the contract, behind three C entries:
 //   cspn_bwd        (K3) with respect to the raw guidance, the blur depth
 //                   and the sparse depth, the chain rule of the affinity
 //                   normalization included (stash of K2);
@@ -11,12 +11,17 @@
 //                   mask), and the sparse sum sum_t m lam^{t+1} of the
 //                   per-iteration anchors. No chain rule: the caller's
 //                   autograd of the normalization and of d^0's anchoring
-//                   supplies it.
+//                   supplies it;
+//   cspn_prenorm_bwd (K9) K6's contract on one rank's halo'd slab of the
+//                   spatially sharded CSPN (stash of K8, one round of r <= k
+//                   iterations): the slab's halo rows are image rows to it.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_bwd_kernel
 // (launched by _cspn_pallas_bwd_impl), the whole-plane TPU adjoint of the
 // training step (K3), and _cspn_tiled_bwd_kernel (launched by
-// _tiled_bwd_launch), the H-tiled one (K6). They compute the same
+// _tiled_bwd_launch), the H-tiled one (K6), and _cspn_prenorm_bwd_kernel
+// (launched by _cspn_prenorm_bwd_impl), the spatial path's slab adjoint
+// (K9). They compute the same
 // functions; they do not copy the TPU layout, which keeps ~28 planes of one
 // image (K3) or of one row tile (K6) resident in VMEM.
 //
@@ -35,7 +40,8 @@
 // iteration are far below the f32 rate: bound by bytes. K6 reads 9 gate
 // planes, sparse, the cotangent and the stash and writes 9 gate gradients,
 // lam^0 and the sparse sum: (23 + T) * 4 B/px, 630.1 MB at KITTI's B=8 x
-// 352x1216, T=24, about 188 us.
+// 352x1216, T=24, about 188 us. K9 on KITTI's 2x4 slab (B=4 images of
+// 96x1216, r=4) moves 22 + r = 26 planes, 48.6 MB, about 14.5 us.
 //
 // Design (simple first; making it fast is later work):
 // * The same recompute-in-halo tiles as the forward, in reverse. A block
@@ -379,6 +385,20 @@ int cspn_tiled_bwd(const float* gates9, int64_t g_bstride,
                    float* d_gates9, float* lam0, float* d_sparse,
                    float* lam_a, float* lam_b,
                    int B, int H, int W, int T, void* stream) {
+  return launch_rounds<true>(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                             go_bstride, stash, d_gates9, lam0, d_sparse,
+                             nullptr, lam_a, lam_b, B, H, W, T, 0, stream);
+}
+
+// K9: cspn_tiled_bwd's contract on one rank's halo'd slab, the stash of
+// cspn_prenorm_fwd_stash; T = the round's r <= k iterations.
+int cspn_prenorm_bwd(const float* gates9, int64_t g_bstride,
+                     const float* sparse, int64_t sp_bstride,
+                     const float* grad_out, int64_t go_bstride,
+                     const float* stash,
+                     float* d_gates9, float* lam0, float* d_sparse,
+                     float* lam_a, float* lam_b,
+                     int B, int H, int W, int T, void* stream) {
   return launch_rounds<true>(gates9, g_bstride, sparse, sp_bstride, grad_out,
                              go_bstride, stash, d_gates9, lam0, d_sparse,
                              nullptr, lam_a, lam_b, B, H, W, T, 0, stream);

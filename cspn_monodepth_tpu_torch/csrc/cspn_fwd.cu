@@ -1,6 +1,6 @@
 // CSPN forward propagation on Hopper (sm_90a): affinity normalization,
 // d^0 anchoring and T iterations of the 8-neighbour gather stencil with
-// per-iteration sparse re-anchoring. Four C entries share one kernel,
+// per-iteration sparse re-anchoring. Six C entries share one kernel,
 // templated on the contract:
 //   cspn_fwd        (K1) the eval and serving forward of raw guidance;
 //   cspn_fwd_stash  (K2) the training forward, which also writes every
@@ -10,14 +10,25 @@
 //                   prenormalized contract of the H-tiled route: nine gate
 //                   planes (B, 9, H, W), centre first, read as they are (no
 //                   normalization), and d^0 taken as given (the caller
-//                   anchors it); the anchor still follows every iteration.
+//                   anchors it); the anchor still follows every iteration;
+//   cspn_prenorm_fwd, cspn_prenorm_fwd_stash  (K7, K8) the same two on one
+//                   rank's halo'd slab of the spatially sharded CSPN
+//                   (parallel/halo.py): the prenormalized contract again, on
+//                   an (H/S + 2k)-row slab for one round of r <= k
+//                   iterations. The slab's halo rows are its neighbours'
+//                   rows, copied in by the caller (zero rows on the first
+//                   and last shard); to the kernel they are image rows like
+//                   any other, and the zero border lies outside the slab, as
+//                   in the TPU kernel's padded plane.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_kernel (launched by
 // _cspn_pallas_fwd_impl) and _cspn_kernel_stash (launched by
 // _cspn_pallas_stash_fwd), the whole-plane TPU kernels, and
 // _cspn_tiled_kernel (launched by _tiled_launch) and
 // _cspn_tiled_stash_kernel (launched by _tiled_stash_launch), the H-tiled
-// ones. They compute the same functions; they do not copy the TPU layout
+// ones, and _cspn_prenorm_kernel (launched by _cspn_prenorm_fwd_impl) and
+// _cspn_prenorm_stash_kernel (launched by _cspn_prenorm_stash_fwd), the
+// spatial path's slab kernels. They compute the same functions; they do not copy the TPU layout
 // (the TPU tiles H only, pads W to 128 lanes and stashes each tile's
 // interior +-1 rows; here the 2-D tiles below serve both routes, and the
 // stash is the plain (B, T, H, W) array).
@@ -33,7 +44,12 @@
 // is bound by bytes. K2 writes T more planes: (11 + T) * 4 B/px, 310.5 MB
 // at B=32, T=24, about 93 us. K4 reads nine gate planes instead of eight:
 // 48 B/px, 164.4 MB at KITTI's B=8 x 352x1216, about 49 us; K5 adds the
-// T stash planes, 493.1 MB, about 147 us.
+// T stash planes, 493.1 MB, about 147 us. K7 on KITTI's 2x4 slab (B=4 images
+// of 96x1216, one round of 4 iterations) moves 12 planes, 22.4 MB, about
+// 6.7 us; K8 16 planes, about 8.9 us: a few microseconds of launch latency
+// are a large part of such a call.
+// The TPU kernel keeps the whole slab in VMEM; a 96x1216 f32 plane is 467 KB,
+// twice a Hopper block's shared memory, so the slab is tiled like a plane.
 //
 // Design (simple first; making it fast is later work):
 // * Recompute-in-halo tiles. A block owns a TILE x TILE interior and loads
@@ -279,6 +295,31 @@ int cspn_tiled_fwd_stash(const float* gates9, int64_t g_bstride,
                          const float* sparse, int64_t sp_bstride,
                          float* out, float* scratch, float* stash,
                          int B, int H, int W, int T, void* stream) {
+  return launch_rounds<true>(gates9, g_bstride, d0, d0_bstride, sparse,
+                             sp_bstride, out, scratch, stash, B, H, W, T, 0,
+                             stream);
+}
+
+// K7: cspn_tiled_fwd's contract on one rank's halo'd slab (gates9, d0 and
+// sparse of the slab's H rows, halo rows included), T = the round's r <= k
+// iterations: one launch for r <= HALO.
+int cspn_prenorm_fwd(const float* gates9, int64_t g_bstride,
+                     const float* d0, int64_t d0_bstride,
+                     const float* sparse, int64_t sp_bstride,
+                     float* out, float* scratch,
+                     int B, int H, int W, int T, void* stream) {
+  return launch_rounds<true>(gates9, g_bstride, d0, d0_bstride, sparse,
+                             sp_bstride, out, scratch, nullptr, B, H, W, T,
+                             0, stream);
+}
+
+// K8: K7 that also writes d^t to stash[b, t] of a contiguous (B, T, H, W)
+// array; its output is K7's bit for bit.
+int cspn_prenorm_fwd_stash(const float* gates9, int64_t g_bstride,
+                           const float* d0, int64_t d0_bstride,
+                           const float* sparse, int64_t sp_bstride,
+                           float* out, float* scratch, float* stash,
+                           int B, int H, int W, int T, void* stream) {
   return launch_rounds<true>(gates9, g_bstride, d0, d0_bstride, sparse,
                              sp_bstride, out, scratch, stash, B, H, W, T, 0,
                              stream);

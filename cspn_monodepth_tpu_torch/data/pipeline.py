@@ -8,6 +8,8 @@ cspn_monodepth_tpu/data/pipeline.py, and a PyTorch `device_prefetch`).
   batches ahead of the step.
 * Shuffling is a seeded per-epoch permutation, so an epoch's batches are a
   pure function of (seed, epoch, step).
+* On a mesh each rank (process_index of process_count) takes its own
+  consecutive images of every global batch, from the same permutation.
 * `device_prefetch` copies each batch from pinned host memory with
   non-blocking copies, DEVICE_AHEAD batches ahead of use, so the copy
   overlaps the running step.
@@ -90,36 +92,49 @@ class _PrefetchIterator:
         self._pool.shutdown(wait=True)
 
 
+def _local_batch(global_batch: int, process_count: int) -> int:
+    if global_batch % process_count:
+        raise ValueError(f"batch {global_batch} does not split over "
+                         f"{process_count} ranks")
+    return global_batch // process_count
+
+
 def make_train_iterator(dataset, *, global_batch: int, epoch: int,
-                        seed: int = 0, num_workers: int = 8, steps: int = 0):
-    """Yield one epoch of packed batches; drops the final partial batch.
-    `steps` overrides the epoch length if nonzero."""
+                        seed: int = 0, num_workers: int = 8, steps: int = 0,
+                        process_index: int = 0, process_count: int = 1):
+    """Yield one epoch of packed batches, this rank's share of each global
+    batch; drops the final partial batch. `steps` overrides the epoch
+    length if nonzero."""
     n = len(dataset)
+    local = _local_batch(global_batch, process_count)
     num_batches = steps or max(n // global_batch, 1)
     rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
     perm = rng.permutation(max(n, global_batch)) % max(n, 1)
     pool = ThreadPoolExecutor(max_workers=num_workers)
 
     def make_batch(step: int) -> dict[str, np.ndarray]:
-        base = (step * global_batch) % max(n, 1)
-        idx = [perm[(base + i) % len(perm)] for i in range(global_batch)]
+        base = (step * global_batch + process_index * local) % max(n, 1)
+        idx = [perm[(base + i) % len(perm)] for i in range(local)]
         records = list(pool.map(lambda j: dataset.get(int(j), epoch), idx))
         return pack_batch(_stack(records))
 
     return _PrefetchIterator(make_batch, num_batches, pool)
 
 
-def make_eval_iterator(dataset, *, global_batch: int, num_workers: int = 8):
-    """Deterministic eval batches; the final batch is padded, with a
-    `valid_image` weight (and an all-invalid target) for the padding."""
+def make_eval_iterator(dataset, *, global_batch: int, num_workers: int = 8,
+                       process_index: int = 0, process_count: int = 1):
+    """Deterministic eval batches, this rank's share of each; the final
+    batch is padded, with a `valid_image` weight (and an all-invalid
+    target) for the padding."""
     n = len(dataset)
+    local = _local_batch(global_batch, process_count)
     num_batches = -(-n // global_batch)
     pool = ThreadPoolExecutor(max_workers=num_workers)
 
     def make_batch(step: int) -> dict[str, np.ndarray]:
         records, valid = [], []
-        for i in range(global_batch):
-            j = step * global_batch + i
+        for i in range(local):
+            j = step * global_batch + process_index * local + i
             records.append(dataset.get(min(j, n - 1), epoch=0))
             valid.append(j < n)
         batch = _stack(records)

@@ -11,6 +11,12 @@ Counterpart of cspn_monodepth_tpu/models/cspn_net.py:
 Dtypes as in the JAX package: the encoder and decoder run under bf16
 autocast when `dtype` is bfloat16; the head and CSPN run in float32, the
 head conv with TF32 off (cuDNN would otherwise use TF32 for f32 convs).
+
+On a mesh (parallel/mesh.py) each rank runs the network on its own images
+with BatchNorm over the global batch (`bn_group`), and with `spatial_mesh`
+(a mesh whose "spatial" axis is > 1) the CSPN runs on H slabs of the data
+group's images with a halo exchange (parallel/halo.py), as the JAX model
+does with its `spatial_mesh`.
 """
 
 from __future__ import annotations
@@ -21,9 +27,18 @@ import math
 import torch
 import torch.nn as nn
 
-from cspn_monodepth_tpu_torch.models.resnet import ARCHS, ResNetEncoder
+from cspn_monodepth_tpu_torch.models.resnet import (
+    ARCHS,
+    BatchNorm2d,
+    ResNetEncoder,
+)
 from cspn_monodepth_tpu_torch.models.unet import UpProjDecoder
 from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate
+from cspn_monodepth_tpu_torch.parallel.halo import (
+    cspn_propagate_spatial,
+    gather_rows,
+    scatter_rows,
+)
 
 # modality -> (input channels, index of the sparse-depth channel or None)
 MODALITIES = {"rgbd": (4, 3), "rgb": (3, None), "d": (1, 0)}
@@ -46,6 +61,11 @@ class CSPNDepthNet(nn.Module):
     Parameters are initialized from `generator` (seed 0 when None): conv
     kernels lecun-normal, BN at identity, the head at zero, so that with
     "8sum_clamp" the CSPN starts as the identity map, as in the JAX package.
+
+    bn_group: a process group over which train-mode BatchNorm takes its
+    statistics (the mesh's world group), or None for this rank's batch.
+    spatial_mesh: a parallel.Mesh whose spatial axis shards the CSPN, or
+    None.
     """
 
     def __init__(self, modality: str = "rgbd", num_iters: int = 24,
@@ -55,7 +75,8 @@ class CSPNDepthNet(nn.Module):
                  encoder_block: str = "bottleneck", encoder_width: int = 64,
                  decoder_channels: tuple = (512, 256, 128, 64),
                  decoder_out: int = 64, decoder_block: str = "upproj",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 bn_group=None, spatial_mesh=None):
         super().__init__()
         if modality not in MODALITIES:
             raise ValueError(f"unknown modality: {modality!r}")
@@ -76,12 +97,18 @@ class CSPNDepthNet(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.reset_parameters(generator)
+        self.spatial_mesh = spatial_mesh
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.group = bn_group
 
     @classmethod
-    def from_config(cls, model_cfg, generator: torch.Generator | None = None
-                    ) -> "CSPNDepthNet":
+    def from_config(cls, model_cfg, generator: torch.Generator | None = None,
+                    mesh=None) -> "CSPNDepthNet":
         """Build from a configs.ModelConfig (packed_tail/packed_stem are TPU
-        layout flags and are ignored)."""
+        layout flags and are ignored), on `mesh` (a parallel.Mesh) when
+        given: BatchNorm over its world group, the CSPN over its spatial
+        axis when that is > 1."""
         c = model_cfg
         return cls(modality=c.modality, num_iters=c.num_iters,
                    norm_type=c.norm_type, cspn_impl=c.cspn_impl,
@@ -91,7 +118,10 @@ class CSPNDepthNet(nn.Module):
                    encoder_width=c.encoder_width,
                    decoder_channels=tuple(c.decoder_channels),
                    decoder_out=c.decoder_out,
-                   decoder_block=c.decoder_block, generator=generator)
+                   decoder_block=c.decoder_block, generator=generator,
+                   bn_group=None if mesh is None else mesh.world_group,
+                   spatial_mesh=(mesh if mesh is not None and mesh.spatial > 1
+                                 else None))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -123,8 +153,28 @@ class CSPNDepthNet(nn.Module):
             feat = self.decoder(self.encoder(x), (h, w))
         with torch.autocast(dev, enabled=False), _no_tf32():
             heads = self.head(feat.float())           # (B, 9, H, W) f32
+        if self.spatial_mesh is not None:
+            return self._propagate_spatial(heads, sparse)[..., None]
         refined = cspn_propagate(
             heads[:, 1:], heads[:, 0], sparse,
             num_iters=self.num_iters, norm_type=self.norm_type,
             impl=self.cspn_impl, guidance_layout="NCHW")
         return refined[..., None]
+
+    def _propagate_spatial(self, heads, sparse):
+        """The CSPN on H slabs: the heads (and sparse plane) of this rank's
+        images go to the spatial group as row shards, the refined rows come
+        back (B, H, W)."""
+        planes = heads if sparse is None else torch.cat(
+            [heads, sparse[:, None]], dim=1)
+        shards = scatter_rows(planes, self.spatial_mesh)
+        refined = cspn_propagate_spatial(
+            shards[:, 1:9], shards[:, 0],
+            None if sparse is None else shards[:, 9],
+            mesh=self.spatial_mesh, num_iters=self.num_iters,
+            norm_type=self.norm_type,
+            # "torch" keeps the plain slab body; any kernel route takes the
+            # slab kernels K7-K9.
+            impl="torch" if self.cspn_impl == "torch" else "auto")
+        return gather_rows(refined[:, None], self.spatial_mesh,
+                           heads.shape[2])[:, 0]

@@ -16,8 +16,11 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from cspn_monodepth_tpu_torch.parallel.comm import all_reduce
 
 # arch name -> (stage_sizes, block kind), as in the JAX package.
 ARCHS = {
@@ -39,11 +42,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     uses the unbiased one, n/(n-1) larger. Normalization itself uses the
     biased variance in both. The statistics are reduced in float32 also
     for a bf16 input under autocast (torch's kernels accumulate in f32),
-    as flax reduces them in f32."""
+    as flax reduces them in f32.
+
+    With a process `group` (set by CSPNDepthNet on a mesh) the train-mode
+    statistics are those of the global batch, as flax computes them under
+    pjit: each rank's per-channel f32 sum and sum of squares go through a
+    differentiable all_reduce, and the biased variance E[x^2] - E[x]^2
+    (flax's fast variance, floored at 0) feeds both the normalization and
+    the running statistics. torch's SyncBatchNorm is CUDA-only and updates
+    with the unbiased variance."""
+
+    group = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.group is not None:
+            return self._global_batch_norm(x)
         self.num_batches_tracked.add_(1)
         n = x.numel() // x.shape[1]
         m = self.momentum
@@ -57,6 +72,24 @@ class BatchNorm2d(nn.BatchNorm2d):
             prev = (1 - m) * self.running_var
             self.running_var.copy_(prev + (folded - prev) * ((n - 1) / n))
         return y
+
+    def _global_batch_norm(self, x):
+        self.num_batches_tracked.add_(1)
+        xf = x.float()
+        # Every rank holds as many images of the same size.
+        n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+        sums = all_reduce(torch.stack([xf.sum((0, 2, 3)),
+                                       (xf * xf).sum((0, 2, 3))]), self.group)
+        mean = sums[0] / n
+        var = (sums[1] / n - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def batch_norm(c: int) -> BatchNorm2d:

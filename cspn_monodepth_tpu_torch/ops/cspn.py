@@ -19,6 +19,11 @@ Two routes, as in the JAX package (its ops/cspn.py routes by image size):
   are torch autograd of those plain ops, as JAX takes `jax.vjp` of them.
 `impl="auto"` picks the route the JAX package picks on a TPU (`route`);
 `impl="torch"` is the independent plain loop under torch autograd.
+
+`cspn_propagate_prenorm` is the slab body of the spatially sharded CSPN
+(parallel/halo.py; JAX's `cspn_propagate_prenorm_pallas`): prenormalized
+gates9 and d^0 as given, `PrenormCSPNFunction` with K8 forward and K9
+backward, or K7 alone without a gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
     cspn_bwd,
     cspn_fwd,
     cspn_fwd_stash,
+    cspn_prenorm_bwd,
+    cspn_prenorm_fwd,
+    cspn_prenorm_fwd_stash,
     cspn_tiled_bwd,
     cspn_tiled_fwd,
     cspn_tiled_fwd_stash,
@@ -38,6 +46,7 @@ from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     _squeeze_depth,
     anchor,
+    cspn_propagate_prenorm_ref,
     cspn_propagate_ref_nchw,
     prenorm_gates9,
 )
@@ -101,20 +110,43 @@ class TiledCSPNFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gates9, d0, sparse, num_iters: int):
-        out, stash = cspn_tiled_fwd_stash(gates9, d0, sparse,
-                                          num_iters=num_iters)
-        ctx.save_for_backward(gates9, sparse, stash)
-        ctx.num_iters = num_iters
-        return out
+        return _stash_forward(ctx, cspn_tiled_fwd_stash, gates9, d0, sparse,
+                              num_iters)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        gates9, sparse, stash = ctx.saved_tensors
-        d_gates9, lam0, d_sparse = cspn_tiled_bwd(
-            gates9, sparse, stash, _planes(grad_out),
-            num_iters=ctx.num_iters)
-        return d_gates9, lam0, None if sparse is None else d_sparse, None
+        return _adjoint(ctx, cspn_tiled_bwd, grad_out)
+
+
+class PrenormCSPNFunction(torch.autograd.Function):
+    """The spatial path's slab kernels with the hand-written adjoint (JAX's
+    `_cspn_prenorm` custom VJP): TiledCSPNFunction's contract on one rank's
+    halo'd slab. K8 forward, K9 backward."""
+
+    @staticmethod
+    def forward(ctx, gates9, d0, sparse, num_iters: int):
+        return _stash_forward(ctx, cspn_prenorm_fwd_stash, gates9, d0, sparse,
+                              num_iters)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return _adjoint(ctx, cspn_prenorm_bwd, grad_out)
+
+
+def _stash_forward(ctx, fwd_stash, gates9, d0, sparse, num_iters: int):
+    out, stash = fwd_stash(gates9, d0, sparse, num_iters=num_iters)
+    ctx.save_for_backward(gates9, sparse, stash)
+    ctx.num_iters = num_iters
+    return out
+
+
+def _adjoint(ctx, bwd, grad_out):
+    gates9, sparse, stash = ctx.saved_tensors
+    d_gates9, lam0, d_sparse = bwd(gates9, sparse, stash, _planes(grad_out),
+                                   num_iters=ctx.num_iters)
+    return d_gates9, lam0, None if sparse is None else d_sparse, None
 
 
 def _wants_grad(*tensors) -> bool:
@@ -184,3 +216,26 @@ def cspn_propagate(
         out = cspn_fwd(*args, num_iters=num_iters, norm_type=norm_type)
     out = out.to(blur_depth.dtype)
     return out[..., None] if squeeze else out
+
+
+def cspn_propagate_prenorm(gates9: torch.Tensor, d0: torch.Tensor,
+                           sparse: torch.Tensor | None = None, *,
+                           num_iters: int, impl: str = "auto") -> torch.Tensor:
+    """Propagation on prenormalized gates9 (B, 9, H, W) from d0 (B, H, W)
+    as given (no anchor on entry), the anchor after every iteration (JAX's
+    `cspn_propagate_prenorm_pallas`, the spatial path's slab body).
+
+    impl: "auto" (K8/K9 under PrenormCSPNFunction when an input needs a
+    gradient, K7 otherwise; on a CPU tensor their plain versions) or
+    "torch" (the plain loop under torch autograd, JAX's "jnp").
+    """
+    if impl == "torch":
+        return cspn_propagate_prenorm_ref(gates9, d0, sparse,
+                                          num_iters=num_iters)
+    if impl != "auto":
+        raise ValueError(f"unknown impl: {impl!r}")
+    args = (_planes(gates9), _planes(d0),
+            None if sparse is None else _planes(sparse))
+    if _wants_grad(*args):
+        return PrenormCSPNFunction.apply(*args, num_iters)
+    return cspn_prenorm_fwd(*args, num_iters=num_iters)

@@ -15,6 +15,12 @@ The H-tiled route, on prenormalized gates9 and an anchored d^0:
   cspn_tiled_fwd        K4, the forward (csrc/cspn_fwd.cu);
   cspn_tiled_fwd_stash  K5, K4 that also stashes every d^t (same file);
   cspn_tiled_bwd        K6, the adjoint over that stash (csrc/cspn_bwd.cu).
+The spatial path's slab kernels, the same contract on one rank's halo'd
+slab of H/S + 2k rows for the r <= k iterations of one round
+(parallel/halo.py):
+  cspn_prenorm_fwd        K7, the forward (csrc/cspn_fwd.cu);
+  cspn_prenorm_fwd_stash  K8, K7 that also stashes every d^t (same file);
+  cspn_prenorm_bwd        K9, the adjoint over that stash (csrc/cspn_bwd.cu).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs the kernel's plain version from ops/cspn_ref.py.
 """
@@ -35,6 +41,9 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
     cspn_bwd_plain,
     cspn_fwd_stash_plain,
+    cspn_prenorm_bwd_plain,
+    cspn_prenorm_fwd_plain,
+    cspn_prenorm_fwd_stash_plain,
     cspn_propagate_ref_nchw,
     cspn_tiled_bwd_plain,
     cspn_tiled_fwd_plain,
@@ -128,6 +137,13 @@ def _load(name: str):
                 "cspn_tiled_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p,
                                    p, i32, i32, i32, i32, p]},
         }
+        # K7-K9 take the C signatures of K4-K6.
+        signatures["cspn_fwd"]["cspn_prenorm_fwd"] = \
+            signatures["cspn_fwd"]["cspn_tiled_fwd"]
+        signatures["cspn_fwd"]["cspn_prenorm_fwd_stash"] = \
+            signatures["cspn_fwd"]["cspn_tiled_fwd_stash"]
+        signatures["cspn_bwd"]["cspn_prenorm_bwd"] = \
+            signatures["cspn_bwd"]["cspn_tiled_bwd"]
         for lib_name, path in build().items():
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures[lib_name].items():
@@ -347,6 +363,15 @@ def cspn_tiled_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
     if _check_call(gates9, num_iters, None):
         return cspn_tiled_bwd_plain(gates9, sparse, stash, grad_out,
                                     num_iters=num_iters)
+    out = _prenorm_adjoint("cspn_tiled_bwd", gates9, sparse, stash, grad_out,
+                           num_iters)
+    cspn_tiled_bwd.launches += 1
+    return out
+
+
+def _prenorm_adjoint(entry, gates9, sparse, stash, grad_out, num_iters):
+    """Launch the prenormalized adjoint `entry` of csrc/cspn_bwd.cu (K6 or
+    K9); returns (d_gates9, lam0, d_sparse)."""
     b, _, h, w = gates9.shape
     dev = gates9.device
     _check_planes("gates9", gates9, (b, 9, h, w), dev)
@@ -363,18 +388,67 @@ def cspn_tiled_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
     planes = torch.empty((4, b, h, w), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cspn_tiled_bwd(
+        err = getattr(lib, entry)(
             gates9.data_ptr(), gates9.stride(0), _ptr(sparse),
             _bstride(sparse), grad_out.data_ptr(), grad_out.stride(0),
             stash.data_ptr(), d_gates9.data_ptr(), planes[0].data_ptr(),
             planes[1].data_ptr(), planes[2].data_ptr(), planes[3].data_ptr(),
             b, h, w, num_iters, stream)
-    _raise_on(err, "cspn_bwd", "cspn_tiled_bwd")
-    cspn_tiled_bwd.launches += 1
+    _raise_on(err, "cspn_bwd", entry)
     return d_gates9, planes[0], planes[1]
 
 
+def cspn_prenorm_fwd(gates9: torch.Tensor, d0: torch.Tensor,
+                     sparse: torch.Tensor | None, *,
+                     num_iters: int) -> torch.Tensor:
+    """The spatial path's slab forward (K7): cspn_tiled_fwd's contract on
+    one rank's halo'd slab, gates9 (B, 9, Hs, W), d0 and sparse (B, Hs, W),
+    for the r = num_iters <= k iterations of one round -> (B, Hs, W).
+
+    A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
+    """
+    if _check_call(gates9, num_iters, None):
+        return cspn_prenorm_fwd_plain(gates9, d0, sparse, num_iters=num_iters)
+    out = _forward("cspn_prenorm_fwd", gates9, d0, sparse, num_iters, None,
+                   None)
+    cspn_prenorm_fwd.launches += 1
+    return out
+
+
+def cspn_prenorm_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
+                           sparse: torch.Tensor | None, *, num_iters: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slab's training forward (K8): as cspn_prenorm_fwd, and also
+    returns the stash (B, r, Hs, W) of every d^t. Its output equals
+    cspn_prenorm_fwd's."""
+    if _check_call(gates9, num_iters, None):
+        return cspn_prenorm_fwd_stash_plain(gates9, d0, sparse,
+                                            num_iters=num_iters)
+    stash = _stash_like(d0, num_iters)
+    out = _forward("cspn_prenorm_fwd_stash", gates9, d0, sparse, num_iters,
+                   None, stash)
+    cspn_prenorm_fwd_stash.launches += 1
+    return out, stash
+
+
+def cspn_prenorm_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
+                     stash: torch.Tensor, grad_out: torch.Tensor, *,
+                     num_iters: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slab's adjoint (K9), cspn_tiled_bwd's contract on the stash of
+    cspn_prenorm_fwd_stash: (d_gates9 (B, 9, Hs, W), lam0 = dL/dd^0 unmasked,
+    d_sparse = sum_t m lam^{t+1}, zero without a sparse map)."""
+    if _check_call(gates9, num_iters, None):
+        return cspn_prenorm_bwd_plain(gates9, sparse, stash, grad_out,
+                                      num_iters=num_iters)
+    out = _prenorm_adjoint("cspn_prenorm_bwd", gates9, sparse, stash,
+                           grad_out, num_iters)
+    cspn_prenorm_bwd.launches += 1
+    return out
+
+
 WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
-            cspn_tiled_fwd_stash, cspn_tiled_bwd)
+            cspn_tiled_fwd_stash, cspn_tiled_bwd, cspn_prenorm_fwd,
+            cspn_prenorm_fwd_stash, cspn_prenorm_bwd)
 for _wrapper in WRAPPERS:
     _wrapper.launches = 0

@@ -15,7 +15,11 @@ one iteration per step, the same arithmetic in the same order.
   contract of the H-tiled route (gates9 (B, 9, H, W) with the centre in
   channel 0, d^0 taken as given, an anchor after every iteration), and the
   plain versions of its kernels: `cspn_tiled_fwd_plain` (K4),
-  `cspn_tiled_fwd_stash_plain` (K5) and `cspn_tiled_bwd_plain` (K6).
+  `cspn_tiled_fwd_stash_plain` (K5) and `cspn_tiled_bwd_plain` (K6);
+* the plain versions of the spatial path's slab kernels K7-K9
+  (`cspn_prenorm_fwd_plain`, `cspn_prenorm_fwd_stash_plain`,
+  `cspn_prenorm_bwd_plain`): the same three functions on one rank's halo'd
+  slab.
 
 Layouts: the public entry `cspn_propagate_ref` takes channels-last guidance
 (B, H, W, 8) like the JAX package; `cspn_propagate_ref_nchw` takes the
@@ -304,6 +308,18 @@ def cspn_tiled_bwd_plain(
     g_acc, g0_acc, d_sparse, lam = _reverse_sweep(
         gates9[:, 0], gates9[:, 1:], sparse, stash, grad_out, num_iters)
     return torch.cat([g0_acc[:, None], g_acc], dim=1), lam, d_sparse
+
+
+# The slab kernels of the spatially sharded CSPN (parallel/halo.py) take
+# the same contract as K4-K6 (the JAX package's `_cspn_prenorm_fwd_impl`,
+# `_cspn_prenorm_stash_fwd` and `_cspn_prenorm_bwd_impl`: gates9 with the
+# centre first, no anchor on entry, an anchor after every iteration; the
+# adjoint returns d_gates9, lam^0 unmasked and sum_t m lam^{t+1}), so their
+# plain versions are the same functions, applied to a slab of H/S + 2k rows
+# for the r <= k iterations of one round.
+cspn_prenorm_fwd_plain = cspn_propagate_prenorm_ref           # K7
+cspn_prenorm_fwd_stash_plain = cspn_tiled_fwd_stash_plain     # K8
+cspn_prenorm_bwd_plain = cspn_tiled_bwd_plain                 # K9
 
 
 def cspn_propagate_ref(

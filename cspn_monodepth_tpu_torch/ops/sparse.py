@@ -33,6 +33,8 @@ def uniform_sparse_sample(
     num_samples: int,
     max_depth: float | None = None,
     generator: torch.Generator | None = None,
+    batch_offset: int = 0,
+    global_batch: int | None = None,
 ) -> torch.Tensor:
     """Simulate a sparse depth input from dense ground truth.
 
@@ -41,6 +43,11 @@ def uniform_sparse_sample(
     fewer); `max_depth` also invalidates depths above it. `generator`
     (on dense_depth's device) draws the scores. Returns the dense values
     at the kept pixels, 0 elsewhere, in dense_depth's shape.
+
+    With `global_batch`, dense_depth holds images batch_offset ..
+    batch_offset + B of a batch of that many (one rank's share on a mesh):
+    the scores of the whole batch are drawn and those images' kept, so
+    that the samples do not depend on how the batch is split.
     """
     squeeze = dense_depth.dim() == 4
     d = dense_depth[..., 0] if squeeze else dense_depth
@@ -48,8 +55,9 @@ def uniform_sparse_sample(
     valid = d > 0
     if max_depth is not None:
         valid &= d <= max_depth
-    scores = torch.rand((b, h, w), generator=generator, device=d.device,
-                        dtype=torch.float32)
+    scores = torch.rand((global_batch or b, h, w), generator=generator,
+                        device=d.device, dtype=torch.float32)
+    scores = scores[batch_offset:batch_offset + b]
     # Invalid pixels score -1, below every valid score, so the top k
     # prefers valid pixels; the final mask re-ands with `valid` for an
     # image with fewer than k of them.

@@ -20,6 +20,17 @@ Random numbers: the sparse samples of a train step come from a
 of an eval batch by (seed, eval tag, batch index), so evaluation is
 deterministic. They are not the JAX package's threefry samples.
 
+On a data x spatial mesh (parallel/mesh.py) each of the data * spatial
+ranks runs this Trainer on its own images of every global batch (the
+iterators hand each rank its share; `train_step` and `eval_step` take it).
+BatchNorm, the loss's pixel count, the gradients and the metric sums are
+reduced over all ranks, and the CSPN runs on H slabs over "spatial", so a
+step computes what one device computes on the global batch, and every rank
+ends it with the same parameters. Each rank draws the whole batch's sparse
+scores and keeps its own images', so the samples do not depend on the
+mesh. Unlike the JAX package, the global batch must split evenly over all
+ranks.
+
 Not ported yet (the next slice): `fit`, checkpoints and mid-epoch resume,
 CSV/TensorBoard logs and image panels, mixed-dataset batches and the CLI.
 """
@@ -30,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from cspn_monodepth_tpu_torch.configs import Config
 from cspn_monodepth_tpu_torch.data.datasets import make_dataset
@@ -41,6 +53,7 @@ from cspn_monodepth_tpu_torch.data.pipeline import (
 )
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, load_jax_variables
 from cspn_monodepth_tpu_torch.ops.sparse import uniform_sparse_sample
+from cspn_monodepth_tpu_torch.parallel.mesh import Mesh, make_mesh
 from cspn_monodepth_tpu_torch.train.loss import get_loss_fn
 from cspn_monodepth_tpu_torch.train.metrics import (
     AverageMeter,
@@ -58,20 +71,26 @@ EVAL_TAG = 9999
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    """Train and evaluate cfg's model on `device`, or on `mesh` (a
+    parallel.Mesh over the initialized process group; built from cfg.mesh
+    when that asks for more than one rank)."""
+
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         if cfg.data.mix_dataset:
             raise NotImplementedError("mixed-dataset training is not ported "
                                       "yet")
-        if cfg.mesh.data * cfg.mesh.spatial > 1:
-            # The JAX package's make_mesh refuses a mesh larger than its
-            # devices; this Trainer runs on one device and has no mesh yet.
-            raise NotImplementedError(
-                f"config {cfg.name!r} asks for a {cfg.mesh.data}x"
-                f"{cfg.mesh.spatial} (data x spatial) mesh: data and spatial "
-                "parallelism come with the multi-GPU slice, not ported yet; "
-                "train on one device with mesh.data=1, mesh.spatial=1")
+        if mesh is None and cfg.mesh.data * cfg.mesh.spatial > 1:
+            mesh = make_mesh(cfg.mesh, device)
+        if mesh is not None and cfg.train.batch_size % mesh.size:
+            raise ValueError(
+                f"batch {cfg.train.batch_size} does not split over the "
+                f"{mesh.data}x{mesh.spatial} mesh's {mesh.size} ranks: the "
+                "port's data-parallel network needs a multiple")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.world_group
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.train_ds = make_dataset(cfg.data, "train", seed=cfg.train.seed)
         self.val_ds = make_dataset(cfg.data, "val", seed=cfg.train.seed)
         self.steps_per_epoch = cfg.train.steps_per_epoch or max(
@@ -93,7 +112,8 @@ class Trainer:
             raise NotImplementedError("loading a torchvision encoder "
                                       "(model.pretrained) is not ported yet")
         model = CSPNDepthNet.from_config(
-            cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed))
+            cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed),
+            mesh=self.mesh)
         if variables is not None:
             load_jax_variables(model, variables)
         model.to(self.device)
@@ -137,16 +157,27 @@ class Trainer:
         if cfg.data.sampler == "stereo":
             raise NotImplementedError("simulated-stereo sampling is not "
                                       "ported yet; use data.sampler=uniform")
-        return uniform_sparse_sample(depth, cfg.data.num_samples,
-                                     max_depth=cfg.data.max_depth,
-                                     generator=generator)
+        rank, ranks = ((0, 1) if self.mesh is None
+                       else (self.mesh.rank, self.mesh.size))
+        b = depth.shape[0]
+        return uniform_sparse_sample(
+            depth, cfg.data.num_samples, max_depth=cfg.data.max_depth,
+            generator=generator, batch_offset=rank * b,
+            global_batch=ranks * b)
+
+    def _shards(self) -> dict:
+        """This rank's share of the iterators' global batches."""
+        if self.mesh is None:
+            return {}
+        return dict(process_index=self.mesh.rank,
+                    process_count=self.mesh.size)
 
     # ---------------------------------------------------------- steps
     def train_step(self, state: TrainState, batch: dict, tag: int = 0):
         """One update of `state` (in place) on `batch` (numpy or tensors,
-        packed or float); the sparse input is drawn from (seed, tag,
-        state.step). Returns (state, loss, metric sums), both on the
-        device."""
+        packed or float; on a mesh this rank's share of the global batch);
+        the sparse input is drawn from (seed, tag, state.step). Returns
+        (state, loss, metric sums) of the global batch, on the device."""
         cfg = self.cfg
         batch = self._unpack(self._to_device(batch))
         sparse = self._sample_sparse(self._rng(tag, state.step),
@@ -157,17 +188,23 @@ class Trainer:
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         pred = model(x)
-        loss = self.loss_fn(pred, target)
+        loss = self.loss_fn(pred, target, self.group)
         loss.backward()
-        state.apply_gradients(self.lr_schedule, cfg.train.clip_norm)
+        state.apply_gradients(self.lr_schedule, cfg.train.clip_norm,
+                              self.group)
+        loss = loss.detach()
         with torch.no_grad():
             sums = metric_sums_from_batch(
                 pred, target, protocol=cfg.train.metrics_protocol)
-        return state, loss.detach(), sums
+        if self.group is not None:
+            torch.distributed.all_reduce(loss, group=self.group)
+            sums = sums.all_reduce(self.group)
+        return state, loss, sums
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict, batch_idx: int):
-        """Metric sums and prediction of one eval batch, BN on its running
+        """Metric sums of one eval batch (of the global batch on a mesh)
+        and the prediction of this rank's images, BN on its running
         statistics; the sparse input is a pure function of batch_idx."""
         cfg = self.cfg
         batch = self._unpack(self._to_device(batch))
@@ -180,6 +217,8 @@ class Trainer:
             valid_image=batch.get("valid_image"),
             max_depth=cfg.data.eval_max_depth,
             protocol=cfg.train.metrics_protocol)
+        if self.group is not None:
+            sums = sums.all_reduce(self.group)
         return sums, pred
 
     # ---------------------------------------------------------- epochs
@@ -192,7 +231,7 @@ class Trainer:
         it = make_train_iterator(
             self.train_ds, global_batch=cfg.train.batch_size, epoch=epoch,
             seed=cfg.train.seed, num_workers=cfg.data.num_workers,
-            steps=self.steps_per_epoch)
+            steps=self.steps_per_epoch, **self._shards())
         meter = AverageMeter()
         sums = MetricSums.zeros(cfg.train.metrics_protocol, self.device)
         losses = []
@@ -232,7 +271,8 @@ class Trainer:
         cfg = self.cfg
         it = make_eval_iterator(self.val_ds,
                                 global_batch=cfg.train.batch_size,
-                                num_workers=cfg.data.num_workers)
+                                num_workers=cfg.data.num_workers,
+                                **self._shards())
         sums = MetricSums.zeros(cfg.train.metrics_protocol, self.device)
         t0 = t_warm = time.time()
         n_warm = 0.0

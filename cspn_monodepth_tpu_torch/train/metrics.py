@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 FIELDS = ("n_images", "n_pixels", "rmse", "mae", "rel", "lg10", "delta1",
           "delta2", "delta3", "irmse", "imae")
@@ -61,6 +62,14 @@ class MetricSums:
                 f"and {other.protocol!r}")
         return MetricSums(protocol=self.protocol, **{
             f: getattr(self, f) + getattr(other, f) for f in FIELDS})
+
+    def all_reduce(self, group) -> "MetricSums":
+        """The sums over every rank of the process group (each rank holding
+        some of the batch's images)."""
+        stacked = torch.stack([getattr(self, f) for f in FIELDS])
+        dist.all_reduce(stacked, group=group)
+        return MetricSums(protocol=self.protocol,
+                          **dict(zip(FIELDS, stacked.unbind())))
 
 
 def metric_sums_from_batch(

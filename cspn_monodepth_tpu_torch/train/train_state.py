@@ -16,7 +16,11 @@ adam, and scales the encoder's updates by `encoder_lr_mult`. Here:
   rate is multiplied (scaling the final update is the same for both
   optimizers);
 * the learning rate is a step decay keyed to the global step, set on every
-  group before each update, so a run resumes from its step alone.
+  group before each update, so a run resumes from its step alone;
+* on a mesh each rank's gradients are summed over the world group before
+  the clip (the loss is already a share of the global mean), flattened
+  into buckets of at most BUCKET_BYTES, so that every rank applies the same
+  update.
 """
 
 from __future__ import annotations
@@ -24,9 +28,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from cspn_monodepth_tpu_torch.configs import TrainConfig
+
+BUCKET_BYTES = 64 * 1024 * 1024
 
 
 def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int):
@@ -49,6 +56,22 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
+
+
+@torch.no_grad()
+def all_reduce_grads(params, group) -> None:
+    """Sum every parameter's gradient over the process group, in place, a
+    bucket of flattened gradients per collective."""
+    grads = [p.grad for p in params if p.grad is not None]
+    while grads:
+        bucket, size = [], 0
+        while grads and (not bucket or size + grads[0].nbytes <= BUCKET_BYTES):
+            size += grads[0].nbytes
+            bucket.append(grads.pop(0))
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
 
 
 def make_optimizer(cfg: TrainConfig, model: nn.Module):
@@ -82,10 +105,13 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
 
-    def apply_gradients(self, schedule, clip_norm: float = 0.0):
-        """One update from the model's .grad: clip, then the optimizer at
-        the schedule's learning rate for this step."""
+    def apply_gradients(self, schedule, clip_norm: float = 0.0, group=None):
+        """One update from the model's .grad: the sum over `group` (a
+        mesh's world group) when given, clip, then the optimizer at the
+        schedule's learning rate for this step."""
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        if group is not None:
+            all_reduce_grads(params, group)
         if clip_norm > 0:
             clip_by_global_norm(params, clip_norm)
         lr = schedule(self.step)

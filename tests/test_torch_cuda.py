@@ -9,7 +9,8 @@ tests/conftest.py:
 
 Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
 (K1 forward, K2 stash forward, K3 adjoint; K4-K6, their counterparts on
-the prenormalized gates of the H-tiled route) and each output. The
+the prenormalized gates of the H-tiled route; K7-K9, the same on the
+spatial path's halo'd slabs) and each output. The
 kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
 meaningless and `8sum_abs` is the absolute-scale control. Gradients
@@ -395,3 +396,68 @@ def test_auto_sends_kitti_images_to_the_tiled_kernels(cuda):
                    guidance_layout="NCHW")
     assert (cspn_cuda.cspn_fwd.launches,
             cspn_cuda.cspn_tiled_fwd.launches) == (before[0], before[1] + 1)
+
+
+def prenorm_launches():
+    return (cspn_cuda.cspn_prenorm_fwd.launches,
+            cspn_cuda.cspn_prenorm_fwd_stash.launches,
+            cspn_cuda.cspn_prenorm_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,num_iters,with_sparse", [
+    (4, (96, 1216), 4, True),       # KITTI 2x4: an 88-row shard + 2 x 4
+    (16, (122, 304), 4, True),      # NYU multihost 16x2: 114 rows + 2 x 4
+    (4, (96, 1216), 2, False),      # a remainder round
+    (1, (40, 70), 3, True),
+])
+def test_slab_kernels_match_plain(cuda, b, hw, num_iters, with_sparse):
+    """K7, K8 and K9 against their plain versions on a halo'd slab; K8's
+    output is K7's bit for bit."""
+    guid, blur, sparse = problem(31, b, *hw, with_sparse)
+    gates9 = prenorm_gates9(guid, "8sum_clamp")
+    cot = torch.randn(b, *hw, generator=torch.Generator().manual_seed(3))
+    kw = dict(num_iters=num_iters)
+    want = cspn_cuda.cspn_prenorm_fwd_plain(gates9, blur, sparse, **kw)
+    _, want_stash = cspn_cuda.cspn_prenorm_fwd_stash_plain(gates9, blur,
+                                                           sparse, **kw)
+    want_grads = cspn_cuda.cspn_prenorm_bwd_plain(gates9, sparse, want_stash,
+                                                  cot, **kw)
+    g, d, s, c = to((gates9, blur, sparse, cot), cuda)
+    before = prenorm_launches()
+    got = cspn_cuda.cspn_prenorm_fwd(g, d, s, **kw)
+    out, stash = cspn_cuda.cspn_prenorm_fwd_stash(g, d, s, **kw)
+    grads = cspn_cuda.cspn_prenorm_bwd(g, s, stash, c, **kw)
+    torch.cuda.synchronize()
+    assert prenorm_launches() == tuple(n + 1 for n in before)
+    assert max_rel(got, want) <= TOL
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
+    assert max_rel(stash, want_stash) <= TOL
+    for a, w in zip(grads, want_grads):
+        if w.abs().max() == 0:          # the sparse sums without anchors
+            assert a.abs().max() == 0
+        else:
+            assert max_rel(a, w) <= TOL
+
+
+@pytest.mark.cuda
+def test_prenorm_function_matches_torch_autograd(cuda):
+    """Gradients of gates9, d0 and sparse through PrenormCSPNFunction (K8,
+    K9) against torch autograd of the plain loop."""
+    from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate_prenorm
+
+    guid, blur, sparse = problem(32, 2, 40, 70)
+    gates9 = prenorm_gates9(guid, "8sum")
+    cot = torch.randn(2, 40, 70, generator=torch.Generator().manual_seed(4))
+
+    def grads(device, impl):
+        inputs = [x.to(device).requires_grad_() for x in (gates9, blur,
+                                                          sparse)]
+        out = cspn_propagate_prenorm(*inputs, num_iters=4, impl=impl)
+        return torch.autograd.grad((out * cot.to(device)).sum(), inputs)
+
+    before = prenorm_launches()
+    got = grads(cuda, "auto")
+    assert prenorm_launches() == (before[0], before[1] + 1, before[2] + 1)
+    for a, w in zip(got, grads("cpu", "torch")):
+        assert max_rel(a, w) <= GRAD_TOL

@@ -64,7 +64,11 @@ def test_sources_are_found():
             "cspn_monodepth_tpu_torch/train/loop.py",
             "cspn_monodepth_tpu_torch/data/pipeline.py",
             "cspn_monodepth_tpu_torch/data/transforms.py",
-            "cspn_monodepth_tpu_torch/native/__init__.py"} <= rel
+            "cspn_monodepth_tpu_torch/native/__init__.py",
+            "cspn_monodepth_tpu_torch/parallel/mesh.py",
+            "cspn_monodepth_tpu_torch/parallel/comm.py",
+            "cspn_monodepth_tpu_torch/parallel/halo.py",
+            "cspn_monodepth_tpu_torch/parallel/launch.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -90,6 +94,7 @@ def test_port_imports_without_jax():
         "import cspn_monodepth_tpu_torch.data.datasets\n"
         "import cspn_monodepth_tpu_torch.data.transforms\n"
         "import cspn_monodepth_tpu_torch.native\n"
+        "import cspn_monodepth_tpu_torch.parallel\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(sorted(bad))\n"

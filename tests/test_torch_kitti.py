@@ -223,16 +223,16 @@ def test_make_dataset_reads_kitti_and_refuses_nyu(raw_root):
 
 # ------------------------------------------------------------ mesh guard
 def test_trainer_refuses_a_mesh_it_cannot_run():
-    """kitti_1216 asks for a 2x4 mesh: the port's Trainer runs on one
-    device, so it refuses, where it used to train unsharded silently."""
+    """kitti_1216 asks for a 2x4 mesh: in one process, with no ranks to
+    build it from, the port's Trainer refuses as the JAX package's
+    make_mesh does, where it used to train unsharded silently."""
     cfg = get_config("kitti_1216").override(**{"data.dataset": "synthetic"})
     assert (cfg.mesh.data, cfg.mesh.spatial) == (2, 4)
-    with pytest.raises(NotImplementedError,
-                       match=r"multi-GPU slice.*mesh\.data=1, mesh\.spatial=1"):
+    with pytest.raises(ValueError, match=r"mesh 2x4 needs 8 ranks, have 1"):
         Trainer(cfg, device="cpu")
     trainer = Trainer(cfg.override(**{"mesh.data": 1, "mesh.spatial": 1}),
                       device="cpu")
-    assert trainer.steps_per_epoch >= 1
+    assert trainer.steps_per_epoch >= 1 and trainer.mesh is None
 
 
 # ------------------------------------------------------------ train steps
