@@ -7,11 +7,13 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
   1. toolchain: GPU name and power limit, torch, CUDA, nvcc, triton;
   2. build: compile every kernel from csrc/ (one nvcc per source, all at
-     once), with ptxas's registers and spills;
+     once), with ptxas's registers and spills of every entry;
   3. kernels: each kernel (K1 forward, K2 stash forward, K3 adjoint)
      against its plain PyTorch version on the card, at the main paths'
      shapes and at edge cases; the autograd Function's gradients against
-     torch autograd of the plain loop; kernel, plain and bound times;
+     torch autograd of the plain loop; kernel, plain and bound times; K3's
+     stage kernels (gates9, sweep, sums) against their plain stages, each
+     timed beside its own bound, and two K3 runs bit for bit;
   4. serving: DepthPredictor at the full width of nyu_completion_500
      (ResNet-50 UNet, rgbd, 228x304, T=24) with seeded random weights,
      single-image requests and batches of 32; the kernel launch counts of
@@ -29,7 +31,9 @@ exits non-zero:
      versions at KITTI's 352x1216 and at edge cases, TiledCSPNFunction's
      gradients against torch autograd of the plain loop, the tiled route
      against K1 on the same raw guidance; K4-K6, K1, the plain versions
-     and the prenormalization timed at batch 8;
+     and the prenormalization timed at batch 8, K4 also at batch 1; K6's
+     stage kernels (sweep, sums) against their plain stages and timed, two
+     K6 runs bit for bit;
   7. kitti_serving: DepthPredictor at the full width of kitti_1216 (one
      device) with seeded random weights, single requests and batches of 8,
      the K4/K1 launch counts of that run, a profile of one batch, the path
@@ -43,7 +47,8 @@ exits non-zero:
      stash forward, K9 adjoint) against their plain versions on the
      deployed slabs (kitti_1216 on 2x4: 4 x 96x1216; multihost on 16x2:
      16 x 122x304), a remainder round, B=1 and a first and a last shard;
-     timed beside their plain versions and bounds;
+     timed beside their plain versions and bounds; K9's stage kernels
+     against their plain stages and timed;
  10. spatial: ranks on the one card, each a process on cuda:0 over gloo
      (NCCL refuses two ranks on one device): cspn_propagate_spatial on a
      1x4 spatial group against the whole-image tiled route (K4-K6), then
@@ -77,7 +82,9 @@ from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
+    adjoint_sweep_plain,
     anchor,
+    cspn_bwd_sums_plain,
     prenorm_gates9,
 )
 from cspn_monodepth_tpu_torch.parallel import (
@@ -238,6 +245,127 @@ def tiled_bwd_bound_ms(b, h, w, num_iters, sparse: bool):
                     px * 40 * num_iters)
 
 
+def gates9_bound_ms(b, h, w):
+    """K3's stage 0: read the 8 guidance planes, write the 9 gate planes;
+    ~32 flop/px."""
+    px = b * h * w
+    return bound_ms(8 + 9, px, 32 * px)
+
+
+def sweep_bound_ms(b, h, w, num_iters, sparse: bool):
+    """The adjoint's stage 1: read the 9 gate planes, sparse and the
+    cotangent, write the T planes of the adjoint stash and lam^0; 17 flop/px
+    per iteration."""
+    px = b * h * w
+    return bound_ms(9 + int(sparse) + 1 + num_iters + 1, px,
+                    px * 17 * num_iters)
+
+
+def sums_bound_ms(b, h, w, num_iters, sparse: bool, raw: bool):
+    """The adjoint's stage 2: read the T stash and T adjoint-stash planes
+    and sparse; write the 9 gate sums and the sparse sum (K6, K9), or (K3,
+    `raw`) also read the 8 guidance planes and lam^0 and write the 8
+    guidance gradients, d_blur and d_sparse; 18 flop/px per iteration, ~80
+    for the chain rule."""
+    px = b * h * w
+    planes = 2 * num_iters + int(sparse) + (8 + 1 + 8 + 1 + 1 if raw else 10)
+    return bound_ms(planes, px, px * (18 * num_iters + (80 if raw else 0)))
+
+
+def check_adjoint_stages(c: dict, gates9, sp, stash, cot, guid=None,
+                         norm=None):
+    """Each stage kernel of the adjoint against its plain stage on the same
+    inputs, held alone, for case `c`: K3's stage 0 on the raw guidance
+    `guid` (when given); the sweep on gates9 (every adjoint stash plane and
+    lam^0); the sums, in K3's form with the chain rule when `guid` is given,
+    on the stash and the plain sweep's lam stash. Emits the largest
+    max-relative error of each output; raises past KERNEL_TOL."""
+    kw = dict(num_iters=c["t"])
+    errs = {}
+    if guid is not None:
+        errs["gates9"] = max_rel(cspn_cuda.cspn_bwd_gates9(guid,
+                                                           norm_type=norm),
+                                 prenorm_gates9(guid, norm))
+    lam_stash, lam0 = cspn_cuda.cspn_bwd_sweep(gates9, sp, cot, **kw)
+    want_stash, want_lam0 = adjoint_sweep_plain(gates9, sp, cot, **kw)
+    errs["sweep_lam_stash"] = max(
+        [max_rel(lam_stash[:, t], want_stash[:, t])
+         for t in range(c["t"])], default=0.0)
+    errs["sweep_lam0"] = max_rel(lam0, want_lam0)
+    del lam_stash, lam0
+    raw = {} if guid is None else dict(guidance=guid, lam0=want_lam0,
+                                       norm_type=norm)
+    got = cspn_cuda.cspn_bwd_sums(sp, stash, want_stash, **kw, **raw)
+    want = cspn_bwd_sums_plain(sp, stash, want_stash, **kw, **raw)
+    names = ("d_guid", "d_blur", "d_sparse") if raw else ("d_gates9",
+                                                          "d_sparse")
+    torch.cuda.synchronize()
+    for name, g, w in zip(names, got, want):
+        errs[f"sums_{name}"] = max_rel_or_zero(g, w)
+    emit("adjoint_stage_case", **c, max_rel=errs, tol=KERNEL_TOL)
+    if not max(errs.values()) <= KERNEL_TOL:
+        raise AssertionError(f"adjoint stages vs their plain stages: {c} "
+                             f"{errs}")
+
+
+def time_adjoint_stages(gpu: str, kernel: str, shape: dict, gates9, sp,
+                        stash, cot, guid=None, norm=None):
+    """Each stage of `kernel` (K3 with `guid`, else K6 or K9) timed alone on
+    the inputs it gets inside the adjoint, beside its plain stage and its
+    own bound: one `stage_time` line each."""
+    b, h, w, t = shape["b"], shape["h"], shape["w"], shape["t"]
+    kw = dict(num_iters=t)
+    lam_stash, lam0 = cspn_cuda.cspn_bwd_sweep(gates9, sp, cot, **kw)
+    raw = {} if guid is None else dict(guidance=guid, lam0=lam0,
+                                       norm_type=norm)
+    stages = []
+    if guid is not None:
+        stages.append(("gates9",
+                       lambda: cspn_cuda.cspn_bwd_gates9(guid,
+                                                         norm_type=norm),
+                       lambda: prenorm_gates9(guid, norm),
+                       gates9_bound_ms(b, h, w)))
+    stages += [
+        ("sweep", lambda: cspn_cuda.cspn_bwd_sweep(gates9, sp, cot, **kw),
+         lambda: adjoint_sweep_plain(gates9, sp, cot, **kw),
+         sweep_bound_ms(b, h, w, t, sp is not None)),
+        ("sums",
+         lambda: cspn_cuda.cspn_bwd_sums(sp, stash, lam_stash, **kw, **raw),
+         lambda: cspn_bwd_sums_plain(sp, stash, lam_stash, **kw, **raw),
+         sums_bound_ms(b, h, w, t, sp is not None, guid is not None))]
+    for stage, fn, plain, bound in stages:
+        ms = time_ms(fn, 20)
+        plain_ms = time_ms(plain, 3, warmup=1)
+        emit("stage_time", kernel=kernel, stage=stage, **shape, ms=ms,
+             device_ms=device_profile(fn)["busy_ms"], plain_ms=plain_ms,
+             bound_ms=bound[0], bound_by=bound[1], gpu=gpu)
+
+
+def check_deterministic(kernel: str, fn):
+    """Two runs of an adjoint on the same inputs, bit for bit (no
+    atomics)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    emit("deterministic", kernel=kernel, bitwise_equal=same)
+    if not same:
+        raise AssertionError(f"two runs of {kernel} differ")
+
+
+def parse_ptxas(log: str) -> list[dict]:
+    """Registers and spill bytes of every entry in nvcc -Xptxas -v output."""
+    entries = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entries.append({"entry": ln.split("'")[1]})
+        elif entries and "spill stores" in ln:
+            nums = [int(x.split()[0]) for x in ln.split(",")]
+            entries[-1]["spill_stores"], entries[-1]["spill_loads"] = nums[1:3]
+        elif entries and "Used" in ln and "registers" in ln:
+            entries[-1]["registers"] = int(ln.split("Used")[1].split()[0])
+    return entries
+
+
 def phase_toolchain() -> str:
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -267,7 +395,8 @@ def phase_build():
                  if any(k in ln for k in ("Compiling entry", "registers",
                                           "spill"))]
         emit("build", source=f"csrc/{name}.cu", seconds=seconds,
-             library=path.name, ptxas=ptxas)
+             library=path.name, ptxas=ptxas,
+             entries=parse_ptxas(cspn_cuda.build_log.get(name, "")))
 
 
 def kernel_cases() -> list[dict]:
@@ -406,7 +535,7 @@ def device_profile(fn) -> dict:
 
 def kernel_class(name: str) -> str:
     """Coarse class of a device event by its name."""
-    if "cspn_" in name:
+    if "cspn_" in name or "adjoint_" in name:     # csrc/cspn_*.cu
         return "cspn"
     if "multi_tensor" in name or "foreach" in name:
         return "optimizer"
@@ -693,6 +822,24 @@ def phase_train_kernels(gpu: str) -> dict:
              norm="8sum_clamp", ms=ms, device_ms=device_ms,
              plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
              library_ms=None, gpu=gpu)
+
+    # K3's stages at batch 32 and on a small odd case.
+    shape = dict(b=b, h=NYU_H, w=NYU_W, t=t, norm="8sum_clamp")
+    gates9 = prenorm_gates9(guid, "8sum_clamp")
+    check_adjoint_stages(shape, gates9, sp, stash, cot, guid, "8sum_clamp")
+    time_adjoint_stages(gpu, "cspn_bwd", shape, gates9, sp, stash, cot, guid,
+                        "8sum_clamp")
+    check_deterministic("cspn_bwd",
+                        lambda: cspn_cuda.cspn_bwd(guid, sp, stash, cot,
+                                                   **kw))
+    del stash, plain_stash, gates9
+    c = dict(b=1, h=57, w=76, t=5, norm="8sum_abs")
+    guid, blur, _ = cspn_problem(gen, 1, 57, 76, sparse=False)
+    cot = torch.randn(blur.shape, generator=gen, device="cuda")
+    _, stash = cspn_cuda.cspn_fwd_stash(guid, blur, None, num_iters=5,
+                                        norm_type="8sum_abs")
+    check_adjoint_stages(c, prenorm_gates9(guid, "8sum_abs"), None, stash,
+                         cot, guid, "8sum_abs")
     return timing
 
 
@@ -1051,6 +1198,33 @@ def phase_kitti_kernels(gpu: str) -> dict:
              plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
              library_ms=None, gpu=gpu)
 
+    # K6's stages at batch 8 and on a case with a remainder round.
+    shape = dict(b=b, h=KITTI_H, w=KITTI_W, t=t, norm="8sum_clamp")
+    check_adjoint_stages(shape, gates9, sp, stash, cot)
+    time_adjoint_stages(gpu, "cspn_tiled_bwd", shape, gates9, sp, stash, cot)
+    check_deterministic("cspn_tiled_bwd",
+                        lambda: cspn_cuda.cspn_tiled_bwd(gates9, sp, stash,
+                                                         cot, **kw))
+    del stash, plain_stash
+    g2, b2, s2 = cspn_problem(gen, 2, 37, 48)
+    g2, b2 = prenorm_gates9(g2, "8sum"), anchor(b2, s2)
+    c2 = torch.randn(b2.shape, generator=gen, device="cuda")
+    _, st2 = cspn_cuda.cspn_tiled_fwd_stash(g2, b2, s2, num_iters=10)
+    check_adjoint_stages(dict(b=2, h=37, w=48, t=10, norm="8sum"), g2, s2,
+                         st2, c2)
+
+    # K4 on single images, as the serving path's single requests call it.
+    g1, d1, s1 = gates9[:1], d0[:1], sp[:1]
+    fn = lambda: cspn_cuda.cspn_tiled_fwd(g1, d1, s1, **kw)   # noqa: E731
+    bound = tiled_fwd_bound_ms(1, KITTI_H, KITTI_W, t, True)
+    timing["cspn_tiled_fwd_b1"] = dict(
+        ms=time_ms(fn, 50), device_ms=device_profile(fn)["busy_ms"],
+        plain_ms=time_ms(lambda: cspn_cuda.cspn_tiled_fwd_plain(
+            g1, d1, s1, **kw), 5), bound_ms=bound[0], bound_by=bound[1])
+    emit("kernel_time", kernel="cspn_tiled_fwd", b=1, h=KITTI_H, w=KITTI_W,
+         t=t, norm="8sum_clamp", **timing["cspn_tiled_fwd_b1"],
+         library_ms=None, gpu=gpu)
+
     # The prenormalization and its chain rule, plain torch outside the
     # kernels, on the same inputs.
     g = guid.detach().clone().requires_grad_()
@@ -1310,6 +1484,11 @@ def phase_spatial_kernels(gpu: str) -> dict:
             if name == "kitti_2x4":
                 timing[kernel] = dict(ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound[0], bound_by=bound[1])
+        # K9's stages on the slab.
+        shape = dict(slab=name, b=b, h=h, w=w, t=HALO_K, norm="8sum_clamp")
+        check_adjoint_stages(shape, gates9, sp, stash, cot)
+        time_adjoint_stages(gpu, "cspn_prenorm_bwd", shape, gates9, sp,
+                            stash, cot)
     return dict(timing=timing, max_abs=max_abs)
 
 

@@ -1,7 +1,6 @@
 // CSPN adjoint on Hopper (sm_90a): the gradients of the propagation of
 // csrc/cspn_fwd.cu, from the output's cotangent and the stash of every
-// pre-iteration plane d^t that the stash forward wrote. One kernel,
-// templated on the contract, behind three C entries:
+// pre-iteration plane d^t that the stash forward wrote. Three C entries:
 //   cspn_bwd        (K3) with respect to the raw guidance, the blur depth
 //                   and the sparse depth, the chain rule of the affinity
 //                   normalization included (stash of K2);
@@ -15,58 +14,82 @@
 //   cspn_prenorm_bwd (K9) K6's contract on one rank's halo'd slab of the
 //                   spatially sharded CSPN (stash of K8, one round of r <= k
 //                   iterations): the slab's halo rows are image rows to it.
+// and one C entry per stage (cspn_bwd_gates9, cspn_bwd_sweep,
+// cspn_bwd_sums), through which the stages are checked and timed alone.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_bwd_kernel
 // (launched by _cspn_pallas_bwd_impl), the whole-plane TPU adjoint of the
 // training step (K3), and _cspn_tiled_bwd_kernel (launched by
 // _tiled_bwd_launch), the H-tiled one (K6), and _cspn_prenorm_bwd_kernel
 // (launched by _cspn_prenorm_bwd_impl), the spatial path's slab adjoint
-// (K9). They compute the same
-// functions; they do not copy the TPU layout, which keeps ~28 planes of one
-// image (K3) or of one row tile (K6) resident in VMEM.
+// (K9). They compute the same functions; they do not copy the TPU layout,
+// which keeps ~28 planes of one image (K3) or of one row tile (K6) resident
+// in VMEM and carries the gate sums there from one iteration to the next.
 //
-// The function, with lam = dL/dd^{t+1}, m = [sparse > 0] and t = T-1 .. 0:
-//   lam_u = (1 - m) lam;  d_sparse += m lam;
-//   G_k(j) += lam_u(j) d^t(j + off_k);  G_0(j) += lam_u(j) d^t(j);
-//   lam(j) <- g0(j) lam_u(j) + sum_k g_k'(j + off_k) lam_u(j + off_k),
-// where off_k' = -off_k (the transposed stencil, written as a gather);
-// then d_blur = (1 - m) lam^0, d_sparse += m lam^0, and the chain rule of
-// the affinity normalization (ops/cspn_ref.py:cspn_bwd_plain).
+// The function, with lam^{t+1} = dL/dd^{t+1} (unmasked), m = [sparse > 0]
+// and lam_u = (1 - m) lam, for t = T-1 .. 0:
+//   sweep: lam^t(j) = g0(j) lam_u(j) + sum_k gT_k(j) lam_u(j + off_k),
+//          gT_k(j) = g_{7-k}(j + off_k), 0 outside the image
+//          (the transposed stencil: off_{7-k} = -off_k);
+//   sums:  G_k(j) = sum_t lam_u^{t+1}(j) d^t(j + off_k),
+//          G_0(j) = sum_t lam_u^{t+1}(j) d^t(j),
+//          d_sparse = sum_t m lam^{t+1};
+// then, K3 only, d_blur = (1 - m) lam^0, d_sparse += m lam^0, and the chain
+// rule of the normalization (ops/cspn_ref.py:cspn_bwd_sums_plain).
+// The sums need nothing of the recursion but the lam planes, so the fused
+// adjoint splits into lean kernels, each run over the whole batch:
+//   stage 0 (K3 only) adjoint_gates9: the raw guidance (B, 8, H, W) to
+//          gates9 (B, 9, H, W) in scratch, the forward's expression; after
+//          it K3's sweep is K6's;
+//   stage 1 adjoint_sweep_round: the lam recursion, the forward kernel's
+//          structure on the transposed stencil; writes every lam^{t+1}
+//          into a (B, T, H, W) adjoint stash, as K2 writes d^t, and lam^0;
+//   stage 2 adjoint_sums: the gate sums in one streaming pass over t.
+// Tensor cores do not apply: every pixel has its own 9 weights and no
+// operand is shared between pixels, so there is no matrix product.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): the function must read
-// the 8 guidance planes, sparse, the cotangent and the T stash planes once
-// and write the 8 guidance gradients, d_blur and d_sparse once: (22 + T) * 4
-// B/px, 390.4 MB at B=32, 228x304, T=24, about 117 us. Its ~40 flop/px per
-// iteration are far below the f32 rate: bound by bytes. K6 reads 9 gate
-// planes, sparse, the cotangent and the stash and writes 9 gate gradients,
-// lam^0 and the sparse sum: (23 + T) * 4 B/px, 630.1 MB at KITTI's B=8 x
-// 352x1216, T=24, about 188 us. K9 on KITTI's 2x4 slab (B=4 images of
-// 96x1216, r=4) moves 22 + r = 26 planes, 48.6 MB, about 14.5 us.
+// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), each input read once
+// and each output written once; every stage does a few flop per byte, far
+// below the f32 rate: all are bound by bytes. Per pixel, T = 24:
+//   the function: K3 (22 + T) * 4 = 184 B (390.4 MB at NYU's B=32 x
+//          228x304, 117 us); K6 (23 + T) * 4 = 188 B (630.1 MB at KITTI's
+//          B=8 x 352x1216, 188 us); K9 (22 + r) planes, 48.6 MB on KITTI's
+//          2x4 slab (B=4 x 96x1216, r=4), 14.5 us;
+//   stage 0: 8 planes in, 9 out, 68 B (150.8 MB at NYU B=32, 45 us);
+//   stage 1: 9 gate planes, sparse and the cotangent in, T lam planes and
+//          lam^0 out, (12 + T) * 4 = 144 B (319.4 MB at NYU B=32, 95 us;
+//          493.1 MB at KITTI B=8, 147 us);
+//   stage 2: the T stash and T lam planes and sparse in, 10 planes out
+//          (K6/K9: 9 gate sums, the sparse sum), (2T + 11) * 4 = 236 B
+//          (808.1 MB at KITTI B=8, 241 us); K3 also reads the 8 raw planes
+//          and lam^0 and writes d_blur, (2T + 20) * 4 = 272 B (603.3 MB at
+//          NYU B=32, 180 us).
+// The split moves more bytes than the function (K3 121 planes against 46,
+// K6 95 against 57) in exchange for kernels that keep the card busy; the
+// fused kernel it replaces carried 36 gate sums per thread (253 registers,
+// one block per SM) and re-read them from device memory every round.
 //
-// Design (simple first; making it fast is later work):
-// * The same recompute-in-halo tiles as the forward, in reverse. A block
-//   owns a TILE x TILE interior and loads lam on a SLAB x SLAB slab around
-//   it; the adjoint stencil, like the forward one, moves information one
-//   pixel per iteration, so after HALO reverse iterations the interior is
-//   still exact. The host launches the forward's rounds in reverse order,
-//   ping-ponging lam between two planes.
-// * Gates of the whole slab are needed (the gather reads neighbours'
-//   gates), so the 8 normalized gate planes live in shared memory with a
-//   zero apron: with g0, lam_u and the d^t window the block takes 74.5 KB
-//   of dynamic shared memory (opted in above the 48 KB default). d^t is
-//   read only on the interior and a one-pixel ring.
-// * Each pixel's gradient sums are owned by the one block whose interior
-//   holds it: kept in registers within a round and added to device memory
-//   once per round (the first round stores, later rounds read-modify-write,
-//   the last one applies the chain rule and writes d_guid, d_blur and
-//   d_sparse). No atomics, so the result is deterministic. K3: G_k
-//   accumulates in d_guid itself, G_0 in a scratch plane; K6: G_0 and G_k
-//   in the nine planes of d_gates9, which its last round leaves as they are.
-// * K6 reads g0 from gate plane 0 instead of recomputing it; outside the
-//   image every gate, g0 included, is 0 (the apron and unread pixels).
-// * The image border: slab pixels outside the image have all gates 0 and
-//   are masked like anchors, so lam there stays 0 and nothing flows back
-//   from outside; d^t outside the image is 0, as in the forward.
+// Design:
+// * Stage 1 is csrc/cspn_fwd.cu's recompute-in-halo round with the
+//   transposed gates: a block owns a TILE x TILE interior of a SLAB x SLAB
+//   slab, runs up to HALO iterations (the stencil moves information one
+//   pixel per iteration, so the interior stays exact), and the host
+//   launches the forward's rounds in reverse order, ping-ponging lam
+//   between two planes (the last round writes lam^0). Each thread loads g0
+//   and the 8 transposed gates of its slab pixels into registers once per
+//   round by shifted reads of gates9; only lam_u sits in shared memory, a
+//   ping-pong pair with a zero apron (14 KB static). No gate sums: the
+//   kernel keeps the forward's registers, two 320-thread blocks per SM.
+// * Stage 2: a block owns SUM_W x SUM_H pixels, one per thread, and walks
+//   t = T-1 .. 0 with G_0..G_8 and the sparse sum in registers. The d^t
+//   window with a one-pixel apron and the lam^{t+1} tile are staged in
+//   shared memory by cp.async (4-byte copies, zero-filled outside the
+//   image), double-buffered over t so that the next plane is in flight
+//   while this one is summed. Each pixel is written by one thread: no
+//   atomics, the result is deterministic.
+// * The image border: pixels outside the image have all gates 0 and are
+//   masked like anchors, so lam there stays 0 and nothing flows back from
+//   outside; d^t outside the image is 0, as in the forward.
 //
 // Built by ops/cspn_cuda.py with nvcc -gencode arch=compute_90a,code=sm_90a
 // into a shared library with the plain C interface below, bound by ctypes.
@@ -76,21 +99,23 @@
 
 namespace {
 
+// Stage 1: the forward's tiles.
 constexpr int TILE = 32;                     // interior edge
 constexpr int HALO = 4;                      // iterations per round
 constexpr int SLAB = TILE + 2 * HALO;        // 40
 constexpr int PITCH = SLAB + 2;              // one-pixel zero apron
-constexpr int APRON = PITCH * PITCH;
-constexpr int SLAB_PX = SLAB * SLAB;
-constexpr int RING = TILE + 2;               // interior plus one pixel
-constexpr int THREADS = 256;
-constexpr int SPT = (SLAB_PX + THREADS - 1) / THREADS;   // slab px / thread
-constexpr int IPT = TILE * TILE / THREADS;                // interior px / thread
-static_assert(IPT * THREADS == TILE * TILE, "threads must tile the interior");
-// Shared memory, in floats: gates[8][APRON], g0[SLAB_PX], lam_u[APRON],
-// dt[RING * RING].
-constexpr int SMEM_FLOATS = 8 * APRON + SLAB_PX + APRON + RING * RING;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+constexpr int THREADS = 320;
+constexpr int PPT = SLAB * SLAB / THREADS;   // slab pixels per thread
+static_assert(PPT * THREADS == SLAB * SLAB, "threads must tile the slab");
+
+// Stage 2: one pixel per thread, the d^t window with a one-pixel apron.
+constexpr int SUM_W = 32, SUM_H = 8;
+constexpr int SUM_THREADS = SUM_W * SUM_H;
+constexpr int WIN_W = SUM_W + 2;
+constexpr int WIN = WIN_W * (SUM_H + 2);
+
+// Stage 0: one pixel per thread.
+constexpr int EW_THREADS = 256;
 
 enum Norm { kSum = 0, kSumAbs = 1, kSumClamp = 2 };
 
@@ -98,200 +123,233 @@ enum Norm { kSum = 0, kSumAbs = 1, kSumClamp = 2 };
 __constant__ int kDy[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
 __constant__ int kDx[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
 
-// PRENORM false: K3 (guid = raw (B, 8, H, W), d_guid (B, 8, H, W), g0_acc
-// a scratch plane, d_blur). PRENORM true: K6 (guid = gates9 (B, 9, H, W),
-// d_guid = d_gates9 (B, 9, H, W), g0_acc unused, d_blur receives lam^0).
-template <bool PRENORM>
-__global__ void __launch_bounds__(THREADS)
-cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
-               const float* __restrict__ sparse, int64_t sp_bstride,
-               const float* __restrict__ lam_in, int64_t lam_bstride,
-               const float* __restrict__ stash, int T, int t_lo, int iters,
-               float* __restrict__ lam_out,
-               float* __restrict__ d_guid, float* __restrict__ g0_acc,
-               float* __restrict__ d_blur, float* __restrict__ d_sparse,
-               int H, int W, int norm, bool first, bool last) {
-  extern __shared__ float smem[];
-  float* gate = smem;                       // [8][APRON]
-  float* g0 = gate + 8 * APRON;             // [SLAB_PX]
-  float* lu = g0 + SLAB_PX;                 // [APRON]
-  float* dt = lu + APRON;                   // [RING * RING]
+// Asynchronous 4-byte copy global -> shared; zero-fills when !valid (src
+// must still be a mapped address: no byte is read from it).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage 0: gates9 = [1 - sum_k gate_k, gate_1..8], gate_k = a_k / max(s,
+// floor), a = g (|g| for 8sum_abs), s = sum_k |a_k| (cspn_fwd.cu's
+// normalization).
+__global__ void __launch_bounds__(EW_THREADS)
+adjoint_gates9(const float* __restrict__ guid, int64_t guid_bstride,
+               float* __restrict__ gates9, int64_t plane, int norm) {
+  const int64_t idx = (int64_t)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (idx >= plane) return;
+  const float* g = guid + blockIdx.y * guid_bstride + idx;
+  float* out = gates9 + (int64_t)blockIdx.y * 9 * plane + idx;
+  const float floor_ = norm == kSumClamp ? 1.0f : 1e-8f;
+  float a[8];
+  float abs_sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    a[k] = g[k * plane];
+    if (norm == kSumAbs) a[k] = fabsf(a[k]);
+    abs_sum += fabsf(a[k]);
+  }
+  const float den = fmaxf(abs_sum, floor_);
+  float gsum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float gk = a[k] / den;
+    out[(k + 1) * plane] = gk;
+    gsum += gk;
+  }
+  out[0] = 1.0f - gsum;
+}
+
+// Stage 1, one round: `iters` reverse iterations t = t_lo + iters - 1 ..
+// t_lo from lam^{t_lo + iters} (lam_in, unmasked); writes lam^{t+1} to
+// lstash[b, t] at each iteration's start and lam^{t_lo} to lam_out.
+__global__ void __launch_bounds__(THREADS, 2)
+adjoint_sweep_round(const float* __restrict__ gates9, int64_t g_bstride,
+                    const float* __restrict__ sparse, int64_t sp_bstride,
+                    const float* __restrict__ lam_in, int64_t lam_bstride,
+                    float* __restrict__ lam_out, float* __restrict__ lstash,
+                    int T, int t_lo, int iters, int H, int W) {
+  __shared__ float buf[2][PITCH * PITCH];
 
   const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * TILE, tx0 = blockIdx.x * TILE;
-  const int y0 = ty0 - HALO, x0 = tx0 - HALO;
+  const int y0 = blockIdx.y * TILE - HALO;
+  const int x0 = blockIdx.x * TILE - HALO;
   const int64_t plane = (int64_t)H * W;
-  const float* g = guid + b * guid_bstride;
+  const float* g = gates9 + b * g_bstride;
   const float* sp = sparse ? sparse + b * sp_bstride : nullptr;
   const float* lin = lam_in + b * lam_bstride;
-  const float floor_ = norm == kSumClamp ? 1.0f : 1e-8f;
+  float* lout = lam_out + b * plane;
+  float* st = lstash + (int64_t)b * T * plane;
 
-  for (int i = threadIdx.x; i < 8 * APRON; i += THREADS) gate[i] = 0.0f;
-  for (int i = threadIdx.x; i < APRON; i += THREADS) lu[i] = 0.0f;
+  for (int i = threadIdx.x; i < 2 * PITCH * PITCH; i += THREADS)
+    (&buf[0][0])[i] = 0.0f;
   __syncthreads();
 
-  // Slab pixels of this thread: p = threadIdx.x + i * THREADS < SLAB_PX.
-  float lam[SPT];
-  float dsp[SPT];       // sum of m * lam over this round's iterations
-  bool masked[SPT];     // lam_u = 0: an anchor, or outside the image
-  bool anchor[SPT];     // an anchor inside the image (m = 1)
+  float gate[PPT][9];   // [0] = g0, [1 + k] = gT_k
+  float lam[PPT];       // unmasked
+  bool masked[PPT];     // an anchor, or outside the image
+  bool interior[PPT];   // inside the image and in the tile's interior
+  int off[PPT];
+  int gidx[PPT];        // index in the plane (H * W < 2^31)
+
 #pragma unroll
-  for (int i = 0; i < SPT; ++i) {
+  for (int i = 0; i < PPT; ++i) {
     const int p = threadIdx.x + i * THREADS;
-    lam[i] = 0.0f;
-    dsp[i] = 0.0f;
-    masked[i] = true;
-    anchor[i] = false;
-    if (p >= SLAB_PX) continue;
     const int y = p / SLAB, x = p % SLAB;
     const int gy = y0 + y, gx = x0 + x;
-    const int o = (y + 1) * PITCH + (x + 1);
-    g0[p] = 0.0f;
-    if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-    const int64_t idx = (int64_t)gy * W + gx;
-    if constexpr (PRENORM) {
+    off[i] = (y + 1) * PITCH + (x + 1);
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    gidx[i] = inside ? gy * W + gx : 0;
+    interior[i] = inside && y >= HALO && y < HALO + TILE && x >= HALO &&
+                  x < HALO + TILE;
+    lam[i] = 0.0f;
+    masked[i] = true;
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        gate[k * APRON + o] = g[(k + 1) * plane + idx];
-      g0[p] = g[idx];
-    } else {
-      float a[8];
-      float abs_sum = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        a[k] = g[k * plane + idx];
-        if (norm == kSumAbs) a[k] = fabsf(a[k]);
-        abs_sum += fabsf(a[k]);
-      }
-      const float den = fmaxf(abs_sum, floor_);
-      float gsum = 0.0f;
+    for (int k = 0; k < 9; ++k) gate[i][k] = 0.0f;
+    if (inside) {
+      gate[i][0] = g[gidx[i]];
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const float gk = a[k] / den;
-        gate[k * APRON + o] = gk;
-        gsum += gk;
+        const int ny = gy + kDy[k], nx = gx + kDx[k];
+        if (ny >= 0 && ny < H && nx >= 0 && nx < W)
+          gate[i][k + 1] = g[(8 - k) * plane + ny * W + nx];   // g_{7-k}
       }
-      g0[p] = 1.0f - gsum;
+      lam[i] = lin[gidx[i]];
+      masked[i] = sp && sp[gidx[i]] > 0.0f;
     }
-    anchor[i] = sp && sp[idx] > 0.0f;
-    masked[i] = anchor[i];
-    lam[i] = lin[idx];
+    buf[0][off[i]] = masked[i] ? 0.0f : lam[i];
   }
+  __syncthreads();
 
-  // Interior pixels of this thread: q = threadIdx.x + j * THREADS.
-  float acc[IPT][9];    // [0..7] G_k, [8] G_0
-#pragma unroll
-  for (int j = 0; j < IPT; ++j)
-#pragma unroll
-    for (int k = 0; k < 9; ++k) acc[j][k] = 0.0f;
-
-  const float* st = stash + (int64_t)b * T * plane;
+  int cur = 0;
   for (int s = 0; s < iters; ++s) {
     const int t = t_lo + iters - 1 - s;
-    const float* dplane = st + t * plane;
+    const float* lc = buf[cur];
+    float* ln = buf[cur ^ 1];
 #pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const int p = threadIdx.x + i * THREADS;
-      if (p >= SLAB_PX) continue;
-      const int o = (p / SLAB + 1) * PITCH + (p % SLAB + 1);
-      lu[o] = masked[i] ? 0.0f : lam[i];
-      if (anchor[i]) dsp[i] += lam[i];
-    }
-    for (int e = threadIdx.x; e < RING * RING; e += THREADS) {
-      const int gy = ty0 - 1 + e / RING, gx = tx0 - 1 + e % RING;
-      dt[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                  ? dplane[(int64_t)gy * W + gx] : 0.0f;
-    }
-    __syncthreads();
-
-    // Gate gradients on the interior: G_k += lam_u * d^t(j + off_k).
-#pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      const int q = threadIdx.x + j * THREADS;
-      const int iy = q / TILE, ix = q % TILE;
-      const float l = lu[(iy + HALO + 1) * PITCH + (ix + HALO + 1)];
-      const int c = (iy + 1) * RING + (ix + 1);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        acc[j][k] = fmaf(l, dt[c + kDy[k] * RING + kDx[k]], acc[j][k]);
-      acc[j][8] = fmaf(l, dt[c], acc[j][8]);
-    }
-
-    // The adjoint stencil on the slab, as a gather over neighbours.
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const int p = threadIdx.x + i * THREADS;
-      if (p >= SLAB_PX) continue;
-      const int o = (p / SLAB + 1) * PITCH + (p % SLAB + 1);
-      float v = g0[p] * lu[o];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int n = o + kDy[k] * PITCH + kDx[k];
-        v = fmaf(gate[(7 - k) * APRON + n], lu[n], v);   // k' = 7 - k
-      }
+    for (int i = 0; i < PPT; ++i) {
+      const int o = off[i];
+      if (interior[i]) st[t * plane + gidx[i]] = lam[i];    // lam^{t+1}
+      float v = gate[i][0] * lc[o];
+      v = fmaf(gate[i][1], lc[o - PITCH - 1], v);
+      v = fmaf(gate[i][2], lc[o - PITCH], v);
+      v = fmaf(gate[i][3], lc[o - PITCH + 1], v);
+      v = fmaf(gate[i][4], lc[o - 1], v);
+      v = fmaf(gate[i][5], lc[o + 1], v);
+      v = fmaf(gate[i][6], lc[o + PITCH - 1], v);
+      v = fmaf(gate[i][7], lc[o + PITCH], v);
+      v = fmaf(gate[i][8], lc[o + PITCH + 1], v);
       lam[i] = v;
+      ln[o] = masked[i] ? 0.0f : v;
     }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < PPT; ++i)
+    if (interior[i]) lout[gidx[i]] = lam[i];
+}
+
+// Stage 2. RAW false (K6, K9): d_guid = d_gates9 (B, 9, H, W) = [G_0,
+// G_1..8], d_sparse = sum_t m lam^{t+1}; guid and d_blur unused. RAW true
+// (K3): guid the raw guidance (B, 8, H, W); d_blur holds lam^0 on entry and
+// (1 - m) lam^0 on return; d_sparse also takes m lam^0; d_guid (B, 8, H, W)
+// the guidance gradient by the normalization's chain rule.
+template <bool RAW>
+__global__ void __launch_bounds__(SUM_THREADS)
+adjoint_sums(const float* __restrict__ guid, int64_t guid_bstride,
+             const float* __restrict__ sparse, int64_t sp_bstride,
+             const float* __restrict__ stash, const float* __restrict__ lstash,
+             float* __restrict__ d_guid, float* __restrict__ d_blur,
+             float* __restrict__ d_sparse, int H, int W, int T, int norm) {
+  __shared__ float dwin[2][WIN];
+  __shared__ float lwin[2][SUM_THREADS];
+
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x % SUM_W, ty = threadIdx.x / SUM_W;
+  const int wx0 = blockIdx.x * SUM_W - 1, wy0 = blockIdx.y * SUM_H - 1;
+  const int gx = wx0 + 1 + tx, gy = wy0 + 1 + ty;
+  const bool inside = gx < W && gy < H;
+  const int64_t plane = (int64_t)H * W;
+  const int pix = inside ? gy * W + gx : 0;
+  const float* st = stash + (int64_t)b * T * plane;
+  const float* ls = lstash + (int64_t)b * T * plane;
+  const bool m = inside && sparse && sparse[b * sp_bstride + pix] > 0.0f;
+
+  // Start the copies of d^t's window and lam^{t+1}'s tile into buffer c.
+  auto load = [&](int t, int c) {
+    const float* dp = st + t * plane;
+    for (int e = threadIdx.x; e < WIN; e += SUM_THREADS) {
+      const int y = wy0 + e / WIN_W, x = wx0 + e % WIN_W;
+      const bool ok = y >= 0 && y < H && x >= 0 && x < W;
+      cp_async4(&dwin[c][e], ok ? dp + y * W + x : dp, ok);
+    }
+    cp_async4(&lwin[c][threadIdx.x], ls + t * plane + pix, inside);
+    cp_async_commit();
+  };
+
+  float acc[9];         // [0..7] G_k, [8] G_0
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc[k] = 0.0f;
+  float ssum = 0.0f;
+  const int o = (ty + 1) * WIN_W + tx + 1;
+
+  if (T > 0) load(T - 1, 0);
+  for (int n = 0; n < T; ++n) {
+    const int t = T - 1 - n, c = n & 1;
+    if (t > 0) {
+      load(t - 1, c ^ 1);    // buffer c ^ 1 was last read before the
+      cp_async_wait<1>();    // previous iteration's closing barrier
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float lam = lwin[c][threadIdx.x];
+    const float lu = m ? 0.0f : lam;
+    if (m) ssum += lam;
+    const float* d = dwin[c];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      acc[k] = fmaf(lu, d[o + kDy[k] * WIN_W + kDx[k]], acc[k]);
+    acc[8] = fmaf(lu, d[o], acc[8]);
     __syncthreads();
   }
 
-  // Slab pixels in the interior: lam^{t_lo} on, or the depth gradients.
+  if (!inside) return;
+  const int64_t px = (int64_t)b * plane + pix;
+  if constexpr (!RAW) {
+    float* dg = d_guid + (int64_t)b * 9 * plane + pix;
+    dg[0] = acc[8];
 #pragma unroll
-  for (int i = 0; i < SPT; ++i) {
-    const int p = threadIdx.x + i * THREADS;
-    if (p >= SLAB_PX) continue;
-    const int y = p / SLAB, x = p % SLAB;
-    const int gy = y0 + y, gx = x0 + x;
-    if (y < HALO || y >= HALO + TILE || x < HALO || x >= HALO + TILE ||
-        gy >= H || gx >= W)
-      continue;
-    const int64_t idx = b * plane + (int64_t)gy * W + gx;
-    float ds = (first ? 0.0f : d_sparse[idx]) + dsp[i];
-    if (last && PRENORM) {
-      d_blur[idx] = lam[i];                 // K6: lam^0, unmasked
-    } else if (last) {
-      d_blur[idx] = anchor[i] ? 0.0f : lam[i];
-      if (anchor[i]) ds += lam[i];
-    } else {
-      lam_out[idx] = lam[i];
-    }
-    d_sparse[idx] = ds;
-  }
-
-  // Interior gate sums: store, add, or finish with the chain rule.
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    const int q = threadIdx.x + j * THREADS;
-    const int gy = ty0 + q / TILE, gx = tx0 + q % TILE;
-    if (gy >= H || gx >= W) continue;
-    const int64_t pix = (int64_t)gy * W + gx;
-    // G_k at dg[k * plane], G_0 at *g0a.
-    float* dg;
-    float* g0a;
-    if constexpr (PRENORM) {
-      g0a = d_guid + b * 9 * plane + pix;
-      dg = g0a + plane;
-    } else {
-      dg = d_guid + b * 8 * plane + pix;
-      g0a = g0_acc + b * plane + pix;
-    }
-    if (!first) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[j][k] += dg[k * plane];
-      acc[j][8] += *g0a;
-    }
-    if (PRENORM || !last) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dg[k * plane] = acc[j][k];
-      *g0a = acc[j][8];
-      continue;
-    }
+    for (int k = 0; k < 8; ++k) dg[(k + 1) * plane] = acc[k];
+    d_sparse[px] = ssum;
+  } else {
+    const float lam0 = d_blur[px];
+    d_blur[px] = m ? 0.0f : lam0;
+    d_sparse[px] = m ? ssum + lam0 : ssum;
     // Chain rule of gate_k = a_k / max(s, floor), s = sum |g_k| (a = g,
     // or |g| for 8sum_abs): Ghat_k = G_k - G_0, c1 = sum_k Ghat_k gate_k.
+    const float* g = guid + b * guid_bstride + pix;
+    float* dg = d_guid + (int64_t)b * 8 * plane + pix;
+    const float floor_ = norm == kSumClamp ? 1.0f : 1e-8f;
     float raw[8], a[8];
     float abs_sum = 0.0f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      raw[k] = g[k * plane + pix];
+      raw[k] = g[k * plane];
       a[k] = norm == kSumAbs ? fabsf(raw[k]) : raw[k];
       abs_sum += fabsf(a[k]);
     }
@@ -299,11 +357,10 @@ cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     const float active = abs_sum > floor_ ? 1.0f : 0.0f;
     float c1 = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      c1 = fmaf(acc[j][k] - acc[j][8], a[k] / den, c1);
+    for (int k = 0; k < 8; ++k) c1 = fmaf(acc[k] - acc[8], a[k] / den, c1);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const float ghat = acc[j][k] - acc[j][8];
+      const float ghat = acc[k] - acc[8];
       const float sgn = raw[k] > 0.0f ? 1.0f : (raw[k] < 0.0f ? -1.0f : 0.0f);
       dg[k * plane] = norm == kSumAbs ? sgn * (ghat - active * c1) / den
                                       : (ghat - sgn * (active * c1)) / den;
@@ -311,18 +368,20 @@ cspn_bwd_round(const float* __restrict__ guid, int64_t guid_bstride,
   }
 }
 
-template <bool PRENORM>
-int launch_rounds(const float* guid, int64_t guid_bstride,
-                  const float* sparse, int64_t sp_bstride,
-                  const float* grad_out, int64_t go_bstride,
-                  const float* stash,
-                  float* d_guid, float* d_blur, float* d_sparse,
-                  float* g0_acc, float* lam_a, float* lam_b,
-                  int B, int H, int W, int T, int norm, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cspn_bwd_round<PRENORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+int launch_gates9(const float* guid, int64_t guid_bstride, float* gates9,
+                  int B, int H, int W, int norm, cudaStream_t stream) {
+  const int64_t plane = (int64_t)H * W;
+  const dim3 grid((unsigned)((plane + EW_THREADS - 1) / EW_THREADS), B);
+  adjoint_gates9<<<grid, EW_THREADS, 0, stream>>>(guid, guid_bstride, gates9,
+                                                  plane, norm);
+  return (int)cudaGetLastError();
+}
+
+int launch_sweep(const float* gates9, int64_t g_bstride,
+                 const float* sparse, int64_t sp_bstride,
+                 const float* grad_out, int64_t go_bstride,
+                 float* lstash, float* lam0, float* lam_scratch,
+                 int B, int H, int W, int T, cudaStream_t stream) {
   const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
   const int rounds = T == 0 ? 1 : (T + HALO - 1) / HALO;
   const int64_t plane = (int64_t)H * W;
@@ -332,13 +391,11 @@ int launch_rounds(const float* guid, int64_t guid_bstride,
     const int r = rounds - 1 - n;            // the forward's round, reversed
     const int t_lo = r * HALO;
     const int iters = T - t_lo < HALO ? T - t_lo : HALO;
-    float* dst = n % 2 == 0 ? lam_a : lam_b;
-    cspn_bwd_round<PRENORM>
-        <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-            guid, guid_bstride, sparse, sp_bstride, src, src_bstride, stash,
-            T, t_lo, iters, dst, d_guid, g0_acc, d_blur, d_sparse, H, W,
-            norm, n == 0, r == 0);
-    err = cudaGetLastError();
+    float* dst = r % 2 == 0 ? lam0 : lam_scratch;   // the last writes lam0
+    adjoint_sweep_round<<<grid, THREADS, 0, stream>>>(
+        gates9, g_bstride, sparse, sp_bstride, src, src_bstride, dst, lstash,
+        T, t_lo, iters, H, W);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     src = dst;
     src_bstride = plane;
@@ -346,48 +403,82 @@ int launch_rounds(const float* guid, int64_t guid_bstride,
   return (int)cudaSuccess;
 }
 
+template <bool RAW>
+int launch_sums(const float* guid, int64_t guid_bstride,
+                const float* sparse, int64_t sp_bstride,
+                const float* stash, const float* lstash,
+                float* d_guid, float* d_blur, float* d_sparse,
+                int B, int H, int W, int T, int norm, cudaStream_t stream) {
+  const dim3 grid((W + SUM_W - 1) / SUM_W, (H + SUM_H - 1) / SUM_H, B);
+  adjoint_sums<RAW><<<grid, SUM_THREADS, 0, stream>>>(
+      guid, guid_bstride, sparse, sp_bstride, stash, lstash, d_guid, d_blur,
+      d_sparse, H, W, T, norm);
+  return (int)cudaGetLastError();
+}
+
+int prenorm_adjoint(const float* gates9, int64_t g_bstride,
+                    const float* sparse, int64_t sp_bstride,
+                    const float* grad_out, int64_t go_bstride,
+                    const float* stash, float* d_gates9, float* lam0,
+                    float* d_sparse, float* lstash, float* lam_scratch,
+                    int B, int H, int W, int T, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_sweep(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                         go_bstride, lstash, lam0, lam_scratch, B, H, W, T,
+                         s);
+  if (err != cudaSuccess) return err;
+  return launch_sums<false>(nullptr, 0, sparse, sp_bstride, stash, lstash,
+                            d_gates9, nullptr, d_sparse, B, H, W, T, 0, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// guid: (B, 8, H, W) raw guidance, batch stride guid_bstride (elements);
-// sparse: (B, H, W), batch stride sp_bstride, or null (no anchors);
-// grad_out: (B, H, W) cotangent of the output, batch stride go_bstride;
-// stash: contiguous (B, T, H, W) from cspn_fwd_stash.
+// K3. guid: (B, 8, H, W) raw guidance, batch stride guid_bstride
+// (elements); sparse: (B, H, W), batch stride sp_bstride, or null (no
+// anchors); grad_out: (B, H, W) cotangent of the output, batch stride
+// go_bstride; stash: contiguous (B, T, H, W) from cspn_fwd_stash.
 // Outputs, contiguous: d_guid (B, 8, H, W), d_blur and d_sparse (B, H, W)
-// (d_sparse is 0 without a sparse map). Scratch, contiguous (B, H, W):
-// g0_acc, and lam_a, lam_b (used when T > HALO).
-// Launches ceil(T / HALO) rounds (one for T = 0) on `stream` and returns
-// cudaGetLastError() of the first failing call.
+// (d_sparse is 0 without a sparse map). Scratch, contiguous: gates9
+// (B, 9, H, W), lstash (B, T, H, W), lam_scratch (B, H, W). Launches stage
+// 0, the ceil(T / HALO) rounds of stage 1 (one for T = 0) and stage 2 on
+// `stream` and returns cudaGetLastError() of the first failing launch.
 int cspn_bwd(const float* guid, int64_t guid_bstride,
              const float* sparse, int64_t sp_bstride,
              const float* grad_out, int64_t go_bstride,
              const float* stash,
              float* d_guid, float* d_blur, float* d_sparse,
-             float* g0_acc, float* lam_a, float* lam_b,
+             float* gates9, float* lstash, float* lam_scratch,
              int B, int H, int W, int T, int norm, void* stream) {
-  return launch_rounds<false>(guid, guid_bstride, sparse, sp_bstride,
-                              grad_out, go_bstride, stash, d_guid, d_blur,
-                              d_sparse, g0_acc, lam_a, lam_b, B, H, W, T,
-                              norm, stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_gates9(guid, guid_bstride, gates9, B, H, W, norm, s);
+  if (err != cudaSuccess) return err;
+  err = launch_sweep(gates9, 9 * (int64_t)H * W, sparse, sp_bstride,
+                     grad_out, go_bstride, lstash, d_blur, lam_scratch, B, H,
+                     W, T, s);
+  if (err != cudaSuccess) return err;
+  return launch_sums<true>(guid, guid_bstride, sparse, sp_bstride, stash,
+                           lstash, d_guid, d_blur, d_sparse, B, H, W, T, norm,
+                           s);
 }
 
 // K6. gates9: (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
 // g_bstride; sparse, grad_out as in cspn_bwd; stash: contiguous
 // (B, T, H, W) from cspn_tiled_fwd_stash. Outputs, contiguous: d_gates9
 // (B, 9, H, W) = [G_0, G_1..8], lam0 (B, H, W) = dL/dd^0, d_sparse
-// (B, H, W) = sum_t m lam^{t+1} (0 without a sparse map). Scratch lam_a,
-// lam_b: contiguous (B, H, W), used when T > HALO.
+// (B, H, W) = sum_t m lam^{t+1} (0 without a sparse map). Scratch,
+// contiguous: lstash (B, T, H, W), lam_scratch (B, H, W).
 int cspn_tiled_bwd(const float* gates9, int64_t g_bstride,
                    const float* sparse, int64_t sp_bstride,
                    const float* grad_out, int64_t go_bstride,
                    const float* stash,
                    float* d_gates9, float* lam0, float* d_sparse,
-                   float* lam_a, float* lam_b,
+                   float* lstash, float* lam_scratch,
                    int B, int H, int W, int T, void* stream) {
-  return launch_rounds<true>(gates9, g_bstride, sparse, sp_bstride, grad_out,
-                             go_bstride, stash, d_gates9, lam0, d_sparse,
-                             nullptr, lam_a, lam_b, B, H, W, T, 0, stream);
+  return prenorm_adjoint(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                         go_bstride, stash, d_gates9, lam0, d_sparse, lstash,
+                         lam_scratch, B, H, W, T, stream);
 }
 
 // K9: cspn_tiled_bwd's contract on one rank's halo'd slab, the stash of
@@ -397,11 +488,50 @@ int cspn_prenorm_bwd(const float* gates9, int64_t g_bstride,
                      const float* grad_out, int64_t go_bstride,
                      const float* stash,
                      float* d_gates9, float* lam0, float* d_sparse,
-                     float* lam_a, float* lam_b,
+                     float* lstash, float* lam_scratch,
                      int B, int H, int W, int T, void* stream) {
-  return launch_rounds<true>(gates9, g_bstride, sparse, sp_bstride, grad_out,
-                             go_bstride, stash, d_gates9, lam0, d_sparse,
-                             nullptr, lam_a, lam_b, B, H, W, T, 0, stream);
+  return prenorm_adjoint(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                         go_bstride, stash, d_gates9, lam0, d_sparse, lstash,
+                         lam_scratch, B, H, W, T, stream);
+}
+
+// Stage 0 alone: guid (B, 8, H, W), batch stride guid_bstride -> gates9,
+// contiguous (B, 9, H, W).
+int cspn_bwd_gates9(const float* guid, int64_t guid_bstride, float* gates9,
+                    int B, int H, int W, int norm, void* stream) {
+  return launch_gates9(guid, guid_bstride, gates9, B, H, W, norm,
+                       (cudaStream_t)stream);
+}
+
+// Stage 1 alone: gates9, sparse, grad_out as in cspn_tiled_bwd -> lstash,
+// contiguous (B, T, H, W), lstash[b, t] = lam^{t+1} unmasked, and lam0
+// (B, H, W). Scratch lam_scratch (B, H, W).
+int cspn_bwd_sweep(const float* gates9, int64_t g_bstride,
+                   const float* sparse, int64_t sp_bstride,
+                   const float* grad_out, int64_t go_bstride,
+                   float* lstash, float* lam0, float* lam_scratch,
+                   int B, int H, int W, int T, void* stream) {
+  return launch_sweep(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                      go_bstride, lstash, lam0, lam_scratch, B, H, W, T,
+                      (cudaStream_t)stream);
+}
+
+// Stage 2 alone, from the stash and stage 1's lstash (both contiguous
+// (B, T, H, W)). guid null: K6's sums, d_guid = d_gates9 (B, 9, H, W),
+// d_sparse; d_blur unused. guid the raw guidance (B, 8, H, W): K3's, with
+// d_blur holding lam^0 on entry (see adjoint_sums).
+int cspn_bwd_sums(const float* guid, int64_t guid_bstride,
+                  const float* sparse, int64_t sp_bstride,
+                  const float* stash, const float* lstash,
+                  float* d_guid, float* d_blur, float* d_sparse,
+                  int B, int H, int W, int T, int norm, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (guid)
+    return launch_sums<true>(guid, guid_bstride, sparse, sp_bstride, stash,
+                             lstash, d_guid, d_blur, d_sparse, B, H, W, T,
+                             norm, s);
+  return launch_sums<false>(nullptr, 0, sparse, sp_bstride, stash, lstash,
+                            d_guid, nullptr, d_sparse, B, H, W, T, 0, s);
 }
 
 const char* cspn_bwd_error_string(int err) {

@@ -21,6 +21,11 @@ slab of H/S + 2k rows for the r <= k iterations of one round
   cspn_prenorm_fwd        K7, the forward (csrc/cspn_fwd.cu);
   cspn_prenorm_fwd_stash  K8, K7 that also stashes every d^t (same file);
   cspn_prenorm_bwd        K9, the adjoint over that stash (csrc/cspn_bwd.cu).
+The three adjoints are composed of stage kernels (csrc/cspn_bwd.cu), which
+have wrappers of their own, for checking and timing them alone:
+  cspn_bwd_gates9  stage 0 of K3, the raw guidance to gates9;
+  cspn_bwd_sweep   stage 1, the lam recursion with its adjoint stash;
+  cspn_bwd_sums    stage 2, the gate sums (K3's with the chain rule).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs the kernel's plain version from ops/cspn_ref.py.
 """
@@ -39,7 +44,9 @@ import torch
 
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
+    adjoint_sweep_plain,
     cspn_bwd_plain,
+    cspn_bwd_sums_plain,
     cspn_fwd_stash_plain,
     cspn_prenorm_bwd_plain,
     cspn_prenorm_fwd_plain,
@@ -48,6 +55,7 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_tiled_bwd_plain,
     cspn_tiled_fwd_plain,
     cspn_tiled_fwd_stash_plain,
+    prenorm_gates9,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -135,7 +143,12 @@ def _load(name: str):
                 "cspn_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p, p, p,
                              i32, i32, i32, i32, i32, p],
                 "cspn_tiled_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p,
-                                   p, i32, i32, i32, i32, p]},
+                                   p, i32, i32, i32, i32, p],
+                "cspn_bwd_gates9": [p, i64, p, i32, i32, i32, i32, p],
+                "cspn_bwd_sweep": [p, i64, p, i64, p, i64, p, p, p,
+                                   i32, i32, i32, i32, p],
+                "cspn_bwd_sums": [p, i64, p, i64, p, p, p, p, p,
+                                  i32, i32, i32, i32, i32, p]},
         }
         # K7-K9 take the C signatures of K4-K6.
         signatures["cspn_fwd"]["cspn_prenorm_fwd"] = \
@@ -288,30 +301,22 @@ def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
                               num_iters=num_iters, norm_type=norm_type)
     b, _, h, w = guidance.shape
     dev = guidance.device
-    _check_planes("guidance", guidance, (b, 8, h, w), dev)
-    _check_planes("grad_out", grad_out, (b, h, w), dev)
-    if sparse is not None:
-        _check_planes("sparse", sparse, (b, h, w), dev)
-    _check_planes("stash", stash, (b, num_iters, h, w), dev)
-    if not stash.is_contiguous():
-        raise ValueError("stash must be contiguous")
-    lib = _load("cspn_bwd")
-    d_guid = torch.empty((b, 8, h, w), device=dev, dtype=torch.float32)
-    d_blur = torch.empty((b, h, w), device=dev, dtype=torch.float32)
-    d_sparse = torch.empty_like(d_blur)
-    # G_0 sums and the two lam planes the rounds ping-pong between.
-    scratch = torch.empty((3, b, h, w), device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cspn_bwd(
-            guidance.data_ptr(), guidance.stride(0),
-            _ptr(sparse), _bstride(sparse),
-            grad_out.data_ptr(), grad_out.stride(0), stash.data_ptr(),
-            d_guid.data_ptr(), d_blur.data_ptr(), d_sparse.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            scratch[2].data_ptr(),
-            b, h, w, num_iters, NORM_TYPES.index(norm_type), stream)
-    _raise_on(err, "cspn_bwd", "cspn_bwd")
+    _check_adjoint(dev, b, h, w, num_iters, planes=(
+        ("guidance", guidance, 8), ("grad_out", grad_out, 0),
+        ("sparse", sparse, 0)), stashes=(("stash", stash),))
+    d_guid = _empty((b, 8, h, w), dev)
+    d_blur, d_sparse = _empty((b, h, w), dev), _empty((b, h, w), dev)
+    # Scratch: stage 0's gates9, stage 1's adjoint stash and the plane lam
+    # ping-pongs with between rounds; freed on return.
+    gates9 = _empty((b, 9, h, w), dev)
+    lam_stash, lam_scratch = _stash_like(d_blur, num_iters), torch.empty_like(
+        d_blur)
+    _launch("cspn_bwd", dev, guidance.data_ptr(), guidance.stride(0),
+            _ptr(sparse), _bstride(sparse), grad_out.data_ptr(),
+            grad_out.stride(0), stash.data_ptr(), d_guid.data_ptr(),
+            d_blur.data_ptr(), d_sparse.data_ptr(), gates9.data_ptr(),
+            lam_stash.data_ptr(), lam_scratch.data_ptr(), b, h, w, num_iters,
+            NORM_TYPES.index(norm_type))
     cspn_bwd.launches += 1
     return d_guid, d_blur, d_sparse
 
@@ -374,28 +379,132 @@ def _prenorm_adjoint(entry, gates9, sparse, stash, grad_out, num_iters):
     K9); returns (d_gates9, lam0, d_sparse)."""
     b, _, h, w = gates9.shape
     dev = gates9.device
-    _check_planes("gates9", gates9, (b, 9, h, w), dev)
-    _check_planes("grad_out", grad_out, (b, h, w), dev)
-    if sparse is not None:
-        _check_planes("sparse", sparse, (b, h, w), dev)
-    _check_planes("stash", stash, (b, num_iters, h, w), dev)
-    if not stash.is_contiguous():
-        raise ValueError("stash must be contiguous")
-    lib = _load("cspn_bwd")
-    d_gates9 = torch.empty((b, 9, h, w), device=dev, dtype=torch.float32)
-    # lam0, the sparse sums and the two lam planes the rounds ping-pong
-    # between.
-    planes = torch.empty((4, b, h, w), device=dev, dtype=torch.float32)
+    _check_adjoint(dev, b, h, w, num_iters, planes=(
+        ("gates9", gates9, 9), ("grad_out", grad_out, 0),
+        ("sparse", sparse, 0)), stashes=(("stash", stash),))
+    d_gates9 = _empty((b, 9, h, w), dev)
+    lam0, d_sparse = _empty((b, h, w), dev), _empty((b, h, w), dev)
+    # Scratch: stage 1's adjoint stash and the plane lam ping-pongs with
+    # between rounds; freed on return.
+    lam_stash, lam_scratch = _stash_like(lam0, num_iters), torch.empty_like(
+        lam0)
+    _launch(entry, dev, gates9.data_ptr(), gates9.stride(0), _ptr(sparse),
+            _bstride(sparse), grad_out.data_ptr(), grad_out.stride(0),
+            stash.data_ptr(), d_gates9.data_ptr(), lam0.data_ptr(),
+            d_sparse.data_ptr(), lam_stash.data_ptr(), lam_scratch.data_ptr(),
+            b, h, w, num_iters)
+    return d_gates9, lam0, d_sparse
+
+
+def _empty(shape: tuple, dev) -> torch.Tensor:
+    return torch.empty(shape, device=dev, dtype=torch.float32)
+
+
+def _check_adjoint(dev, b, h, w, num_iters, planes=(), stashes=()):
+    """What the adjoint's kernels take: each (name, tensor or None,
+    channels) of `planes` (B, channels, H, W) with contiguous planes, or
+    (B, H, W) for channels 0; each (name, tensor) of `stashes` contiguous
+    (B, T, H, W); a plane whose pixels a 32-bit index reaches."""
+    if h * w >= 2 ** 31:
+        raise ValueError(f"a {h}x{w} plane is beyond the adjoint kernels' "
+                         f"32-bit pixel index")
+    for name, t, channels in planes:
+        if t is not None:
+            _check_planes(name, t, (b, channels, h, w) if channels
+                          else (b, h, w), dev)
+    for name, t in stashes:
+        _check_planes(name, t, (b, num_iters, h, w), dev)
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(entry: str, dev, *args) -> None:
+    """Call the C entry `entry` of csrc/cspn_bwd.cu with `args` on dev's
+    current stream; raises if a launch failed."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            gates9.data_ptr(), gates9.stride(0), _ptr(sparse),
-            _bstride(sparse), grad_out.data_ptr(), grad_out.stride(0),
-            stash.data_ptr(), d_gates9.data_ptr(), planes[0].data_ptr(),
-            planes[1].data_ptr(), planes[2].data_ptr(), planes[3].data_ptr(),
-            b, h, w, num_iters, stream)
+        err = getattr(_load("cspn_bwd"), entry)(*args, stream)
     _raise_on(err, "cspn_bwd", entry)
-    return d_gates9, planes[0], planes[1]
+
+
+def cspn_bwd_gates9(guidance: torch.Tensor, *,
+                    norm_type: str) -> torch.Tensor:
+    """Stage 0 of K3: the raw guidance (B, 8, H, W), contiguous planes and
+    any batch stride -> gates9 (B, 9, H, W) = [1 - sum_k gate_k,
+    gate_1..8], prenorm_gates9's function."""
+    if _check_call(guidance, 0, norm_type):
+        return prenorm_gates9(guidance, norm_type)
+    b, _, h, w = guidance.shape
+    dev = guidance.device
+    _check_adjoint(dev, b, h, w, 0, planes=(("guidance", guidance, 8),))
+    gates9 = _empty((b, 9, h, w), dev)
+    _launch("cspn_bwd_gates9", dev, guidance.data_ptr(), guidance.stride(0),
+            gates9.data_ptr(), b, h, w, NORM_TYPES.index(norm_type))
+    cspn_bwd_gates9.launches += 1
+    return gates9
+
+
+def cspn_bwd_sweep(gates9: torch.Tensor, sparse: torch.Tensor | None,
+                   grad_out: torch.Tensor, *, num_iters: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 of K3, K6 and K9, the lam recursion on the transposed
+    stencil: gates9 (B, 9, H, W), sparse (B, H, W) or None and the
+    cotangent grad_out (B, H, W) -> (the adjoint stash (B, T, H, W),
+    stash[:, t] = lam^{t+1}, and lam^0 (B, H, W), both unmasked);
+    ops/cspn_ref.py:adjoint_sweep_plain."""
+    if _check_call(gates9, num_iters, None):
+        return adjoint_sweep_plain(gates9, sparse, grad_out,
+                                   num_iters=num_iters)
+    b, _, h, w = gates9.shape
+    dev = gates9.device
+    _check_adjoint(dev, b, h, w, num_iters, planes=(
+        ("gates9", gates9, 9), ("grad_out", grad_out, 0),
+        ("sparse", sparse, 0)))
+    lam0 = _empty((b, h, w), dev)
+    lam_stash, lam_scratch = _stash_like(lam0, num_iters), torch.empty_like(
+        lam0)
+    _launch("cspn_bwd_sweep", dev, gates9.data_ptr(), gates9.stride(0),
+            _ptr(sparse), _bstride(sparse), grad_out.data_ptr(),
+            grad_out.stride(0), lam_stash.data_ptr(), lam0.data_ptr(),
+            lam_scratch.data_ptr(), b, h, w, num_iters)
+    cspn_bwd_sweep.launches += 1
+    return lam_stash, lam0
+
+
+def cspn_bwd_sums(sparse: torch.Tensor | None, stash: torch.Tensor,
+                  lam_stash: torch.Tensor, *, num_iters: int,
+                  guidance: torch.Tensor | None = None,
+                  lam0: torch.Tensor | None = None,
+                  norm_type: str | None = None) -> tuple[torch.Tensor, ...]:
+    """Stage 2, the gate sums over the forward's stash and stage 1's
+    adjoint stash (both contiguous (B, T, H, W)). Without guidance (K6,
+    K9): (d_gates9 (B, 9, H, W) = [G_0, G_1..8], d_sparse = sum_t m
+    lam^{t+1}). With the raw guidance (B, 8, H, W), lam^0 and norm_type
+    (K3): (d_guidance, d_blur, d_sparse), the chain rule included;
+    ops/cspn_ref.py:cspn_bwd_sums_plain."""
+    if not (guidance is None) == (lam0 is None) == (norm_type is None):
+        raise ValueError("guidance, lam0 and norm_type go together")
+    kw = dict(num_iters=num_iters, guidance=guidance, lam0=lam0,
+              norm_type=norm_type)
+    if _check_call(stash, num_iters, norm_type):
+        return cspn_bwd_sums_plain(sparse, stash, lam_stash, **kw)
+    b, _, h, w = stash.shape
+    dev = stash.device
+    _check_adjoint(dev, b, h, w, num_iters, planes=(
+        ("sparse", sparse, 0), ("guidance", guidance, 8), ("lam0", lam0, 0)),
+        stashes=(("stash", stash), ("lam_stash", lam_stash)))
+    d_guid = _empty((b, 9 if guidance is None else 8, h, w), dev)
+    d_sparse = _empty((b, h, w), dev)
+    d_blur = None if lam0 is None else _empty((b, h, w), dev).copy_(lam0)
+    _launch("cspn_bwd_sums", dev, _ptr(guidance), _bstride(guidance),
+            _ptr(sparse), _bstride(sparse), stash.data_ptr(),
+            lam_stash.data_ptr(), d_guid.data_ptr(), _ptr(d_blur),
+            d_sparse.data_ptr(), b, h, w, num_iters,
+            0 if norm_type is None else NORM_TYPES.index(norm_type))
+    cspn_bwd_sums.launches += 1
+    if guidance is None:
+        return d_guid, d_sparse
+    return d_guid, d_blur, d_sparse
 
 
 def cspn_prenorm_fwd(gates9: torch.Tensor, d0: torch.Tensor,
@@ -450,5 +559,7 @@ def cspn_prenorm_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
 WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
             cspn_tiled_fwd_stash, cspn_tiled_bwd, cspn_prenorm_fwd,
             cspn_prenorm_fwd_stash, cspn_prenorm_bwd)
-for _wrapper in WRAPPERS:
+# The adjoint's stages alone; the adjoints launch them from C, not these.
+STAGE_WRAPPERS = (cspn_bwd_gates9, cspn_bwd_sweep, cspn_bwd_sums)
+for _wrapper in WRAPPERS + STAGE_WRAPPERS:
     _wrapper.launches = 0

@@ -10,12 +10,18 @@ one iteration per step, the same arithmetic in the same order.
 * `cspn_fwd_stash_plain`: the forward that also returns every
   pre-iteration depth plane d^t (kernel K2, the training forward);
 * `cspn_bwd_plain`: the hand-written adjoint that sweeps that stash in
-  reverse (kernel K3, `csrc/cspn_bwd.cu`);
+  reverse (kernel K3, `csrc/cspn_bwd.cu`), composed of the plain versions
+  of the adjoint kernels' stages: `prenorm_gates9` (stage 0),
+  `adjoint_sweep_plain` (stage 1, the lam recursion on the
+  `transposed_gates`, which writes every lam^{t+1} to an adjoint stash),
+  `adjoint_sums_plain` (stage 2, the gate sums over both stashes) and
+  `cspn_bwd_sums_plain` (stage 2's outputs in K3's and K6's forms);
 * `prenorm_gates9` and `cspn_propagate_prenorm_ref`: the prenormalized
   contract of the H-tiled route (gates9 (B, 9, H, W) with the centre in
   channel 0, d^0 taken as given, an anchor after every iteration), and the
   plain versions of its kernels: `cspn_tiled_fwd_plain` (K4),
-  `cspn_tiled_fwd_stash_plain` (K5) and `cspn_tiled_bwd_plain` (K6);
+  `cspn_tiled_fwd_stash_plain` (K5) and `cspn_tiled_bwd_plain` (K6,
+  stages 1 and 2);
 * the plain versions of the spatial path's slab kernels K7-K9
   (`cspn_prenorm_fwd_plain`, `cspn_prenorm_fwd_stash_plain`,
   `cspn_prenorm_bwd_plain`): the same three functions on one rank's halo'd
@@ -119,19 +125,26 @@ def _iterate(g0, gates, d, sp, num_iters: int,
     """`num_iters` iterations from d as given, each ending with the anchor:
     d <- g0 d + sum_k gates[:, k] d(j + off_k), zero outside the image."""
     mask = None if sp is None else (sp > 0).to(d.dtype)
-    h, w = d.shape[-2:]
     for _ in range(num_iters):
         if stash is not None:
             stash.append(d)
-        padded = F.pad(d, (1, 1, 1, 1))
-        new = g0 * d
-        for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
-            new = new + gates[:, k] * padded[:, 1 + dy:1 + dy + h,
-                                             1 + dx:1 + dx + w]
+        new = _stencil(g0, gates, d)
         if mask is not None:
             new = (1.0 - mask) * new + mask * sp
         d = new
     return d
+
+
+def _stencil(g0, gates, d) -> torch.Tensor:
+    """One gather step: g0 d + sum_k gates[:, k] d(j + off_k), with d zero
+    outside the image."""
+    h, w = d.shape[-2:]
+    padded = F.pad(d, (1, 1, 1, 1))
+    new = g0 * d
+    for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
+        new = new + gates[:, k] * padded[:, 1 + dy:1 + dy + h,
+                                         1 + dx:1 + dx + w]
+    return new
 
 
 def _stacked(stash: list, d: torch.Tensor) -> torch.Tensor:
@@ -171,34 +184,56 @@ def cspn_bwd_plain(
     the raw guidance, the sparse map and the stash of
     `cspn_fwd_stash_plain`. d_sparse is zero without a sparse map.
 
-    Reverse sweep, t = T-1 .. 0, with lam = dL/dd^{t+1} and m = [sparse > 0]:
-      lam_u = (1 - m) lam;  d_sparse += m lam;
-      G_k += lam_u * d^t(j + off_k);  G_0 += lam_u * d^t;
-      lam <- g0 lam_u + sum_k (g_k' lam_u)(j + off_k),  off_k' = -off_k,
-    the adjoint stencil written as a gather. Then d_blur = (1 - m) lam^0,
-    d_sparse += m lam^0, and the normalization's chain rule with
-    Ghat_k = G_k - G_0, c1 = sum_k Ghat_k gate_k, den = max(s, floor),
-    s = sum_k |g_k| and active = [s > floor]:
-      signed norms: (Ghat_l - active sign(g_l) c1) / den
-      8sum_abs:     sign(g_l) (Ghat_l - active c1) / den.
+    The stages of kernel K3: the normalized gates9 (`prenorm_gates9`), the
+    reverse sweep of lam = dL/dd^{t+1} (`adjoint_sweep_plain`), the gate
+    sums over both stashes with the normalization's chain rule
+    (`cspn_bwd_sums_plain`).
     """
     if norm_type not in NORM_TYPES:
         raise ValueError(f"unknown norm_type: {norm_type!r}")
+    gates9 = prenorm_gates9(guidance, norm_type, eps)
+    lam_stash, lam0 = adjoint_sweep_plain(gates9, sparse, grad_out,
+                                          num_iters=num_iters)
+    return cspn_bwd_sums_plain(sparse, stash, lam_stash, num_iters=num_iters,
+                               guidance=guidance, lam0=lam0,
+                               norm_type=norm_type, eps=eps)
+
+
+def cspn_bwd_sums_plain(
+    sparse: torch.Tensor | None,
+    stash: torch.Tensor,
+    lam_stash: torch.Tensor,
+    *,
+    num_iters: int,
+    guidance: torch.Tensor | None = None,
+    lam0: torch.Tensor | None = None,
+    norm_type: str | None = None,
+    eps: float = 1e-8,
+) -> tuple[torch.Tensor, ...]:
+    """The plain version of the sums stage kernel, in its two forms.
+    Without guidance (K6, K9): (d_gates9 (B, 9, H, W) = [G_0, G_1..8],
+    sum_t m lam^{t+1}), from `adjoint_sums_plain`. With the raw guidance,
+    lam^0 and norm_type (K3): (d_guidance, d_blur = (1 - m) lam^0,
+    d_sparse + m lam^0), the chain rule of the normalization with
+    Ghat_k = G_k - G_0, c1 = sum_k Ghat_k gate_k, den = max(s, floor),
+    s = sum_k |g_k| and active = [s > floor]:
+      signed norms: (Ghat_l - active sign(g_l) c1) / den
+      8sum_abs:     sign(g_l) (Ghat_l - active c1) / den."""
+    g_acc, g0_acc, d_sparse = adjoint_sums_plain(sparse, stash, lam_stash,
+                                                 num_iters=num_iters)
+    if guidance is None:
+        return torch.cat([g0_acc[:, None], g_acc], dim=1), d_sparse
     raw = guidance.abs() if norm_type == "8sum_abs" else guidance
     s = guidance.abs().sum(1)
     floor = 1.0 if norm_type == "8sum_clamp" else eps
     den = s.clamp_min(floor)
     gates = raw / den[:, None]
-    g0 = 1.0 - gates.sum(1)
-    active = (s > floor).to(grad_out.dtype)
-
-    g_acc, g0_acc, d_sparse, lam = _reverse_sweep(g0, gates, sparse, stash,
-                                                  grad_out, num_iters)
-    d_blur = lam
+    active = (s > floor).to(lam0.dtype)
+    d_blur = lam0
     if sparse is not None:
-        masked, zero = sparse > 0, torch.zeros_like(lam)
-        d_blur = torch.where(masked, zero, lam)
-        d_sparse = d_sparse + torch.where(masked, lam, zero)
+        masked, zero = sparse > 0, torch.zeros_like(lam0)
+        d_blur = torch.where(masked, zero, lam0)
+        d_sparse = d_sparse + torch.where(masked, lam0, zero)
     ghat = g_acc - g0_acc[:, None]
     c1 = (ghat * gates).sum(1)
     sgn = torch.sign(guidance)
@@ -209,36 +244,75 @@ def cspn_bwd_plain(
     return d_guid, d_blur, d_sparse
 
 
-def _reverse_sweep(g0, gates, sparse, stash, grad_out, num_iters: int):
-    """The reverse sweep of both adjoints (see cspn_bwd_plain) from the
-    gates (g0 (B, H, W), gates (B, 8, H, W)): returns the sums G_k
-    (B, 8, H, W), G_0 and sum_t m lam^{t+1} (B, H, W), and lam^0."""
-    h, w = grad_out.shape[-2:]
+def transposed_gates(gates9: torch.Tensor) -> torch.Tensor:
+    """The adjoint stencil's gates in the forward's gather form: channel 0
+    the centre g0, channel 1 + k gT_k(j) = g_{7-k}(j + off_k), the gate
+    with which the neighbour j + off_k reads j (off_{7-k} = -off_k), 0
+    where j + off_k lies outside the image. Then lam^t = the forward's
+    stencil on these gates applied to lam_u = (1 - m) lam^{t+1}."""
+    h, w = gates9.shape[-2:]
+    gpad = F.pad(gates9[:, 1:], (1, 1, 1, 1))
+    return torch.stack(
+        [gates9[:, 0]] + [gpad[:, 7 - k, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                          for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS)], 1)
+
+
+def adjoint_sweep_plain(
+    gates9: torch.Tensor,
+    sparse: torch.Tensor | None,
+    grad_out: torch.Tensor,
+    *,
+    num_iters: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 of the adjoint kernels: the reverse sweep, t = T-1 .. 0,
+      lam^t = g0 lam_u + sum_k gT_k lam_u(j + off_k),  lam_u = (1 - m)
+      lam^{t+1},  m = [sparse > 0],
+    from lam^T = grad_out. Returns the adjoint stash (B, T, H, W),
+    stash[:, t] = lam^{t+1} unmasked, and lam^0 (B, H, W), unmasked."""
+    gt = transposed_gates(gates9)
     masked = None if sparse is None else sparse > 0
-    zero = torch.zeros_like(grad_out)
-    g_acc = torch.zeros_like(gates)
-    g0_acc = torch.zeros_like(grad_out)
-    d_sparse = torch.zeros_like(grad_out)
-    gpad = F.pad(gates, (1, 1, 1, 1))
     lam = grad_out
+    stash: list = [None] * num_iters
     for t in reversed(range(num_iters)):
+        stash[t] = lam
+        lam_u = lam if masked is None else torch.where(
+            masked, torch.zeros_like(lam), lam)
+        lam = _stencil(gt[:, 0], gt[:, 1:], lam_u)
+    return _stacked(stash, grad_out), lam
+
+
+def adjoint_sums_plain(
+    sparse: torch.Tensor | None,
+    stash: torch.Tensor,
+    lam_stash: torch.Tensor,
+    *,
+    num_iters: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage 2 of the adjoint kernels: from the forward's stash (d^t) and
+    the adjoint stash of `adjoint_sweep_plain` (lam^{t+1}), summed over
+    t = T-1 .. 0 with lam_u = (1 - m) lam^{t+1}: G_k (B, 8, H, W) =
+    sum_t lam_u d^t(j + off_k) (d^t zero outside the image), G_0 =
+    sum_t lam_u d^t and sum_t m lam^{t+1} (B, H, W), zero without a sparse
+    map."""
+    b, _, h, w = stash.shape
+    masked = None if sparse is None else sparse > 0
+    g_acc = stash.new_zeros((b, 8, h, w))
+    g0_acc = stash.new_zeros((b, h, w))
+    d_sparse = stash.new_zeros((b, h, w))
+    for t in reversed(range(num_iters)):
+        lam = lam_stash[:, t]
         lam_u = lam
         if masked is not None:
+            zero = torch.zeros_like(lam)
             lam_u = torch.where(masked, zero, lam)
             d_sparse = d_sparse + torch.where(masked, lam, zero)
         d = stash[:, t]
         dpad = F.pad(d, (1, 1, 1, 1))
-        upad = F.pad(lam_u, (1, 1, 1, 1))
         g0_acc = g0_acc + lam_u * d
-        new = g0 * lam_u
         for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
-            win = (slice(None), slice(1 + dy, 1 + dy + h),
-                   slice(1 + dx, 1 + dx + w))
-            g_acc[:, k] += lam_u * dpad[win]
-            flip = NEIGHBOR_OFFSETS.index((-dy, -dx))
-            new = new + gpad[:, flip][win] * upad[win]
-        lam = new
-    return g_acc, g0_acc, d_sparse, lam
+            g_acc[:, k] += lam_u * dpad[:, 1 + dy:1 + dy + h,
+                                        1 + dx:1 + dx + w]
+    return g_acc, g0_acc, d_sparse
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +379,11 @@ def cspn_tiled_bwd_plain(
     G_1..8], lam0 = dL/dd^0 (B, H, W), d_sparse_acc = sum_t m lam^{t+1}
     (B, H, W), zero without a sparse map). No chain rule, and no mask on
     lam0: the anchoring of d^0 and the normalization are the caller's."""
-    g_acc, g0_acc, d_sparse, lam = _reverse_sweep(
-        gates9[:, 0], gates9[:, 1:], sparse, stash, grad_out, num_iters)
-    return torch.cat([g0_acc[:, None], g_acc], dim=1), lam, d_sparse
+    lam_stash, lam0 = adjoint_sweep_plain(gates9, sparse, grad_out,
+                                          num_iters=num_iters)
+    d_gates9, d_sparse = cspn_bwd_sums_plain(sparse, stash, lam_stash,
+                                             num_iters=num_iters)
+    return d_gates9, lam0, d_sparse
 
 
 # The slab kernels of the spatially sharded CSPN (parallel/halo.py) take

@@ -10,7 +10,9 @@ tests/conftest.py:
 Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
 (K1 forward, K2 stash forward, K3 adjoint; K4-K6, their counterparts on
 the prenormalized gates of the H-tiled route; K7-K9, the same on the
-spatial path's halo'd slabs) and each output. The
+spatial path's halo'd slabs; the adjoints' stage kernels against their
+plain stages) and each output; two runs of K3 and of K6 agree bit for
+bit. The
 kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
 meaningless and `8sum_abs` is the absolute-scale control. Gradients
@@ -461,3 +463,83 @@ def test_prenorm_function_matches_torch_autograd(cuda):
     assert prenorm_launches() == (before[0], before[1] + 1, before[2] + 1)
     for a, w in zip(got, grads("cpu", "torch")):
         assert max_rel(a, w) <= GRAD_TOL
+
+
+def stage_launches():
+    return tuple(w.launches for w in cspn_cuda.STAGE_WRAPPERS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_iters,hw,norm,with_sparse", [
+    (24, (228, 304), "8sum_clamp", True),
+    (10, (50, 40), "8sum", True),           # a remainder round (4, 4, 2)
+    (5, (13, 17), "8sum_abs", False),
+    (0, (33, 65), "8sum_clamp", True),
+])
+def test_adjoint_stages_match_plain_stages(cuda, num_iters, hw, norm,
+                                           with_sparse):
+    """Each stage kernel of csrc/cspn_bwd.cu against its plain stage on
+    the same inputs: gates9 (K3's stage 0), the sweep (every plane of the
+    adjoint stash and lam^0), both forms of the sums (fed the plain
+    sweep's lam stash)."""
+    from cspn_monodepth_tpu_torch.ops.cspn_ref import (
+        adjoint_sweep_plain,
+        cspn_bwd_sums_plain,
+    )
+
+    guid, blur, sparse = problem(41, 2, *hw, with_sparse)
+    gates9 = prenorm_gates9(guid, norm)
+    cot = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        blur.shape).astype(np.float32))
+    kw = dict(num_iters=num_iters)
+    _, stash = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sparse,
+                                              norm_type=norm, **kw)
+    want_stash, want_lam0 = adjoint_sweep_plain(gates9, sparse, cot, **kw)
+    raw = dict(guidance=guid, lam0=want_lam0, norm_type=norm)
+    want = (cspn_bwd_sums_plain(sparse, stash, want_stash, **kw),
+            cspn_bwd_sums_plain(sparse, stash, want_stash, **kw, **raw))
+    g, g9, s, c, st, ls = to((guid, gates9, sparse, cot, stash, want_stash),
+                             cuda)
+    before = stage_launches()
+    got_g9 = cspn_cuda.cspn_bwd_gates9(g, norm_type=norm)
+    lam_stash, lam0 = cspn_cuda.cspn_bwd_sweep(g9, s, c, **kw)
+    got = (cspn_cuda.cspn_bwd_sums(s, st, ls, **kw),
+           cspn_cuda.cspn_bwd_sums(s, st, ls, **kw, **to_cuda(raw, cuda)))
+    torch.cuda.synchronize()
+    assert stage_launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert max_rel(got_g9, gates9) <= TOL
+    assert lam_stash.shape == (2, num_iters, *hw)
+    for t in range(num_iters):
+        assert max_rel(lam_stash[:, t], want_stash[:, t]) <= TOL, t
+    assert max_rel(lam0, want_lam0) <= TOL
+    for outs, wants in zip(got, want):
+        for a, w in zip(outs, wants):
+            if w.abs().max() == 0:      # no sums at T = 0 or without anchors
+                assert a.abs().max() == 0
+            else:
+                assert max_rel(a, w) <= TOL
+
+
+def to_cuda(kw: dict, device) -> dict:
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()}
+
+
+@pytest.mark.cuda
+def test_adjoints_are_deterministic(cuda):
+    """No atomics: two runs of K3 and of K6 on the same inputs agree bit
+    for bit."""
+    guid, blur, sparse = to(problem(43, 2, 100, 150), cuda)
+    cot = torch.randn(blur.shape, generator=torch.Generator().manual_seed(
+        44)).to(cuda)
+    kw = dict(num_iters=24)
+    _, stash = cspn_cuda.cspn_fwd_stash(guid, blur, sparse,
+                                        norm_type="8sum", **kw)
+    gates9, d0 = prenorm_gates9(guid, "8sum"), anchor(blur, sparse)
+    _, tstash = cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sparse, **kw)
+    for run in (lambda: cspn_cuda.cspn_bwd(guid, sparse, stash, cot,
+                                           norm_type="8sum", **kw),
+                lambda: cspn_cuda.cspn_tiled_bwd(gates9, sparse, tstash, cot,
+                                                 **kw)):
+        first, second = run(), run()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
