@@ -49,6 +49,13 @@ exits non-zero:
      16 x 122x304), a remainder round, B=1 and a first and a last shard;
      timed beside their plain versions and bounds; K9's stage kernels
      against their plain stages and timed;
+     then the forward round's launch plan: K1 and K4 at B=1 and at the
+     batch shape and K7 on both slabs over every tile geometry
+     (`geometry` lines, every output bit for bit the same, K2 = K1 and
+     K5 = K4 at every geometry), and the six forward entries timed at
+     every shape this
+     script times them, with K1 and K4's round split at T = 0, 4 and 24
+     (`forward_time`, `round_split` lines);
  10. spatial: ranks on the one card, each a process on cuda:0 over gloo
      (NCCL refuses two ranks on one device): cspn_propagate_spatial on a
      1x4 spatial group against the whole-image tiled route (K4-K6), then
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -141,6 +149,8 @@ HALO_K = 4
 KITTI_SLAB = (4, KITTI_H // 4 + 2 * HALO_K, KITTI_W)
 NYU_SLAB = (16, NYU_H // 2 + 2 * HALO_K, NYU_W)
 SPATIAL_STEPS = 3
+# The forward round's split: T=0 (the load phase alone), one round, six.
+SPLIT_ITERS = (0, 4, 24)
 # Ranks on the one card: one process each, all on cuda:0 over gloo.
 RANK_DEADLINE_S = 420
 # The kitti_1216 2x4 Trainer's f32 step against the 1x1 Trainer's: cuDNN
@@ -1492,6 +1502,198 @@ def phase_spatial_kernels(gpu: str) -> dict:
     return dict(timing=timing, max_abs=max_abs)
 
 
+def forward_calls(gen) -> list:
+    """Every forward entry (K1, K2, K4, K5, K7, K8) at each shape this script
+    times it, T=24 (one round of HALO_K on the slabs), and K1 and K4 at T=0
+    and T=4 besides: (kernel, shape, call) each."""
+    calls = []
+    for b in (1, TRAIN_BATCH):
+        guid, blur, sp = cspn_problem(gen, b, NYU_H, NYU_W)
+        for t in SPLIT_ITERS:
+            calls.append(("cspn_fwd", dict(b=b, h=NYU_H, w=NYU_W, t=t),
+                          lambda g=guid, d=blur, s=sp, t=t: cspn_cuda.cspn_fwd(
+                              g, d, s, num_iters=t, norm_type="8sum_clamp")))
+    calls.append(("cspn_fwd_stash",
+                  dict(b=TRAIN_BATCH, h=NYU_H, w=NYU_W, t=24),
+                  lambda g=guid, d=blur, s=sp: cspn_cuda.cspn_fwd_stash(
+                      g, d, s, num_iters=24, norm_type="8sum_clamp")))
+    del guid, blur, sp
+    guid, blur, sp = cspn_problem(gen, KITTI_BATCH, KITTI_H, KITTI_W,
+                                  strided=True)
+    calls.append(("cspn_fwd", dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24),
+                  lambda g=guid, d=blur, s=sp: cspn_cuda.cspn_fwd(
+                      g, d, s, num_iters=24, norm_type="8sum_clamp")))
+    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
+    del guid, blur
+    for b in (1, KITTI_BATCH):
+        g, d, s = gates9[:b], d0[:b], sp[:b]
+        for t in SPLIT_ITERS:
+            calls.append(("cspn_tiled_fwd", dict(b=b, h=KITTI_H, w=KITTI_W,
+                                                 t=t),
+                          lambda g=g, d=d, s=s, t=t: cspn_cuda.cspn_tiled_fwd(
+                              g, d, s, num_iters=t)))
+    calls.append(("cspn_tiled_fwd_stash",
+                  dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24),
+                  lambda: cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp,
+                                                         num_iters=24)))
+    for name, slab in (("kitti_2x4", KITTI_SLAB), ("nyu_16x2", NYU_SLAB)):
+        g, d, s, _, kw = slab_problem(gen, *slab, HALO_K)
+        shape = dict(slab=name, b=slab[0], h=slab[1], w=slab[2], t=HALO_K)
+        calls.append(("cspn_prenorm_fwd", shape,
+                      lambda g=g, d=d, s=s, kw=kw: cspn_cuda.cspn_prenorm_fwd(
+                          g, d, s, **kw)))
+        calls.append(("cspn_prenorm_fwd_stash", shape,
+                      lambda g=g, d=d, s=s, kw=kw:
+                      cspn_cuda.cspn_prenorm_fwd_stash(g, d, s, **kw)))
+    return calls
+
+
+def forward_times(gpu: str) -> dict:
+    """Each of forward_calls timed: CUDA-event ms over 50 calls and
+    torch.profiler's device ms of one, a `forward_time` line each; then a
+    `round_split` line for K1 and K4 at B=1 and at the batch shape. T=0
+    runs one round with no iteration (its time is the load, normalize and
+    store phase alone), T=4 one round of 4 iterations, T=24 every round:
+    the line models T=24 as rounds x T=0 plus 24 iterations at (T=4 -
+    T=0)/4 each. Returns the lines' times by (kernel, b, h, t)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    times = {}
+    for kernel, shape, fn in forward_calls(gen):
+        ms = time_ms(fn, 50)
+        device_ms = device_profile(fn)["busy_ms"]
+        times[(kernel, shape["b"], shape["h"], shape["t"])] = (ms, device_ms)
+        emit("forward_time", kernel=kernel, **shape, ms=ms,
+             device_ms=device_ms, gpu=gpu)
+    for kernel, (h, w), batches in (
+            ("cspn_fwd", (NYU_H, NYU_W), (1, TRAIN_BATCH)),
+            ("cspn_tiled_fwd", (KITTI_H, KITTI_W), (1, KITTI_BATCH))):
+        for b in batches:
+            ms = {t: times[(kernel, b, h, t)][0] for t in SPLIT_ITERS}
+            dev = {t: times[(kernel, b, h, t)][1] for t in SPLIT_ITERS}
+            rounds = cspn_cuda.rounds(cspn_cuda.pick_geometry(b, h, w, 24),
+                                      24)
+            per_iter = (ms[4] - ms[0]) / 4
+            model = rounds * ms[0] + 24 * per_iter
+            emit("round_split", kernel=kernel, b=b, h=h, w=w,
+                 ms=ms, device_ms=dev, rounds_at_t24=rounds,
+                 load_phase_ms=ms[0], iteration_ms=per_iter,
+                 t24_model_ms=model, t24_minus_model_ms=ms[24] - model,
+                 gpu=gpu)
+    return times
+
+
+def geometry_registers(entries: list[dict], geometry: int) -> dict:
+    """ptxas's registers and spill bytes (stores + loads) of each variant
+    of one geometry's round kernel, by source (0 raw guidance, 1 raw while
+    writing gates9, 2 gates9) and stash."""
+    tag = "GeometryILi{}ELi{}ELi{}ELi{}EE".format(
+        *cspn_cuda.FWD_GEOMETRIES[geometry])
+    out = {}
+    for e in entries:
+        m = re.search(r"cspn_fwd_roundILi(\d)ELb(\d)E", e["entry"])
+        if m and tag in e["entry"]:
+            out[f"src{m[1]}_stash{m[2]}"] = [
+                e.get("registers"),
+                e.get("spill_stores", 0) + e.get("spill_loads", 0)]
+    return out
+
+
+def phase_geometry_sweep(gpu: str) -> dict:
+    """K1 (NYU 228x304) and K4 (KITTI 352x1216), T=24, 8sum_clamp, at B=1
+    and at the batch shape, then K7 on both deployed slabs (T=4), over
+    every tile geometry: a `geometry` line per point (CUDA-event ms over
+    30 calls, torch.profiler's device ms of one, the geometry's registers
+    and spills); every point's output must equal the first point's bit for
+    bit, and at the batch shape K2's must equal K1's and K5's K4's at every
+    geometry. A `geometry_best` line per shape with the fastest point and
+    the wrappers' own choice."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    entries = parse_ptxas(cspn_cuda.build_log.get("cspn_fwd", ""))
+    guid, blur, sp = cspn_problem(gen, TRAIN_BATCH, NYU_H, NYU_W)
+    kg, kb, ks = cspn_problem(gen, KITTI_BATCH, KITTI_H, KITTI_W)
+    gates9, d0 = prenorm_gates9(kg, "8sum_clamp"), anchor(kb, ks)
+    del kg, kb
+    raw = dict(num_iters=24, norm_type="8sum_clamp")
+
+    def k1(b, geometry):
+        return cspn_cuda.cspn_fwd(guid[:b], blur[:b], sp[:b], **raw,
+                                  geometry=geometry)
+
+    def k2(b, geometry):
+        return cspn_cuda.cspn_fwd_stash(guid[:b], blur[:b], sp[:b], **raw,
+                                        geometry=geometry)[0]
+
+    def k4(b, geometry):
+        return cspn_cuda.cspn_tiled_fwd(gates9[:b], d0[:b], ks[:b],
+                                        num_iters=24, geometry=geometry)
+
+    def k5(b, geometry):
+        return cspn_cuda.cspn_tiled_fwd_stash(gates9[:b], d0[:b], ks[:b],
+                                              num_iters=24,
+                                              geometry=geometry)[0]
+
+    slabs = {name: slab_problem(gen, *slab, HALO_K)[:3]
+             for name, slab in (("kitti_2x4", KITTI_SLAB),
+                                ("nyu_16x2", NYU_SLAB))}
+
+    def k7(name):
+        def fn(b, geometry):
+            return cspn_cuda.cspn_prenorm_fwd(*slabs[name], num_iters=HALO_K,
+                                              geometry=geometry)
+        return fn
+
+    best = {}
+    for kernel, fn, stash_fn, (h, w), batches, t in (
+            ("cspn_fwd", k1, k2, (NYU_H, NYU_W), (1, TRAIN_BATCH), 24),
+            ("cspn_tiled_fwd", k4, k5, (KITTI_H, KITTI_W), (1, KITTI_BATCH),
+             24),
+            ("cspn_prenorm_fwd", k7("kitti_2x4"), None, KITTI_SLAB[1:],
+             (KITTI_SLAB[0],), HALO_K),
+            ("cspn_prenorm_fwd", k7("nyu_16x2"), None, NYU_SLAB[1:],
+             (NYU_SLAB[0],), HALO_K)):
+        for b in batches:
+            want, points = None, []
+            for geometry, (tile, halo, run, minb) in enumerate(
+                    cspn_cuda.FWD_GEOMETRIES):
+                out = fn(b, geometry)
+                want = out if want is None else want
+                same = bool(torch.equal(out, want))
+                ms = time_ms(lambda: fn(b, geometry), 30)
+                device_ms = device_profile(lambda: fn(b, geometry))[
+                    "busy_ms"]
+                slab = tile + 2 * halo
+                point = dict(kernel=kernel, b=b, h=h, w=w, t=t,
+                             geometry=geometry, tile=tile, halo=halo,
+                             run=run, minb=minb,
+                             threads=slab * (slab // run),
+                             blocks_per_launch=-(-h // tile) * -(-w // tile)
+                             * b,
+                             launches=cspn_cuda.rounds(geometry, t), ms=ms,
+                             device_ms=device_ms)
+                emit("geometry", **point,
+                     registers=geometry_registers(entries, geometry),
+                     bitwise_equal=same, gpu=gpu)
+                if not same:
+                    raise AssertionError(f"{kernel} at geometry {geometry} "
+                                         f"differs from {points[0]}")
+                points.append(point)
+                if stash_fn is not None and b > 1:
+                    stash_same = bool(torch.equal(stash_fn(b, geometry),
+                                                  want))
+                    emit("geometry_stash", kernel=kernel, b=b,
+                         geometry=geometry,
+                         stash_equals_plain_entry=stash_same)
+                    if not stash_same:
+                        raise AssertionError(f"the stash forward of {kernel} "
+                                             f"differs at geometry {geometry}")
+            own = points[cspn_cuda.fwd_plan(b, h, w, t)]
+            best[(kernel, b)] = own
+            emit("geometry_best", kernel=kernel, b=b,
+                 fastest=min(points, key=lambda p: p["ms"]), own_plan=own,
+                 gpu=gpu)
+    return best
+
+
 def spatial_op_rank(rank: int) -> dict:
     """One rank of a 1x4 spatial group on cuda:0: this rank's rows of 4
     images of 352x1216 through cspn_propagate_spatial, without a gradient
@@ -1728,6 +1930,8 @@ def main():
     # Beside the other kernel checks: torch.profiler has recorded no device
     # time once the KITTI epoch's phase has run.
     k789 = phase_spatial_kernels(gpu)
+    phase_geometry_sweep(gpu)
+    forward_times(gpu)
     reset_counts()
     launches, max_abs_err = phase_serving(gpu)
     train = phase_train(gpu)

@@ -113,8 +113,12 @@ def make_train_iterator(dataset, *, global_batch: int, epoch: int,
     pool = ThreadPoolExecutor(max_workers=num_workers)
 
     def make_batch(step: int) -> dict[str, np.ndarray]:
-        base = (step * global_batch + process_index * local) % max(n, 1)
-        idx = [perm[(base + i) % len(perm)] for i in range(local)]
+        # Reduce the step's offset modulo n first, then add the rank's
+        # offset modulo len(perm): with fewer records than the global batch
+        # each rank still takes its own slice of the permutation.
+        base = (step * global_batch) % max(n, 1)
+        idx = [perm[(base + process_index * local + i) % len(perm)]
+               for i in range(local)]
         records = list(pool.map(lambda j: dataset.get(int(j), epoch), idx))
         return pack_batch(_stack(records))
 

@@ -28,12 +28,19 @@ have wrappers of their own, for checking and timing them alone:
   cspn_bwd_sums    stage 2, the gate sums (K3's with the chain rule).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs the kernel's plain version from ops/cspn_ref.py.
+
+The forward kernels' launch plan (`fwd_plan`) is the tile geometry, one
+of FWD_GEOMETRIES, picked by shape. A forward wrapper takes it as the
+keyword argument `geometry` for a sweep; every geometry gives the same
+output bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -67,6 +74,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # references the kernels are held to on the card.
 cspn_fwd_plain = cspn_propagate_ref_nchw
 
+# The tile geometries of csrc/cspn_fwd.cu's round kernel, by index:
+# (TILE, HALO, RUN, MINB). A block owns a TILE x TILE interior of a slab
+# with HALO more pixels on each side and runs HALO iterations a round; each
+# of its threads owns RUN rows of one slab column; MINB is the blocks per
+# SM its registers are capped for. The build hands the table to the source
+# (geometry_header), which instantiates its round kernel for each.
+FWD_GEOMETRIES = ((32, 4, 5, 2), (32, 8, 3, 1), (48, 8, 4, 1),
+                  (40, 12, 4, 1))
+
 _libs: dict = {}
 build_log: dict[str, str] = {}     # source name -> nvcc's output
 
@@ -88,10 +104,18 @@ def sources() -> dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+def geometry_header() -> str:
+    """FWD_GEOMETRIES as the X-macro csrc/cspn_fwd.cu instantiates its round
+    kernel from: CSPN_FWD_GEOMETRIES(G) is G(TILE, HALO, RUN, MINB) for
+    each geometry, in the table's order."""
+    return "#define CSPN_FWD_GEOMETRIES(G) " + " ".join(
+        "G({}, {}, {}, {})".format(*g) for g in FWD_GEOMETRIES) + "\n"
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        sources()[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()
+        sources()[name].read_bytes() + geometry_header().encode()
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -106,11 +130,17 @@ def build() -> dict[str, Path]:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
+    header = BUILD_DIR / "cspn_fwd_geometries.h"
+    fd, tmp = tempfile.mkstemp(suffix=".h", dir=BUILD_DIR)
+    with os.fdopen(fd, "w") as f:
+        f.write(geometry_header())
+    os.replace(tmp, header)
     procs = {}
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(sources()[name])]
+        cmd = [compiler, *NVCC_FLAGS, "-include", str(header), "-o", tmp,
+               str(sources()[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -131,14 +161,14 @@ def _load(name: str):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         signatures = {
             "cspn_fwd": {
-                "cspn_fwd": [p, i64, p, i64, p, i64, p, p,
-                             i32, i32, i32, i32, i32, p],
-                "cspn_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
-                                   i32, i32, i32, i32, i32, p],
+                "cspn_fwd": [p, i64, p, i64, p, i64, p, p, p,
+                             i32, i32, i32, i32, i32, i32, p],
+                "cspn_fwd_stash": [p, i64, p, i64, p, i64, p, p, p, p,
+                                   i32, i32, i32, i32, i32, i32, p],
                 "cspn_tiled_fwd": [p, i64, p, i64, p, i64, p, p,
-                                   i32, i32, i32, i32, p],
+                                   i32, i32, i32, i32, i32, p],
                 "cspn_tiled_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
-                                         i32, i32, i32, i32, p]},
+                                         i32, i32, i32, i32, i32, p]},
             "cspn_bwd": {
                 "cspn_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p, p, p,
                              i32, i32, i32, i32, i32, p],
@@ -219,7 +249,62 @@ def _bstride(t: torch.Tensor | None) -> int:
     return 0 if t is None else t.stride(0)
 
 
-def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash):
+def rounds(geometry: int, num_iters: int) -> int:
+    """The rounds (launches) of a forward call: ceil(T / HALO), one for
+    T = 0."""
+    return max(1, math.ceil(num_iters / FWD_GEOMETRIES[geometry][1]))
+
+
+def pick_geometry(b: int, h: int, w: int, num_iters: int) -> int:
+    """The tile geometry for a (B, H, W) call of num_iters iterations: the
+    fastest for its class in chip_smoke.py's sweep on an H100 (PERF.md
+    section 6). One round of at most 4 iterations (the spatial path's slabs):
+    32x32 tiles with a 4-pixel halo. More, by pixels per call: up to
+    ~200k (one NYU image) 32x32 with an 8-pixel halo; up to ~3M (one
+    KITTI image, an NYU batch of 32) 48x48 with an 8-pixel halo; beyond
+    (a KITTI batch of 8) 40x40 with a 12-pixel halo, in two rounds."""
+    if num_iters <= 4:
+        return 0
+    px = b * h * w
+    if px < 200_000:
+        return 1
+    return 2 if px < 3_000_000 else 3
+
+
+# The largest slab of any geometry: the kernel's 32-bit pixel index must
+# reach (H + 2 SLAB) x (W + 2 SLAB).
+_MAX_SLAB = max(t + 2 * halo for t, halo, _, _ in FWD_GEOMETRIES)
+
+
+def fwd_plan(b: int, h: int, w: int, num_iters: int, *,
+             geometry: int | None = None) -> int:
+    """The tile geometry of a forward call on a (B, H, W) batch: by shape
+    unless given. Raises on a shape or geometry the kernel cannot
+    serve."""
+    if not 0 < b <= 65535:
+        raise ValueError(f"batch {b} outside the kernel's grid (1..65535)")
+    if h < 1 or w < 1:
+        raise ValueError(f"empty {h}x{w} plane")
+    if (h + 2 * _MAX_SLAB) * (w + 2 * _MAX_SLAB) >= 2 ** 31:
+        raise ValueError(f"a {h}x{w} plane is beyond the forward kernels' "
+                         f"32-bit pixel index")
+    if geometry is None:
+        geometry = pick_geometry(b, h, w, num_iters)
+    if not 0 <= geometry < len(FWD_GEOMETRIES):
+        raise ValueError(f"no tile geometry {geometry}")
+    return geometry
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(b, h, w, num_iters, geometry):
+    """fwd_plan and whether the call runs more than one round, cached: a
+    single image's call is bound by the host."""
+    geometry = fwd_plan(b, h, w, num_iters, geometry=geometry)
+    return geometry, rounds(geometry, num_iters) > 1
+
+
+def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash,
+             geometry=None):
     """Launch the forward C entry `entry` of csrc/cspn_fwd.cu: K1/K2 on raw
     guidance (B, 8, H, W) with norm_type, K4/K5 on gates9 (B, 9, H, W)
     with norm_type None; K2/K5 write into `stash`. Returns the output."""
@@ -231,18 +316,30 @@ def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash):
     if sparse is not None:
         _check_planes("sparse", sparse, (b, h, w), dev)
     lib = _load("cspn_fwd")
+    geometry, more = _launch_plan(b, h, w, num_iters, geometry)
     out = torch.empty((b, h, w), device=dev, dtype=torch.float32)
-    scratch = torch.empty_like(out)     # ping-pong partner between rounds
+    # One scratch buffer, freed on return: d's ping-pong partner between
+    # rounds and, for K1/K2, the gates9 (B, 9, H, W) that their first
+    # round writes for the later ones.
+    scratch = gates9 = None
+    if more:
+        work = torch.empty(b * h * w * (10 if norm_type else 1), device=dev,
+                           dtype=torch.float32)
+        scratch = work.data_ptr()
+        gates9 = scratch + 4 * b * h * w
     args = (guidance.data_ptr(), guidance.stride(0),
             blur.data_ptr(), blur.stride(0), _ptr(sparse), _bstride(sparse),
-            out.data_ptr(), scratch.data_ptr())
+            out.data_ptr(), scratch)
+    if norm_type:
+        args += (gates9,)
     if stash is not None:
         args += (stash.data_ptr(),)
     size = (b, h, w, num_iters)
     if norm_type:
         size += (NORM_TYPES.index(norm_type),)
+    size += (geometry,)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
         err = getattr(lib, entry)(*args, *size, stream)
     _raise_on(err, "cspn_fwd", entry)
     return out
@@ -256,24 +353,27 @@ def _stash_like(blur: torch.Tensor, num_iters: int) -> torch.Tensor:
 
 def cspn_fwd(guidance: torch.Tensor, blur: torch.Tensor,
              sparse: torch.Tensor | None, *, num_iters: int,
-             norm_type: str) -> torch.Tensor:
+             norm_type: str,
+             geometry: int | None = None) -> torch.Tensor:
     """CSPN forward (K1): guidance (B, 8, H, W), blur and sparse (B, H, W),
     all float32 with contiguous planes and any batch stride -> (B, H, W).
 
     A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
+    `geometry` overrides fwd_plan's choice (a sweep).
     """
     if _check_call(guidance, num_iters, norm_type):
         return cspn_fwd_plain(guidance, blur, sparse, num_iters=num_iters,
                               norm_type=norm_type)
     out = _forward("cspn_fwd", guidance, blur, sparse, num_iters, norm_type,
-                   None)
+                   None, geometry)
     cspn_fwd.launches += 1
     return out
 
 
 def cspn_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
                    sparse: torch.Tensor | None, *, num_iters: int,
-                   norm_type: str) -> tuple[torch.Tensor, torch.Tensor]:
+                   norm_type: str, geometry: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward (K2): as cspn_fwd, and also returns the stash
     (B, T, H, W) of every d^t, the plane iteration t starts from. Its
     output equals cspn_fwd's."""
@@ -282,7 +382,7 @@ def cspn_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
                                     num_iters=num_iters, norm_type=norm_type)
     stash = _stash_like(blur, num_iters)
     out = _forward("cspn_fwd_stash", guidance, blur, sparse, num_iters,
-                   norm_type, stash)
+                   norm_type, stash, geometry)
     cspn_fwd_stash.launches += 1
     return out, stash
 
@@ -322,8 +422,8 @@ def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
 
 
 def cspn_tiled_fwd(gates9: torch.Tensor, d0: torch.Tensor,
-                   sparse: torch.Tensor | None, *,
-                   num_iters: int) -> torch.Tensor:
+                   sparse: torch.Tensor | None, *, num_iters: int,
+                   geometry: int | None = None) -> torch.Tensor:
     """The H-tiled route's forward (K4): prenormalized gates9
     (B, 9, H, W) [centre, 8 gates], d0 (B, H, W) taken as given (already
     anchored), sparse (B, H, W) or None, all float32 with contiguous planes
@@ -334,13 +434,14 @@ def cspn_tiled_fwd(gates9: torch.Tensor, d0: torch.Tensor,
     if _check_call(gates9, num_iters, None):
         return cspn_tiled_fwd_plain(gates9, d0, sparse, num_iters=num_iters)
     out = _forward("cspn_tiled_fwd", gates9, d0, sparse, num_iters, None,
-                   None)
+                   None, geometry)
     cspn_tiled_fwd.launches += 1
     return out
 
 
 def cspn_tiled_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
-                         sparse: torch.Tensor | None, *, num_iters: int
+                         sparse: torch.Tensor | None, *, num_iters: int,
+                         geometry: int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The H-tiled route's training forward (K5): as cspn_tiled_fwd, and
     also returns the stash (B, T, H, W) of every d^t. Its output equals
@@ -350,7 +451,7 @@ def cspn_tiled_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
                                           num_iters=num_iters)
     stash = _stash_like(d0, num_iters)
     out = _forward("cspn_tiled_fwd_stash", gates9, d0, sparse, num_iters,
-                   None, stash)
+                   None, stash, geometry)
     cspn_tiled_fwd_stash.launches += 1
     return out, stash
 
@@ -508,8 +609,8 @@ def cspn_bwd_sums(sparse: torch.Tensor | None, stash: torch.Tensor,
 
 
 def cspn_prenorm_fwd(gates9: torch.Tensor, d0: torch.Tensor,
-                     sparse: torch.Tensor | None, *,
-                     num_iters: int) -> torch.Tensor:
+                     sparse: torch.Tensor | None, *, num_iters: int,
+                     geometry: int | None = None) -> torch.Tensor:
     """The spatial path's slab forward (K7): cspn_tiled_fwd's contract on
     one rank's halo'd slab, gates9 (B, 9, Hs, W), d0 and sparse (B, Hs, W),
     for the r = num_iters <= k iterations of one round -> (B, Hs, W).
@@ -519,13 +620,14 @@ def cspn_prenorm_fwd(gates9: torch.Tensor, d0: torch.Tensor,
     if _check_call(gates9, num_iters, None):
         return cspn_prenorm_fwd_plain(gates9, d0, sparse, num_iters=num_iters)
     out = _forward("cspn_prenorm_fwd", gates9, d0, sparse, num_iters, None,
-                   None)
+                   None, geometry)
     cspn_prenorm_fwd.launches += 1
     return out
 
 
 def cspn_prenorm_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
-                           sparse: torch.Tensor | None, *, num_iters: int
+                           sparse: torch.Tensor | None, *, num_iters: int,
+                           geometry: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The slab's training forward (K8): as cspn_prenorm_fwd, and also
     returns the stash (B, r, Hs, W) of every d^t. Its output equals
@@ -535,7 +637,7 @@ def cspn_prenorm_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
                                             num_iters=num_iters)
     stash = _stash_like(d0, num_iters)
     out = _forward("cspn_prenorm_fwd_stash", gates9, d0, sparse, num_iters,
-                   None, stash)
+                   None, stash, geometry)
     cspn_prenorm_fwd_stash.launches += 1
     return out, stash
 

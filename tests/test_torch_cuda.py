@@ -12,7 +12,8 @@ Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
 the prenormalized gates of the H-tiled route; K7-K9, the same on the
 spatial path's halo'd slabs; the adjoints' stage kernels against their
 plain stages) and each output; two runs of K3 and of K6 agree bit for
-bit. The
+bit, and so do the forward kernels under every tile geometry of their
+launch plan (ops/cspn_cuda.py:fwd_plan). The
 kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
 meaningless and `8sum_abs` is the absolute-scale control. Gradients
@@ -543,3 +544,47 @@ def test_adjoints_are_deterministic(cuda):
                                                  **kw)):
         first, second = run(), run()
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["raw", "prenorm"])
+def test_every_geometry_gives_the_same_bits(cuda, route):
+    """The forward round under every tile geometry of the launch plan
+    (ops/cspn_cuda.py:fwd_plan): the outputs bit for bit the same, the
+    stash entries' outputs the plain entries', and each within TOL of the
+    plain version."""
+    guid, blur, sparse = to(problem(11, 5, 37, 53), cuda)
+    t = 17
+    if route == "raw":
+        kw = dict(num_iters=t, norm_type="8sum_clamp")
+        args = (guid, blur, sparse)
+        fwd, stash = cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash
+        want = cspn_cuda.cspn_fwd_plain(*args, **kw)
+    else:
+        kw = dict(num_iters=t)
+        args = (prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sparse),
+                sparse)
+        fwd, stash = cspn_cuda.cspn_tiled_fwd, cspn_cuda.cspn_tiled_fwd_stash
+        want = cspn_cuda.cspn_tiled_fwd_plain(*args, **kw)
+    first = None
+    for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
+        got = fwd(*args, **kw, geometry=geometry)
+        out, _ = stash(*args, **kw, geometry=geometry)
+        torch.cuda.synchronize()
+        first = got if first is None else first
+        assert torch.equal(got, first), geometry
+        assert torch.equal(out, got), geometry
+    assert max_rel(first, want) <= TOL
+    m = sparse > 0
+    assert torch.equal(first[m], sparse[m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [dict(geometry=-1), dict(geometry=99)])
+def test_a_plan_the_kernel_cannot_run_raises(cuda, plan):
+    guid, blur, sparse = to(problem(3, 3, 16, 24), cuda)
+    before = cspn_cuda.cspn_fwd.launches
+    with pytest.raises(ValueError):
+        cspn_cuda.cspn_fwd(guid, blur, sparse, num_iters=9,
+                           norm_type="8sum", **plan)
+    assert cspn_cuda.cspn_fwd.launches == before

@@ -42,6 +42,9 @@ import torch
 
 from cspn_monodepth_tpu.configs import get_config as jax_get_config
 from cspn_monodepth_tpu.data.datasets import make_dataset as jax_make_dataset
+from cspn_monodepth_tpu.data.pipeline import (
+    make_train_iterator as jax_make_train_iterator,
+)
 from cspn_monodepth_tpu.ops.sparse import _top_k_mask as jax_top_k_mask
 from cspn_monodepth_tpu.train import loss as jax_loss
 from cspn_monodepth_tpu.train import metrics as jax_metrics
@@ -300,6 +303,46 @@ def test_iterators_are_deterministic_and_pad_the_last_eval_batch():
     assert [b["valid_image"].tolist() for b in batches] == [
         [1, 1, 1, 1], [1, 0, 0, 0]]
     assert (batches[1]["depth"][1:] == 0).all()
+
+
+class _IndexRecords:
+    """n records whose pixels hold their own index, so that a batch names
+    the records it was built from."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def get(self, i: int, epoch: int = 0) -> dict[str, np.ndarray]:
+        return {"rgb": np.full((1, 1, 3), i, np.uint8),
+                "depth": np.full((1, 1), i, np.uint16)}
+
+
+def _record_indices(make, n, global_batch, epoch, rank, ranks, steps=3):
+    it = make(_IndexRecords(n), global_batch=global_batch, epoch=epoch,
+              seed=0, num_workers=2, steps=steps, process_index=rank,
+              process_count=ranks)
+    try:
+        return [b["depth"][:, 0, 0].tolist() for b in it]
+    finally:
+        it.close()
+
+
+@pytest.mark.parametrize("n,global_batch,ranks", [
+    (4, 8, 1), (4, 8, 2), (4, 8, 4), (6, 8, 4), (16, 8, 2)])
+def test_train_iterator_ranks_take_jax_records(n, global_batch, ranks):
+    """Each rank's record indices, step by step, are JAX's, also with fewer
+    records than the global batch (the step's offset is reduced modulo n
+    before the rank's is added); n=16 is the control where the two orders
+    agree."""
+    for epoch in (0, 1):
+        for rank in range(ranks):
+            assert _record_indices(make_train_iterator, n, global_batch,
+                                   epoch, rank, ranks) == _record_indices(
+                jax_make_train_iterator, n, global_batch, epoch, rank,
+                ranks), (epoch, rank)
 
 
 def test_unported_datasets_and_samplers_raise():
