@@ -63,7 +63,16 @@ exits non-zero:
      (an f32 step against the 1x1 Trainer's, timed bf16 steps and an
      eval step with the K7/K8/K9 launch counts of that run, peak memory
      per rank, the ranks' parameters bit for bit). Times of this phase are
-     one card time-shared by 8 processes, not a multi-GPU figure.
+     one card time-shared by 8 processes, not a multi-GPU figure;
+ 11. fit: nyu_completion_500 as configured (ResNet-50, batch 8) on packed
+     NYU shards that the script writes (raw 480x640, tools/prepare_nyu.py's
+     format): a kill after a checkpoint and a resume inside the epoch
+     (restored state bit for bit, the resumed losses against two
+     uninterrupted runs, cuDNN deterministic; save and restore ms and the
+     checkpoint's size), Trainer.fit over two epochs with its K2/K3 launches
+     per train step and K1 per eval batch, its step, data and eval times;
+     the CLI as a subprocess (train, resume at the next epoch, --evaluate)
+     and DepthPredictor.from_checkpoint against the restored Trainer.
 The kernel checks (3, 6, 9) run first. Then a line with the kernel table
 and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
@@ -74,6 +83,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -85,7 +95,11 @@ import torch
 
 from cspn_monodepth_tpu_torch import DepthPredictor, get_config, native
 from cspn_monodepth_tpu_torch.configs import MeshConfig
-from cspn_monodepth_tpu_torch.data import make_train_iterator, pack_batch
+from cspn_monodepth_tpu_torch.data import (
+    DEPTH_SCALE,
+    make_train_iterator,
+    pack_batch,
+)
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
@@ -102,6 +116,7 @@ from cspn_monodepth_tpu_torch.parallel import (
     spawn_ranks,
 )
 from cspn_monodepth_tpu_torch.train import Trainer
+from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 
 # H100 SXM published peaks (NVIDIA data sheet, full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -158,6 +173,30 @@ RANK_DEADLINE_S = 420
 # BatchNorm sums per rank before the all_reduce. On an H100 the loss came
 # 1.0e-4 and the head gradients 1.4e-4 apart (PERF.md); held to 5e-4.
 MESH_STEP_TOL = 5e-4
+# The fit phase: packed NYU shards of raw 480x640 frames.
+ROOT = Path(__file__).resolve().parent
+NYU_RAW = (480, 640)
+NYU_FRAMES = {"train": 96, "val": 32}
+FIT_EPOCHS = 2
+# Kill and resume: RESUME_STEPS steps an epoch, a checkpoint every
+# CKPT_EVERY, the crash right after the first. With cuDNN deterministic the
+# same state and batch give the same bits, except in the first epoch a
+# process trains (on an H100 its second loss came 7.4e-5 from every later
+# run's, which agreed bit for bit): a warm-up epoch runs first, then two
+# uninterrupted epochs measure the spread, and the resumed losses are held
+# to RESUME_TOL of the first of them, or to the spread where that is
+# larger.
+RESUME_STEPS = 4
+CKPT_EVERY = 2
+RESUME_TOL = 1e-6
+# Steps on one fixed batch after fit (the first is not counted).
+FIXED_STEPS = 7
+# The CLI: steps an epoch, and the seconds a run may take.
+CLI_STEPS = 3
+CLI_TIMEOUT_S = 300
+# DepthPredictor.from_checkpoint against the restored Trainer's forward:
+# the same weights and kernels.
+SERVE_TOL = 1e-5
 
 
 def emit(phase: str, **kw):
@@ -942,7 +981,8 @@ def phase_train(gpu: str) -> dict:
 
     # Evaluation: BN on running statistics, K1 forward.
     reset_counts()
-    ev = trainer.evaluate(epoch_state, log=lambda *a: None)
+    ev = trainer.evaluate(epoch_state, log=lambda *a: None,
+                          save_panels=False)
     eval_launches = counts()
     emit("evaluate", n_images=ev["n_images"], rmse=ev["rmse"],
          mae=ev["mae"], delta1=ev["delta1"],
@@ -1369,7 +1409,8 @@ def phase_kitti_epoch(variables, gpu: str) -> dict:
         batch_s = np.diff(arrivals)
         state, metrics = trainer.train_epoch(state, 0, log=lambda *a: None)
         reset_counts()
-        ev = trainer.evaluate(state, log=lambda *a: None)
+        ev = trainer.evaluate(state, log=lambda *a: None,
+                              save_panels=False)
         launches = counts()
     emit("kitti_epoch", executor=executor,
          train_frames=KITTI_FRAMES["train"], steps=trainer.steps_per_epoch,
@@ -1919,6 +1960,342 @@ def phase_spatial(gpu: str) -> dict:
                 eval_launches=r0["eval_launches"])
 
 
+def write_nyu_shards(root: Path, rng) -> None:
+    """NYU-like frames packed as tools/prepare_nyu.py packs them (written
+    with numpy, no h5py): raw 480x640 uint8 rgb (smooth gradients and
+    noise) and uint16 depth (meters * 256, 0.5..9.5 m, ~5% holes)."""
+    h, w = NYU_RAW
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+    for split, n in NYU_FRAMES.items():
+        rgb = np.lib.format.open_memmap(root / f"{split}_rgb.u8.npy", "w+",
+                                        np.uint8, (n, h, w, 3))
+        dep = np.lib.format.open_memmap(root / f"{split}_depth.u16.npy",
+                                        "w+", np.uint16, (n, h, w))
+        for i in range(n):
+            base = np.stack([yy, xx, 0.5 * (yy + xx)], -1) * 200.0
+            rgb[i] = np.clip(base + rng.normal(0.0, 20.0, (h, w, 3)), 0, 255)
+            depth = 0.5 + 9.0 * (0.2 + 0.8 * yy) * rng.uniform(0.6, 1.0)
+            depth = np.where(rng.random((h, w)) < 0.95, depth, 0.0)
+            dep[i] = np.clip(depth * DEPTH_SCALE + 0.5, 0, 65535)
+        rgb.flush()
+        dep.flush()
+        del rgb, dep
+        with open(root / f"{split}_index.json", "w") as f:
+            json.dump({"n": n, "height": h, "width": w,
+                       "depth_scale": DEPTH_SCALE,
+                       "files": [f"{split}/{i:05d}.h5" for i in range(n)]},
+                      f)
+
+
+def fit_config(root: str, **overrides):
+    """nyu_completion_500 as configured, reading the shards at root."""
+    return get_config("nyu_completion_500").override(**{
+        "data.root": root, **overrides})
+
+
+def cli_args(root: str, workdir: str, device: str) -> list[str]:
+    """The port's CLI on nyu_completion_500 and the shards at root."""
+    return [sys.executable, "-m", "cspn_monodepth_tpu_torch.main",
+            "--config", "nyu_completion_500", "--workdir", workdir,
+            "--device", device, "--set", f"data.root={root}",
+            "--set", f"train.steps_per_epoch={CLI_STEPS}"]
+
+
+def sync(device: str):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def state_copy(state) -> dict:
+    """Copies of what a checkpoint holds: step, model, optimizer state."""
+    return {"step": state.step,
+            "model": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()},
+            "optimizer": [
+                {k: v.clone() for k, v in state.optimizer.state[p].items()}
+                for g in state.optimizer.param_groups for p in g["params"]]}
+
+
+def states_equal(got: dict, want: dict) -> bool:
+    return (got["step"] == want["step"]
+            and got["model"].keys() == want["model"].keys()
+            and all(torch.equal(got["model"][k], v)
+                    for k, v in want["model"].items())
+            and len(got["optimizer"]) == len(want["optimizer"])
+            and all(g.keys() == w.keys() and len(w) > 0
+                    and all(torch.equal(g[k], w[k]) for k in w)
+                    for g, w in zip(got["optimizer"], want["optimizer"])))
+
+
+def max_rel_list(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def quiet(*args):
+    pass
+
+
+def fit_resume(root: str, work: Path, gpu: str, device: str) -> dict:
+    """Kill and resume at full width: a warm-up epoch of RESUME_STEPS
+    steps and two more uninterrupted (their spread), then one with a
+    checkpoint every CKPT_EVERY steps that crashes right after the first,
+    a restore into a fresh state and the epoch resumed from the
+    checkpoint's epoch_step."""
+    cfg = fit_config(root, **{"train.steps_per_epoch": RESUME_STEPS,
+                              "train.checkpoint_every": CKPT_EVERY})
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(cfg, device=device, workdir=str(work))
+        runs = []
+        for _ in range(3):
+            state, m = trainer.train_epoch(trainer.init_state(), 0,
+                                           log=quiet)
+            runs.append(m["step_losses"])
+            del state
+        warmup, runs = runs[0], runs[1:]
+        spread = max_rel_list(runs[1], runs[0])
+        ckpt = CheckpointManager(str(work / "ckpt"))
+        dead, part = trainer.train_epoch(trainer.init_state(), 0, log=quiet,
+                                         ckpt=ckpt, max_steps=CKPT_EVERY)
+        saved = state_copy(dead)
+        steps_saved = ckpt.steps()
+        # The same save into a fresh directory, timed.
+        timed = CheckpointManager(str(work / "ckpt_timed"))
+        sync(device)
+        t0 = time.perf_counter()
+        timed.save(dead.step, dead, extra={"epoch": 0,
+                                           "epoch_step": CKPT_EVERY})
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        step_dir = Path(timed.directory) / str(dead.step)
+        size_mb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
+        shutil.rmtree(timed.directory)
+        held = dict(parameters=sum(p.numel() for p in dead.model.parameters()),
+                    buffers=sum(b.numel() for b in dead.model.buffers()))
+        del dead
+        fresh = trainer.init_state()
+        sync(device)
+        t0 = time.perf_counter()
+        restored, extra = ckpt.restore(fresh)
+        sync(device)
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        identical = states_equal(state_copy(restored), saved)
+        del saved
+        _, resumed = trainer.train_epoch(restored, 0, log=quiet,
+                                         start_step=extra["epoch_step"])
+        del restored, fresh, trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    tol = max(RESUME_TOL, spread)
+    part_err = max_rel_list(part["step_losses"], runs[0])
+    resume_err = max_rel_list(resumed["step_losses"], runs[0][CKPT_EVERY:])
+    line = dict(config=cfg.name, batch=cfg.train.batch_size,
+                steps=RESUME_STEPS, checkpoint_every=CKPT_EVERY,
+                checkpoints=steps_saved, extra=extra,
+                state_bit_identical=identical, losses=runs[0],
+                warmup_max_rel=max_rel_list(warmup, runs[0]),
+                rerun_spread=spread, crashed_losses_max_rel=part_err,
+                resumed_losses=resumed["step_losses"],
+                resumed_max_rel=resume_err, tol=tol,
+                tol_rule="cudnn deterministic, after a warm-up epoch; "
+                         "max(RESUME_TOL, spread)",
+                save_ms=save_ms, restore_ms=restore_ms,
+                checkpoint_mb=size_mb, **held, gpu=gpu)
+    emit("fit_resume", **line)
+    if not (identical and steps_saved == [CKPT_EVERY]
+            and extra == {"epoch": 0, "epoch_step": CKPT_EVERY}
+            and len(resumed["step_losses"]) == RESUME_STEPS - CKPT_EVERY
+            and part_err <= tol and resume_err <= tol
+            and np.isfinite(runs[0]).all()):
+        raise AssertionError(f"kill and resume: {line}")
+    return line
+
+
+def csv_rows(path: Path) -> list[dict]:
+    lines = path.read_text().splitlines()
+    keys = lines[0].split(",")
+    return [dict(zip(keys, ln.split(","))) for ln in lines[1:]]
+
+
+def timed_steps(trainer: Trainer, device: str) -> list:
+    """Make each of trainer's train steps end in a device sync and record
+    its (start, end) on the host clock: the gap before a step is the time
+    it waited for its batch."""
+    spans = []
+    step = trainer.train_step
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = step(*args, **kw)
+        sync(device)
+        spans.append((t0, time.perf_counter()))
+        return out
+
+    trainer.train_step = timed
+    return spans
+
+
+def fit_counted(root: str, work: Path, gpu: str, device: str) -> dict:
+    """Trainer.fit over FIT_EPOCHS epochs of the shards, with the launch
+    counts set to 0 just before and read just after: K2 and K3 once per
+    train step, K1 once per eval batch, nothing else. Each step is timed
+    to a device sync (timed_steps): the last epoch's step times and data
+    times (the wait before each step but its first, which follows the
+    eval and the checkpoint). Then FIXED_STEPS steps on one fixed batch,
+    each timed to its sync (after the launch counts were read), and one
+    under the profiler."""
+    cfg = fit_config(root, **{"train.epochs": FIT_EPOCHS})
+    trainer = Trainer(cfg, device=device, workdir=str(work))
+    steps = FIT_EPOCHS * trainer.steps_per_epoch
+    eval_batches = -(-len(trainer.val_ds) // cfg.train.batch_size)
+    spans = timed_steps(trainer, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, best = trainer.fit(log=quiet)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    fit_spans, final_step = list(spans), state.step
+    spe = trainer.steps_per_epoch
+    warm = fit_spans[-spe:]
+    step_ms = [1e3 * (b - a) for a, b in warm]
+    data_ms = [1e3 * (warm[i][0] - warm[i - 1][1]) for i in range(1, spe)]
+    want = {k: 0 for k in launches}
+    want.update(cspn_fwd_stash=steps, cspn_bwd=steps,
+                cspn_fwd=FIT_EPOCHS * eval_batches)
+    # The same step on one fixed batch with no input pipeline running (each
+    # timed to the sync that timed_steps adds): the step alone, and its
+    # device time under the profiler.
+    batch = fixed_batch(trainer, cfg.train.batch_size)
+    fixed_ms = []
+    for _ in range(FIXED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        fixed_ms.append(1e3 * (time.perf_counter() - t0))
+    profile = device_profile(lambda: trainer.train_step(state, batch))
+    train, test = csv_rows(work / "train.csv"), csv_rows(work / "test.csv")
+    kept = CheckpointManager(str(work)).steps()
+    last, last_eval = train[-1], test[-1]
+    line = dict(config=cfg.name, arch=cfg.model.arch,
+                batch=cfg.train.batch_size, h=cfg.data.height,
+                w=cfg.data.width, reader=type(trainer.train_ds).__name__,
+                train_frames=len(trainer.train_ds),
+                val_frames=len(trainer.val_ds), epochs=FIT_EPOCHS,
+                steps_per_epoch=spe, seconds=seconds,
+                step_ms_p50=float(np.median(step_ms)),
+                step_ms_max=max(step_ms),
+                img_per_s=cfg.train.batch_size / np.median(step_ms) * 1e3,
+                data_ms_p50=float(np.median(data_ms)),
+                data_ms_max=max(data_ms), step_ms=step_ms, data_ms=data_ms,
+                fixed_batch_step_ms_p50=float(np.median(fixed_ms[1:])),
+                fixed_batch_step_ms=fixed_ms,
+                fixed_batch_profile={k: profile[k] for k in (
+                    "wall_ms", "busy_ms", "idle_share", "by_class")},
+                csv_step_ms_by_epoch=[1e3 * float(r["step_time"])
+                                      for r in train],
+                csv_data_ms_by_epoch=[1e3 * float(r["data_time"])
+                                      for r in train],
+                loss_by_epoch=[float(r["loss"]) for r in train],
+                eval_img_per_s_by_epoch=[float(r["images_per_sec"])
+                                         for r in test],
+                rmse=float(last_eval["rmse"]), best_rmse=best,
+                checkpoints=kept, final_step=final_step, launches=launches,
+                gpu=gpu)
+    emit("fit", **line)
+    if not (launches == want and len(fit_spans) == steps
+            and len(train) == len(test) == FIT_EPOCHS
+            and (work / "best.txt").exists() and len(kept) <= 3
+            and kept[-1] == steps == final_step
+            and np.isfinite(float(last["loss"]))
+            and np.isfinite(float(last_eval["rmse"]))):
+        raise AssertionError(f"fit: launches {launches}, expected {want}; "
+                             f"{line}")
+    return line
+
+
+def run_cli(args: list[str]) -> tuple[str, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[1:])} exited with "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout, seconds
+
+
+def fit_cli(root: str, work: Path, gpu: str, device: str) -> dict:
+    """The CLI as a user runs it: two epochs, then three (resuming at the
+    third), then --evaluate; then DepthPredictor.from_checkpoint against
+    the restored Trainer's forward on the same requests."""
+    args = cli_args(root, str(work), device)
+    _, first_s = run_cli(args + ["--set", "train.epochs=2"])
+    train, test = csv_rows(work / "train.csv"), csv_rows(work / "test.csv")
+    first = dict(train_rows=len(train), test_rows=len(test),
+                 checkpoints=CheckpointManager(str(work)).steps(),
+                 best_txt=(work / "best.txt").exists())
+    out, second_s = run_cli(args + ["--set", "train.epochs=3"])
+    resumed = f"resumed from step {2 * CLI_STEPS}, epoch 2 step 0" in out
+    second = dict(train_rows=len(csv_rows(work / "train.csv")),
+                  test_rows=len(csv_rows(work / "test.csv")),
+                  checkpoints=CheckpointManager(str(work)).steps(),
+                  resumed=resumed)
+    best = CheckpointManager(str(work)).best_step()
+    out, eval_s = run_cli(args + ["--evaluate"])
+    evaluated = (f"evaluating checkpoint step {best}" in out
+                 and "eval rmse" in out)
+
+    cfg = fit_config(root)
+    predictor = DepthPredictor.from_checkpoint(str(work), cfg, device=device)
+    trainer = Trainer(cfg, device=device, workdir=str(work))
+    state, _ = CheckpointManager(str(work)).restore(trainer.init_state(),
+                                                    step=best)
+    rgb, sparse = requests(np.random.default_rng(SEED + 9),
+                           cfg.train.batch_size, NYU_H, NYU_W)
+    reset_counts()
+    got = predictor.predict_batch(rgb, sparse)
+    serve_launches = counts()["cspn_fwd"]
+    x = torch.cat([torch.from_numpy(rgb), torch.from_numpy(sparse)[..., None]],
+                  dim=-1).to(device)
+    with torch.no_grad():
+        want = state.model.eval()(x)[..., 0].cpu().numpy()
+    serve_err = float(np.abs(got - want).max() / np.abs(want).max())
+    anchors = sparse > 0
+    anchors_exact = bool(np.array_equal(got[anchors], sparse[anchors]))
+    del predictor, state, trainer
+    line = dict(first=first, second=second, best_step=best,
+                evaluated=evaluated, seconds=[first_s, second_s, eval_s],
+                from_checkpoint_max_rel=serve_err, tol=SERVE_TOL,
+                anchors_exact=anchors_exact,
+                from_checkpoint_launches=serve_launches, gpu=gpu)
+    emit("fit_cli", **line)
+    ok_first = (first["train_rows"] == first["test_rows"] == 2
+                and first["best_txt"]
+                and first["checkpoints"] == [CLI_STEPS, 2 * CLI_STEPS])
+    ok_second = (second["train_rows"] == second["test_rows"] == 3 and resumed
+                 and second["checkpoints"] == [CLI_STEPS, 2 * CLI_STEPS,
+                                               3 * CLI_STEPS])
+    if not (ok_first and ok_second and evaluated and serve_err <= SERVE_TOL
+            and anchors_exact and serve_launches == 1
+            and np.isfinite(got).all()):
+        raise AssertionError(f"the CLI and from_checkpoint: {line}")
+    return line
+
+
+def phase_fit(gpu: str, device: str = "cuda") -> dict:
+    """Phase 11 in a temporary directory that it removes: the shards, the
+    kill and resume, the counted fit, the CLI and from_checkpoint."""
+    with tempfile.TemporaryDirectory(prefix="nyu_fit_") as tmp:
+        tmp = Path(tmp)
+        shards = tmp / "shards"
+        shards.mkdir()
+        write_nyu_shards(shards, np.random.default_rng(SEED + 8))
+        resume = fit_resume(str(shards), tmp / "resume", gpu, device)
+        fit = fit_counted(str(shards), tmp / "fit", gpu, device)
+        cli = fit_cli(str(shards), tmp / "cli", gpu, device)
+    return dict(resume=resume, fit=fit, cli=cli)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -1938,6 +2315,7 @@ def main():
     k4_launches, k4_max_abs = phase_kitti_serving(gpu)
     kitti = phase_kitti_train(gpu)
     spatial = phase_spatial(gpu)
+    phase_fit(gpu)
 
     def row(name, source, line, launches, max_abs, t):
         return {"name": name, "route": "cuda",

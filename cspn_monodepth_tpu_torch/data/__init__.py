@@ -1,5 +1,7 @@
 from cspn_monodepth_tpu_torch.data.datasets import (
     KITTIDataset,
+    NYUDataset,
+    PackedNYUDataset,
     SyntheticDataset,
     make_dataset,
 )
@@ -13,6 +15,8 @@ from cspn_monodepth_tpu_torch.data.pipeline import (
 
 __all__ = [
     "KITTIDataset",
+    "NYUDataset",
+    "PackedNYUDataset",
     "SyntheticDataset",
     "make_dataset",
     "DEPTH_SCALE",

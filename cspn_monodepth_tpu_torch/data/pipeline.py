@@ -7,7 +7,8 @@ cspn_monodepth_tpu/data/pipeline.py, and a PyTorch `device_prefetch`).
 * A thread pool builds records concurrently and a bounded queue prefetches
   batches ahead of the step.
 * Shuffling is a seeded per-epoch permutation, so an epoch's batches are a
-  pure function of (seed, epoch, step).
+  pure function of (seed, epoch, step), and a run resumed at step s of an
+  epoch (`start_step`) reads what an uninterrupted run read from s on.
 * On a mesh each rank (process_index of process_count) takes its own
   consecutive images of every global batch, from the same permutation.
 * `device_prefetch` copies each batch from pinned host memory with
@@ -49,17 +50,19 @@ def pack_batch(batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 
 class _PrefetchIterator:
-    """Iterates batches with a bounded background prefetch queue."""
+    """Iterates batches start..num_batches-1 with a bounded background
+    prefetch queue. Batches before `start` are skipped by index, with no
+    work: make_batch is a pure function of its index."""
 
     def __init__(self, make_batch, num_batches: int,
-                 pool: ThreadPoolExecutor):
+                 pool: ThreadPoolExecutor, start: int = 0):
         self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
-        self._n = num_batches
+        self._n = max(num_batches - start, 0)
         self._stop = threading.Event()
         self._pool = pool
 
         def producer():
-            for i in range(num_batches):
+            for i in range(start, num_batches):
                 if self._stop.is_set():
                     return
                 try:
@@ -101,10 +104,11 @@ def _local_batch(global_batch: int, process_count: int) -> int:
 
 def make_train_iterator(dataset, *, global_batch: int, epoch: int,
                         seed: int = 0, num_workers: int = 8, steps: int = 0,
-                        process_index: int = 0, process_count: int = 1):
-    """Yield one epoch of packed batches, this rank's share of each global
-    batch; drops the final partial batch. `steps` overrides the epoch
-    length if nonzero."""
+                        start_step: int = 0, process_index: int = 0,
+                        process_count: int = 1):
+    """Yield one epoch of packed batches from `start_step` on, this rank's
+    share of each global batch; drops the final partial batch. `steps`
+    overrides the epoch length if nonzero."""
     n = len(dataset)
     local = _local_batch(global_batch, process_count)
     num_batches = steps or max(n // global_batch, 1)
@@ -122,7 +126,7 @@ def make_train_iterator(dataset, *, global_batch: int, epoch: int,
         records = list(pool.map(lambda j: dataset.get(int(j), epoch), idx))
         return pack_batch(_stack(records))
 
-    return _PrefetchIterator(make_batch, num_batches, pool)
+    return _PrefetchIterator(make_batch, num_batches, pool, start=start_step)
 
 
 def make_eval_iterator(dataset, *, global_batch: int, num_workers: int = 8,

@@ -1,6 +1,7 @@
 """Inference/serving API (PyTorch): single- and multi-image depth prediction.
 
-    predictor = DepthPredictor.from_variables(cfg, variables)   # on "cuda"
+    predictor = DepthPredictor.from_checkpoint(workdir, cfg)     # on "cuda"
+    predictor = DepthPredictor.from_variables(cfg, variables)
     depth = predictor.predict(rgb)                  # (h, w, 3) -> (h, w)
     depth = predictor.predict(rgb, sparse_depth)    # depth completion
     depths = predictor.predict_batch(rgb_batch, sparse_batch)
@@ -20,6 +21,11 @@ import torch
 from cspn_monodepth_tpu_torch.configs import Config
 from cspn_monodepth_tpu_torch.models.convert import load_jax_variables
 from cspn_monodepth_tpu_torch.models.cspn_net import CSPNDepthNet
+from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
+from cspn_monodepth_tpu_torch.train.train_state import (
+    TrainState,
+    make_optimizer,
+)
 
 
 class DepthPredictor:
@@ -29,6 +35,26 @@ class DepthPredictor:
         self.model = model.to(self.device).eval()
         self.height = height
         self.width = width
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, cfg: Config,
+                        step: int | None = None, prefer_best: bool = True,
+                        device: str | torch.device = "cuda"
+                        ) -> "DepthPredictor":
+        """The configured model from a Trainer's checkpoint in `ckpt_dir`
+        (train/checkpoint.py): `step`, else the best step when
+        `prefer_best` and one was saved, else the latest. Raises
+        FileNotFoundError when there is no checkpoint."""
+        model = CSPNDepthNet.from_config(cfg.model).to(device)
+        state = TrainState(step=0, model=model,
+                           optimizer=make_optimizer(cfg.train, model))
+        ckpt = CheckpointManager(ckpt_dir)
+        if step is None and prefer_best:
+            step = ckpt.best_step()
+        restored, _ = ckpt.restore(state, step=step)
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        return cls(restored.model, cfg.data.height, cfg.data.width, device)
 
     @classmethod
     def from_variables(cls, cfg: Config, variables,

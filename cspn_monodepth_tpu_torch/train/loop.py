@@ -2,6 +2,7 @@
 cspn_monodepth_tpu/train/loop.py).
 
     trainer = Trainer(get_config("nyu_completion_500"))      # on "cuda"
+    state, best_rmse = trainer.fit()         # epochs, checkpoints, logs
     state = trainer.init_state()             # or init_state(jax_variables)
     state, loss, sums = trainer.train_step(state, batch)
     state, metrics = trainer.train_epoch(state, epoch=0)
@@ -12,8 +13,9 @@ device, sample the sparse input on the device, forward in train mode (BN on
 batch statistics), masked loss, backward (through the CSPN adjoint kernel
 on a CUDA device), clip, weight decay and SGD-momentum (or Adam), metric
 sums of the prediction. PyTorch runs eagerly: the step updates the state's
-model and optimizer in place and returns the state. The only host sync in
-an epoch is the loss read every `log_every` steps.
+model and optimizer in place and returns the state. The host syncs with
+the device only to read the loss every `log_every` steps and to save a
+checkpoint.
 
 Random numbers: the sparse samples of a train step come from a
 `torch.Generator` on the device seeded by (seed, epoch tag, step); those
@@ -31,12 +33,22 @@ scores and keeps its own images', so the samples do not depend on the
 mesh. Unlike the JAX package, the global batch must split evenly over all
 ranks.
 
-Not ported yet (the next slice): `fit`, checkpoints and mid-epoch resume,
-CSV/TensorBoard logs and image panels, mixed-dataset batches and the CLI.
+`fit` runs the epochs as the JAX package's does, in `workdir` (default
+cfg.train.checkpoint_dir): it restores the latest checkpoint
+(train/checkpoint.py) and resumes inside an epoch from its `epoch_step`
+(the epoch's batches and each step's sparse samples are pure functions of
+the seed, the epoch and the step), saves every `checkpoint_every` steps
+and at each epoch's end, keeps the best RMSE, and writes train.csv and
+test.csv (METRIC_FIELDS), best.txt, TensorBoard scalars and an
+rgb|gt|pred panel of the first eval batch. On a mesh rank 0 writes the
+files and every rank restores.
+
+Not ported yet: mixed-dataset batches.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -54,6 +66,7 @@ from cspn_monodepth_tpu_torch.data.pipeline import (
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, load_jax_variables
 from cspn_monodepth_tpu_torch.ops.sparse import uniform_sparse_sample
 from cspn_monodepth_tpu_torch.parallel.mesh import Mesh, make_mesh
+from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 from cspn_monodepth_tpu_torch.train.loss import get_loss_fn
 from cspn_monodepth_tpu_torch.train.metrics import (
     AverageMeter,
@@ -66,17 +79,28 @@ from cspn_monodepth_tpu_torch.train.train_state import (
     make_lr_schedule,
     make_optimizer,
 )
+from cspn_monodepth_tpu_torch.utils.logging import (
+    CSVLogger,
+    merge_into_row,
+    save_image,
+)
+from cspn_monodepth_tpu_torch.utils.tensorboard import TBWriter
 
 EVAL_TAG = 9999
+METRIC_FIELDS = ["epoch", "loss", "rmse", "mae", "rel", "lg10", "delta1",
+                 "delta2", "delta3", "irmse", "imae", "lr", "images_per_sec",
+                 "data_time", "step_time"]
+PANEL_IMAGES = 4
 
 
 class Trainer:
     """Train and evaluate cfg's model on `device`, or on `mesh` (a
     parallel.Mesh over the initialized process group; built from cfg.mesh
-    when that asks for more than one rank)."""
+    when that asks for more than one rank); checkpoints and logs go to
+    `workdir`."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, workdir: str | None = None):
         if cfg.data.mix_dataset:
             raise NotImplementedError("mixed-dataset training is not ported "
                                       "yet")
@@ -90,7 +114,10 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.group = None if mesh is None else mesh.world_group
+        self.is_main = mesh is None or mesh.rank == 0
         self.device = torch.device(device) if mesh is None else mesh.device
+        self.workdir = workdir or cfg.train.checkpoint_dir
+        self.last_panel = None
         self.train_ds = make_dataset(cfg.data, "train", seed=cfg.train.seed)
         self.val_ds = make_dataset(cfg.data, "val", seed=cfg.train.seed)
         self.steps_per_epoch = cfg.train.steps_per_epoch or max(
@@ -222,26 +249,36 @@ class Trainer:
         return sums, pred
 
     # ---------------------------------------------------------- epochs
-    def train_epoch(self, state: TrainState, epoch: int, log=print):
-        """One epoch of `steps_per_epoch` train steps; returns the state
-        and the epoch's metrics (finalized sums, mean loss, step losses,
-        data and step times, learning rate)."""
+    def train_epoch(self, state: TrainState, epoch: int, log=print,
+                    start_step: int = 0, ckpt: CheckpointManager | None = None,
+                    ckpt_extra: dict | None = None,
+                    max_steps: int | None = None):
+        """One epoch of `steps_per_epoch` train steps, from `start_step`
+        when resuming inside it; returns the state and the epoch's metrics
+        (finalized sums, mean loss, step losses, data and step times,
+        learning rate). With `ckpt` and cfg.train.checkpoint_every > 0 the
+        state is saved every checkpoint_every steps (not at the epoch's
+        last, which the caller saves) with the extras "epoch" and
+        "epoch_step". `max_steps` ends the epoch after that many steps:
+        the hook that simulates a crash."""
         cfg = self.cfg
         tag = 17 * epoch + 1
         it = make_train_iterator(
             self.train_ds, global_batch=cfg.train.batch_size, epoch=epoch,
             seed=cfg.train.seed, num_workers=cfg.data.num_workers,
-            steps=self.steps_per_epoch, **self._shards())
+            steps=self.steps_per_epoch, start_step=start_step,
+            **self._shards())
         meter = AverageMeter()
         sums = MetricSums.zeros(cfg.train.metrics_protocol, self.device)
         losses = []
         t_end = time.time()
         try:
-            for step, batch in enumerate(device_prefetch(it, self.device)):
+            for step, batch in enumerate(device_prefetch(it, self.device),
+                                         start=start_step):
                 data_time = time.time() - t_end
                 state, loss, s = self.train_step(state, batch, tag)
                 if step % cfg.train.log_every == 0:
-                    loss_f = float(loss)  # the epoch's only host sync
+                    loss_f = float(loss)  # a host sync, every log_every steps
                     step_time = (time.time() - t_end) - data_time
                     ips = cfg.train.batch_size / max(step_time, 1e-9)
                     log(f"epoch {epoch} step {step}/{self.steps_per_epoch} "
@@ -251,6 +288,14 @@ class Trainer:
                              step_time=time.time() - t_end - data_time)
                 losses.append(loss)
                 sums = sums + s
+                if (ckpt is not None and cfg.train.checkpoint_every > 0
+                        and (step + 1) % cfg.train.checkpoint_every == 0
+                        and step + 1 < self.steps_per_epoch):
+                    ckpt.save(state.step, state,
+                              extra={**(ckpt_extra or {}), "epoch": epoch,
+                                     "epoch_step": step + 1})
+                if max_steps is not None and step + 1 - start_step >= max_steps:
+                    break
                 t_end = time.time()
         finally:
             it.close()
@@ -265,9 +310,11 @@ class Trainer:
         metrics["lr"] = float(self.lr_schedule(state.step))
         return state, metrics
 
-    def evaluate(self, state: TrainState, log=print) -> dict:
+    def evaluate(self, state: TrainState, log=print,
+                 epoch: int | None = None, save_panels: bool = True) -> dict:
         """Metrics of the validation set; images_per_sec leaves out the
-        first batch (warm-up) when there are more."""
+        first batch (warm-up, and the panel of its first images that rank
+        0 saves to workdir when `save_panels`) when there are more."""
         cfg = self.cfg
         it = make_eval_iterator(self.val_ds,
                                 global_batch=cfg.train.batch_size,
@@ -278,10 +325,12 @@ class Trainer:
         n_warm = 0.0
         try:
             for i, batch in enumerate(device_prefetch(it, self.device)):
-                s, _ = self.eval_step(state, batch, i)
+                s, pred = self.eval_step(state, batch, i)
                 sums = sums + s
                 if i == 0:
                     n_warm = float(sums.n_images)
+                    if save_panels and self.is_main:
+                        self._save_panel(batch, pred, epoch)
                     t_warm = time.time()
         finally:
             it.close()
@@ -296,3 +345,104 @@ class Trainer:
         log("eval " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()
                                if isinstance(v, float)))
         return metrics
+
+    def _save_panel(self, batch: dict, pred: torch.Tensor,
+                    epoch: int | None):
+        """Save the rgb | gt | pred strip of the first PANEL_IMAGES images
+        of an eval batch as workdir/comparison_<epoch or latest>.png and
+        keep it as `last_panel`. A failure (no PIL, say) is reported and
+        never ends the evaluation."""
+        try:
+            pred_np = pred.detach().float().cpu().numpy()[..., 0]
+            rgb = batch["rgb"].cpu().numpy()
+            depth = batch["depth"].cpu().numpy()
+            if rgb.dtype == np.uint8:           # compact wire format
+                rgb = rgb.astype(np.float32) / 255.0
+            if depth.dtype == np.uint16:
+                depth = depth.astype(np.float32) / DEPTH_SCALE
+            rows = [merge_into_row(rgb[i], None, depth[i], pred_np[i])
+                    for i in range(min(PANEL_IMAGES, rgb.shape[0]))]
+            tag = "latest" if epoch is None else f"epoch{epoch:03d}"
+            strip = np.concatenate(rows, axis=0)
+            save_image(strip, os.path.join(self.workdir,
+                                           f"comparison_{tag}.png"))
+            self.last_panel = strip             # for TensorBoard (fit)
+        except Exception as e:  # a panel must never end the evaluation
+            print(f"panel save failed: {e!r}")
+
+    # ---------------------------------------------------------- fit
+    def fit(self, log=print):
+        """Train cfg.train.epochs epochs from the latest checkpoint in
+        workdir (or a fresh state), evaluating after each; returns the
+        final state and the best RMSE."""
+        cfg = self.cfg
+        ckpt = CheckpointManager(self.workdir, group=self.group)
+        state = self.init_state()
+        start_epoch, start_step = 0, 0
+        best_rmse = float("inf")
+
+        restored, extra = ckpt.restore(state)
+        if restored is not None:
+            state = restored
+            ep = int(extra.get("epoch", -1))
+            es = int(extra.get("epoch_step", 0) or 0)
+            if 0 < es < self.steps_per_epoch:
+                start_epoch, start_step = ep, es
+            else:
+                start_epoch, start_step = ep + 1, 0
+            best_rmse = float(extra.get("best_rmse", float("inf")))
+            log(f"resumed from step {state.step}, epoch {start_epoch} "
+                f"step {start_step}")
+
+        train_csv = test_csv = None
+        if self.is_main:
+            train_csv = CSVLogger(os.path.join(self.workdir, "train.csv"),
+                                  METRIC_FIELDS)
+            test_csv = CSVLogger(os.path.join(self.workdir, "test.csv"),
+                                 METRIC_FIELDS)
+        tb = TBWriter(os.path.join(self.workdir, "tb"), enabled=self.is_main)
+
+        def row(epoch, metrics):
+            return {"epoch": epoch, **{k: f"{v:.6f}"
+                                       for k, v in metrics.items()
+                                       if isinstance(v, float)}}
+
+        try:
+            for epoch in range(start_epoch, cfg.train.epochs):
+                state, train_metrics = self.train_epoch(
+                    state, epoch, log=log,
+                    start_step=start_step if epoch == start_epoch else 0,
+                    ckpt=ckpt, ckpt_extra={"best_rmse": best_rmse,
+                                           "config": cfg.name})
+                if self.is_main:
+                    train_csv.append(row(epoch, train_metrics))
+                tb.scalars("train", train_metrics, epoch)
+
+                self.last_panel = None
+                eval_metrics = self.evaluate(state, log=log, epoch=epoch)
+                tb.scalars("eval", eval_metrics, epoch)
+                if self.last_panel is not None:
+                    tb.image("eval/rgb_sparse_gt_pred", self.last_panel,
+                             epoch)
+                tb.flush()
+
+                is_best = eval_metrics["rmse"] < best_rmse
+                if is_best:
+                    best_rmse = eval_metrics["rmse"]
+                if self.is_main:
+                    test_csv.append(row(epoch, eval_metrics))
+                    if is_best:
+                        with open(os.path.join(self.workdir, "best.txt"),
+                                  "w") as f:
+                            f.write(f"epoch {epoch} " + " ".join(
+                                f"{k}={v:.6f}"
+                                for k, v in eval_metrics.items()
+                                if isinstance(v, float)))
+                ckpt.save(state.step, state,
+                          extra={"epoch": epoch, "best_rmse": best_rmse,
+                                 "config": cfg.name},
+                          is_best=is_best)
+        finally:
+            tb.close()
+            ckpt.close()
+        return state, best_rmse

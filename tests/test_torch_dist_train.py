@@ -78,8 +78,9 @@ def run_steps(trainer, variables, batch, sparse, eval_batch):
                       if f.name != "protocol"})
 
 
-def _rank_run(rank, data, spatial, variables, batch, sparse):
-    cfg = port_config(data, spatial, len(sparse))
+def _rank_run(rank, data, spatial, variables, batch, sparse, workdir):
+    cfg = port_config(data, spatial, len(sparse)).override(
+        **{"train.checkpoint_dir": workdir})
     trainer = Trainer(cfg, device="cpu")
     b = len(sparse) // trainer.mesh.size
     mine = slice(rank * b, (rank + 1) * b)
@@ -175,12 +176,12 @@ def single(jax_setup):
 def ranks(request, jax_setup, tmp_path_factory):
     data, spatial = request.param
     batch_size = MESHES[request.param]
-    init = tmp_path_factory.mktemp("dist_train") / "rendezvous"
+    work = tmp_path_factory.mktemp("dist_train")
     results = spawn_ranks(
         _rank_run, data * spatial, data, spatial, jax_setup["variables"],
         {k: v[:batch_size] for k, v in jax_setup["batch"].items()},
-        jax_setup["sparse"][:batch_size], timeout=DEADLINE_S,
-        init_file=str(init))
+        jax_setup["sparse"][:batch_size], str(work / "workdir"),
+        timeout=DEADLINE_S, init_file=str(work / "rendezvous"))
     return dict(mesh=request.param, results=results)
 
 

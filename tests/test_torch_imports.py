@@ -68,7 +68,12 @@ def test_sources_are_found():
             "cspn_monodepth_tpu_torch/parallel/mesh.py",
             "cspn_monodepth_tpu_torch/parallel/comm.py",
             "cspn_monodepth_tpu_torch/parallel/halo.py",
-            "cspn_monodepth_tpu_torch/parallel/launch.py"} <= rel
+            "cspn_monodepth_tpu_torch/parallel/launch.py",
+            "cspn_monodepth_tpu_torch/main.py",
+            "cspn_monodepth_tpu_torch/train/checkpoint.py",
+            "cspn_monodepth_tpu_torch/utils/__init__.py",
+            "cspn_monodepth_tpu_torch/utils/logging.py",
+            "cspn_monodepth_tpu_torch/utils/tensorboard.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -95,6 +100,11 @@ def test_port_imports_without_jax():
         "import cspn_monodepth_tpu_torch.data.transforms\n"
         "import cspn_monodepth_tpu_torch.native\n"
         "import cspn_monodepth_tpu_torch.parallel\n"
+        "import cspn_monodepth_tpu_torch.main\n"
+        "import cspn_monodepth_tpu_torch.train.checkpoint\n"
+        "import cspn_monodepth_tpu_torch.utils\n"
+        "import cspn_monodepth_tpu_torch.utils.logging\n"
+        "import cspn_monodepth_tpu_torch.utils.tensorboard\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(sorted(bad))\n"

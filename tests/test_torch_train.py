@@ -346,9 +346,11 @@ def test_train_iterator_ranks_take_jax_records(n, global_batch, ranks):
 
 
 def test_unported_datasets_and_samplers_raise():
-    cfg = get_config("nyu_completion_500")
+    # Mixed NYU + KITTI batches (host8_dp) are not ported; the NYU readers
+    # are (tests/test_torch_nyu.py).
+    cfg = get_config("host8_dp").override(**{"mesh.data": 1})
     with pytest.raises(NotImplementedError):
-        make_dataset(cfg.data, "train")
+        Trainer(cfg, device="cpu")
     tiny = get_config("synthetic_tiny").override(**{"data.sampler": "stereo"})
     trainer = Trainer(tiny, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -440,9 +442,10 @@ def test_eval_step_matches_jax(jax_run, port_run):
     assert max_rel(port_run["eval_pred"], jax_run["eval_pred"]) <= 1e-4
 
 
-def test_train_epoch_and_evaluate_run_on_synthetic_data():
+def test_train_epoch_and_evaluate_run_on_synthetic_data(tmp_path):
     cfg = get_config("synthetic_tiny").override(**{
-        **TINY, "train.steps_per_epoch": 2, "train.log_every": 1})
+        **TINY, "train.steps_per_epoch": 2, "train.log_every": 1,
+        "train.checkpoint_dir": str(tmp_path)})
     trainer = Trainer(cfg, device="cpu")
     state = trainer.init_state()
     logs = []
