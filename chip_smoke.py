@@ -72,7 +72,23 @@ exits non-zero:
      checkpoint's size), Trainer.fit over two epochs with its K2/K3 launches
      per train step and K1 per eval batch, its step, data and eval times;
      the CLI as a subprocess (train, resume at the next epoch, --evaluate)
-     and DepthPredictor.from_checkpoint against the restored Trainer.
+     and DepthPredictor.from_checkpoint against the restored Trainer;
+ 12. breadth: the JAX package's other model and data options. `mixed`:
+     host8_dp's share of one rank (mesh.data 8 -> 1, batch 64 -> 8) on NYU
+     shards and KITTI frames the script writes, NYU and KITTI batches in
+     turn, a warm-up epoch, then one counted epoch (step ms by shape, data
+     ms, peak memory, K2/K3 per NYU step, K5/K6 per KITTI step, K1 per
+     eval batch, nothing else) and a kill and resume inside the epoch;
+     `ref_recipe`: nyu_completion_500_ref at full width with a
+     torchvision-layout .pth written from seeded weights (the loaded
+     encoder against the file, conv1's 4th channel the RGB mean, train
+     steps through K2/K3, one step against the plain CSPN loop); `arch`:
+     resnet18 and resnet34 with upproj and resnet50 with upconv at
+     228x304 (serving at batch 32 against the plain CSPN path with its K1
+     launches, train steps with their K2/K3 launches, one step against
+     the plain loop); `stereo`: stereo_sparse_sample's scores and
+     selection on the card against the CPU, timed at NYU B=32 and KITTI
+     B=8, and a train step with data.sampler=stereo.
 The kernel checks (3, 6, 9) run first. Then a line with the kernel table
 and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
@@ -101,6 +117,8 @@ from cspn_monodepth_tpu_torch.data import (
     pack_batch,
 )
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
+from cspn_monodepth_tpu_torch.models.resnet import ARCHS
+from cspn_monodepth_tpu_torch.models.torch_weights import encoder_key
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
@@ -108,6 +126,12 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     anchor,
     cspn_bwd_sums_plain,
     prenorm_gates9,
+)
+from cspn_monodepth_tpu_torch.ops.sparse import (
+    keep_top,
+    stereo_scores,
+    stereo_sparse_sample,
+    uniform_sparse_sample,
 )
 from cspn_monodepth_tpu_torch.parallel import (
     cspn_propagate_spatial,
@@ -197,6 +221,26 @@ CLI_TIMEOUT_S = 300
 # DepthPredictor.from_checkpoint against the restored Trainer's forward:
 # the same weights and kernels.
 SERVE_TOL = 1e-5
+# Phase 12, breadth. The mixed job: host8_dp's NYU and KITTI batches in
+# turn (mix_every 2), an epoch of MIX_STEPS steps, a checkpoint every
+# MIX_CKPT and the crash right after the first (the resume starts at a
+# KITTI step, both streams inside their epoch).
+MIX_STEPS = 8
+MIX_CKPT = 3
+BREADTH_REDUCED = ["mesh.data 8 -> 1 (one rank's share on one card)",
+                   "train.batch_size 64 -> 8 (the rank's share)",
+                   "NYU 96 + 32 and KITTI 48 + 8 frames written by the "
+                   "script (synthetic, raw sizes)",
+                   "train.steps_per_epoch 8"]
+REF_STEPS = 3
+# The other encoder and decoder options at 228x304.
+ARCH_CELLS = (("resnet18", "upproj"), ("resnet34", "upproj"),
+              ("resnet50", "upconv"))
+ARCH_BATCH = 32
+ARCH_STEPS = 5
+# stereo_scores on the card vs the CPU: a channel mean and two absolute
+# differences of values in [0, 1], a few float32 roundings.
+STEREO_SCORE_TOL = 1e-6
 
 
 def emit(phase: str, **kw):
@@ -2296,6 +2340,338 @@ def phase_fit(gpu: str, device: str = "cuda") -> dict:
     return dict(resume=resume, fit=fit, cli=cli)
 
 
+# ---------------------------------------------------------------- phase 12
+def host8_config(nyu_root: str, kitti_root: str, **overrides):
+    """host8_dp, one rank's share on one card: mesh.data 8 -> 1 and batch
+    64 -> 8 (BREADTH_REDUCED), on the shards and frames at the roots."""
+    return get_config("host8_dp").override(**{
+        "mesh.data": 1, "train.batch_size": 8, "data.root": nyu_root,
+        "data.mix_root": kitti_root, "train.steps_per_epoch": MIX_STEPS,
+        "train.checkpoint_every": MIX_CKPT, **overrides})
+
+
+def breadth_mixed(nyu_root: str, kitti_root: str, work: Path,
+                  gpu: str) -> dict:
+    """host8_dp's mixed job: a warm-up epoch, then, with the launch counts
+    set to 0, an epoch of MIX_STEPS steps (NYU 228x304 and KITTI 352x1216
+    batches in turn, each step timed to a device sync) and the evaluation
+    (NYU val); a second uninterrupted epoch for the spread; a crash right
+    after the checkpoint at MIX_CKPT, the restore and the resumed epoch.
+    cuDNN deterministic throughout, as fit_resume."""
+    cfg = host8_config(nyu_root, kitti_root)
+    k = cfg.data.mix_every
+    kitti_steps = MIX_STEPS // k
+    nyu_steps = MIX_STEPS - kitti_steps
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(cfg, workdir=str(work))
+        eval_batches = -(-len(trainer.val_ds) // cfg.train.batch_size)
+        _, warm = trainer.train_epoch(trainer.init_state(), 0, log=quiet)
+        spans = timed_steps(trainer, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, first = trainer.train_epoch(trainer.init_state(), 0,
+                                           log=quiet)
+        ev = trainer.evaluate(state, log=quiet, save_panels=False)
+        sync("cuda")
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        epoch_spans = list(spans)
+        del state
+        _, second = trainer.train_epoch(trainer.init_state(), 0, log=quiet)
+        ckpt = CheckpointManager(str(work / "ckpt"))
+        dead, part = trainer.train_epoch(trainer.init_state(), 0, log=quiet,
+                                         ckpt=ckpt, max_steps=MIX_CKPT)
+        saved = state_copy(dead)
+        del dead
+        restored, extra = ckpt.restore(trainer.init_state())
+        identical = states_equal(state_copy(restored), saved)
+        del saved
+        _, resumed = trainer.train_epoch(restored, 0, log=quiet,
+                                         start_step=extra["epoch_step"])
+        del restored, trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    kitti = [i % k == k - 1 for i in range(MIX_STEPS)]
+    step_ms = [1e3 * (b - a) for a, b in epoch_spans]
+    data_ms = [1e3 * (epoch_spans[i][0] - epoch_spans[i - 1][1])
+               for i in range(1, MIX_STEPS)]
+    losses, spread = first["step_losses"], max_rel_list(
+        second["step_losses"], first["step_losses"])
+    tol = max(RESUME_TOL, spread)
+    resume_err = max_rel_list(resumed["step_losses"], losses[MIX_CKPT:])
+    want = {n: 0 for n in launches}
+    want.update(cspn_fwd_stash=nyu_steps, cspn_bwd=nyu_steps,
+                cspn_tiled_fwd_stash=kitti_steps,
+                cspn_tiled_bwd=kitti_steps, cspn_fwd=eval_batches)
+    line = dict(
+        config=cfg.name, reduced=BREADTH_REDUCED, batch=cfg.train.batch_size,
+        mix_every=k, steps=MIX_STEPS, nyu_steps=nyu_steps,
+        kitti_steps=kitti_steps, nyu_hw=[cfg.data.height, cfg.data.width],
+        kitti_hw=[cfg.data.mix_height, cfg.data.mix_width],
+        step_ms_nyu_p50=float(np.median(
+            [t for t, m in zip(step_ms, kitti) if not m])),
+        step_ms_kitti_p50=float(np.median(
+            [t for t, m in zip(step_ms, kitti) if m])),
+        step_ms=step_ms, data_ms_p50=float(np.median(data_ms)),
+        data_ms_max=max(data_ms), peak_mem_gb=peak_gb, launches=launches,
+        eval_batches=eval_batches, eval_rmse=ev["rmse"],
+        eval_img_per_s=ev["images_per_sec"], losses=losses,
+        warmup_losses=warm["step_losses"], rerun_spread=spread,
+        checkpoints=ckpt.steps(), extra=extra, state_bit_identical=identical,
+        crashed_losses_max_rel=max_rel_list(part["step_losses"], losses),
+        resumed_losses=resumed["step_losses"], resumed_max_rel=resume_err,
+        tol=tol, gpu=gpu)
+    emit("breadth_mixed", **line)
+    if not (launches == want and identical
+            and extra == {"epoch": 0, "epoch_step": MIX_CKPT}
+            and len(resumed["step_losses"]) == MIX_STEPS - MIX_CKPT
+            and resume_err <= tol and np.isfinite(losses).all()
+            and np.isfinite(ev["rmse"])):
+        raise AssertionError(f"mixed job: launches {launches}, expected "
+                             f"{want}; {line}")
+    return line
+
+
+def torchvision_state_dict(arch: str, gen) -> dict:
+    """Seeded weights of a torchvision ResNet in its own layout and names
+    (`layerL.B.convN`, `downsample.{0,1}`, `num_batches_tracked`, `fc.*`):
+    lecun-normal convolutions, non-trivial BN statistics."""
+    stages, block = ARCHS[arch]
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = torch.randn(
+            (cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 0.8 + 0.4 * torch.rand(c, generator=gen)
+        sd[f"{name}.bias"] = 0.2 * torch.rand(c, generator=gen) - 0.1
+        sd[f"{name}.running_mean"] = 0.6 * torch.rand(c, generator=gen) - 0.3
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for layer, n in enumerate(stages, start=1):
+        ch = 64 * 2 ** (layer - 1)
+        out = ch if block == "basic" else 4 * ch
+        for b in range(n):
+            p = f"layer{layer}.{b}"
+            shapes = ([(ch, cin, 3), (ch, ch, 3)] if block == "basic" else
+                      [(ch, cin, 1), (ch, ch, 3), (out, ch, 1)])
+            for i, (co, ci, kk) in enumerate(shapes, start=1):
+                conv(f"{p}.conv{i}", co, ci, kk)
+                bn(f"{p}.bn{i}", co)
+            if b == 0 and (layer > 1 or cin != out):
+                conv(f"{p}.downsample.0", out, cin, 1)
+                bn(f"{p}.downsample.1", out)
+            cin = out
+    sd["fc.weight"] = torch.randn((1000, cin), generator=gen) / cin ** 0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def breadth_ref_recipe(work: Path, gpu: str) -> dict:
+    """nyu_completion_500_ref at full width (ResNet-50, 228x304, batch 8,
+    norm 8sum, encoder lr x0.1) with model.pretrained on a torchvision
+    .pth saved here from seeded weights: the loaded encoder against the
+    file, REF_STEPS steps through K2/K3, one step against the plain CSPN
+    loop."""
+    pth = work / "resnet50_torchvision.pth"
+    sd = torchvision_state_dict("resnet50",
+                                torch.Generator().manual_seed(SEED + 12))
+    torch.save(sd, pth)
+    cfg = get_config("nyu_completion_500_ref").override(**{
+        "data.dataset": "synthetic", "model.pretrained": str(pth)})
+    trainer = Trainer(cfg, workdir=str(work))
+    state = trainer.init_state()
+    enc = state.model.encoder.state_dict()
+    mismatched = [k for k, v in sd.items() if not k.startswith("fc.")
+                  and k != "conv1.weight"
+                  and not torch.equal(enc[encoder_key(k)].cpu(), v)]
+    w1, file_w1 = enc["conv1.weight"].cpu(), sd["conv1.weight"]
+    rgb_exact = torch.equal(w1[:, :3], file_w1)
+    mean_exact = torch.equal(w1[:, 3:], file_w1.mean(dim=1, keepdim=True))
+    lr_mults = sorted(g["lr_mult"] for g in state.optimizer.param_groups)
+    batch = fixed_batch(trainer, cfg.train.batch_size)
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(REF_STEPS):
+        t0 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, batch)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = counts()
+    del state, trainer
+    vs_plain, _, _ = step_vs_plain(cfg, randomized_variables(cfg),
+                                   cfg.train.batch_size)
+    want = {n: 0 for n in launches}
+    want.update(cspn_fwd_stash=REF_STEPS, cspn_bwd=REF_STEPS)
+    line = dict(config=cfg.name, arch=cfg.model.arch,
+                norm=cfg.model.norm_type, batch=cfg.train.batch_size,
+                h=cfg.data.height, w=cfg.data.width,
+                encoder_lr_mult=cfg.train.encoder_lr_mult, lr_mults=lr_mults,
+                pth_mb=pth.stat().st_size / 1e6, file_tensors=len(sd),
+                mismatched=mismatched, conv1_rgb_exact=rgb_exact,
+                conv1_4th_is_rgb_mean=mean_exact, losses=losses,
+                step_ms=step_ms, launches=launches, vs_plain=vs_plain,
+                gpu=gpu)
+    emit("breadth_ref_recipe", **line)
+    if not (not mismatched and rgb_exact and mean_exact
+            and lr_mults == [0.1, 1.0] and launches == want
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"ref recipe: {line}")
+    return line
+
+
+def breadth_arch(arch: str, block: str, gpu: str) -> dict:
+    """One encoder/decoder option at 228x304 (nyu_completion_500 otherwise):
+    ARCH_BATCH serving against the plain CSPN path with its K1 launches,
+    then ARCH_STEPS train steps on a fixed batch with their K2/K3 launches
+    and peak memory, and one step against the plain CSPN loop."""
+    cfg = train_config().override(**{
+        "model.arch": arch, "model.decoder_block": block,
+        "train.batch_size": ARCH_BATCH})
+    variables = randomized_variables(cfg)
+    predictor = DepthPredictor.from_variables(cfg, variables)
+    params = sum(p.numel() for p in predictor.model.parameters())
+    rgb, sparse = requests(np.random.default_rng(SEED + 13), ARCH_BATCH,
+                           NYU_H, NYU_W)
+    predictor.predict_batch(rgb, sparse)
+    torch.cuda.synchronize()
+    reset_counts()
+    batch_ms = []
+    for _ in range(ARCH_STEPS):
+        t0 = time.perf_counter()
+        out = predictor.predict_batch(rgb, sparse)
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        check_depth(out, sparse, (ARCH_BATCH, NYU_H, NYU_W))
+    serve_launches = counts()
+    path_err, plain = path_vs_plain(cfg, variables, predictor, rgb, sparse)
+    del plain, predictor
+
+    trainer = Trainer(cfg)
+    state = trainer.init_state(variables)
+    batch = fixed_batch(trainer, ARCH_BATCH)
+    state, loss, _ = trainer.train_step(state, batch)
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for _ in range(ARCH_STEPS):
+        t0 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, batch)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    train_launches = counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    del state, trainer
+    vs_plain, _, _ = step_vs_plain(cfg, variables, ARCH_BATCH)
+    want_serve = {n: 0 for n in serve_launches}
+    want_serve["cspn_fwd"] = ARCH_STEPS
+    want_train = {n: 0 for n in train_launches}
+    want_train.update(cspn_fwd_stash=ARCH_STEPS, cspn_bwd=ARCH_STEPS)
+    line = dict(arch=arch, decoder_block=block, params=params,
+                batch=ARCH_BATCH, h=NYU_H, w=NYU_W,
+                serve_batch_ms_p50=float(np.median(batch_ms)),
+                serve_launches=serve_launches, path_max_rel=path_err,
+                path_tol=PATH_TOL, step_ms_p50=float(np.median(step_ms)),
+                step_ms=step_ms, img_per_s=ARCH_BATCH
+                / float(np.median(step_ms)) * 1e3, peak_mem_mb=peak_mb,
+                train_launches=train_launches, losses=losses,
+                vs_plain=vs_plain, gpu=gpu)
+    emit("breadth_arch", **line)
+    if not (serve_launches == want_serve and train_launches == want_train
+            and path_err <= PATH_TOL and np.isfinite(losses).all()):
+        raise AssertionError(f"{arch}/{block}: {line}")
+    return line
+
+
+def breadth_stereo(gpu: str) -> dict:
+    """stereo_sparse_sample on the card: its scores against the CPU's, the
+    selection of the same scores on the card and on the CPU (the same
+    mask), the sampler and the uniform one timed at NYU B=32 and KITTI
+    B=8; then one nyu_completion_500 train step with data.sampler=stereo
+    through K2/K3."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    shapes = []
+    for b, h, w, n in ((TRAIN_BATCH, NYU_H, NYU_W, 500),
+                       (KITTI_BATCH, KITTI_H, KITTI_W, 500)):
+        rgb = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+        depth = 0.5 + 9.0 * torch.rand((b, h, w), generator=gen,
+                                       device="cuda")
+        depth[torch.rand((b, h, w), generator=gen, device="cuda") < 0.3] = 0
+        valid = depth > 0
+        scores = stereo_scores(rgb)
+        score_err = float((scores.cpu() - stereo_scores(rgb.cpu()))
+                          .abs().max())
+        scores = scores + 1e-4 * torch.rand((b, h, w), generator=gen,
+                                            device="cuda")
+        card = keep_top(depth, valid, scores, n)
+        cpu = keep_top(depth.cpu(), valid.cpu(), scores.cpu(), n)
+        same_mask = torch.equal(card.cpu() > 0, cpu > 0)
+        out = stereo_sparse_sample(depth, rgb, n, max_depth=10.0,
+                                   generator=gen)
+        counts_ok = bool(((out > 0).sum((1, 2)) == n).all())
+        stereo_ms = time_ms(lambda: stereo_sparse_sample(
+            depth, rgb, n, max_depth=10.0, generator=gen), 20)
+        uniform_ms = time_ms(lambda: uniform_sparse_sample(
+            depth, n, max_depth=10.0, generator=gen), 20)
+        shapes.append(dict(b=b, h=h, w=w, n=n, score_max_abs=score_err,
+                           same_mask=same_mask, counts_exact=counts_ok,
+                           stereo_ms=stereo_ms, uniform_ms=uniform_ms))
+    cfg = train_config().override(**{"data.sampler": "stereo",
+                                     "train.batch_size": 8})
+    trainer = Trainer(cfg)
+    state = trainer.init_state(randomized_variables(cfg))
+    batch = fixed_batch(trainer, cfg.train.batch_size)
+    unpacked = trainer._unpack(batch)
+    kept = trainer._sample_sparse(trainer._rng(0, 0), unpacked["depth"],
+                                  unpacked["rgb"])
+    reset_counts()
+    state, loss, _ = trainer.train_step(state, batch)
+    loss = float(loss)
+    launches = counts()
+    del state, trainer
+    want = {n: 0 for n in launches}
+    want.update(cspn_fwd_stash=1, cspn_bwd=1)
+    per_image = (kept > 0).sum((1, 2)).tolist()
+    line = dict(shapes=shapes, score_tol=STEREO_SCORE_TOL,
+                train_config=cfg.name, train_batch=cfg.train.batch_size,
+                kept_per_image=per_image, train_loss=loss,
+                train_launches=launches, gpu=gpu)
+    emit("breadth_stereo", **line)
+    if not (all(s["same_mask"] and s["counts_exact"]
+                and s["score_max_abs"] <= STEREO_SCORE_TOL for s in shapes)
+            and launches == want and np.isfinite(loss)
+            and per_image == [cfg.data.num_samples] * len(per_image)):
+        raise AssertionError(f"stereo sampling: {line}")
+    return line
+
+
+def phase_breadth(gpu: str) -> dict:
+    """Phase 12 in a temporary directory that it removes: the mixed
+    host8_dp job on NYU shards and KITTI frames written here, the
+    paper-exact recipe with a torchvision encoder, the other encoder and
+    decoder options, and stereo sampling."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="breadth_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "nyu").mkdir()
+        write_nyu_shards(tmp / "nyu", np.random.default_rng(SEED + 10))
+        write_kitti_frames(tmp / "kitti", np.random.default_rng(SEED + 11))
+        mixed = breadth_mixed(str(tmp / "nyu"), str(tmp / "kitti"),
+                              tmp / "mixed", gpu)
+        ref = breadth_ref_recipe(tmp, gpu)
+    archs = [breadth_arch(arch, block, gpu) for arch, block in ARCH_CELLS]
+    stereo = breadth_stereo(gpu)
+    emit("breadth", seconds=time.perf_counter() - t0, gpu=gpu)
+    return dict(mixed=mixed, ref=ref, archs=archs, stereo=stereo)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -2316,6 +2692,7 @@ def main():
     kitti = phase_kitti_train(gpu)
     spatial = phase_spatial(gpu)
     phase_fit(gpu)
+    phase_breadth(gpu)
 
     def row(name, source, line, launches, max_abs, t):
         return {"name": name, "route": "cuda",

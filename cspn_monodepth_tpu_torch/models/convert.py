@@ -12,6 +12,9 @@ Layout differences handled here:
   (`conv1a_up`, `conv2_up`) apart from those of the skip (`conv1a_skip`,
   `conv2_skip`); the port's concat conv holds both, in that order along
   the input channels;
+* UpConv blocks: the same for the port's `conv`, from JAX's bare
+  parameter `conv_up` (no `kernel` level) and the conv `conv_skip/kernel`;
+  BN `bn`;
 * head: `depth_head_*` and `guidance_head_*` are the port's one 9-channel
   head, concatenated along the output channels;
 * BatchNorm: scale/bias/mean/var <-> weight/bias/running_mean/running_var.
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from cspn_monodepth_tpu_torch.models.unet import UpProjBlock
+from cspn_monodepth_tpu_torch.models.unet import UpConvBlock, UpProjBlock
 
 
 class _Entry(NamedTuple):
@@ -47,14 +50,20 @@ def _spec(model: nn.Module) -> list[_Entry]:
     ]
     done = {"head"}
     for name, m in model.named_modules():
-        if not isinstance(m, UpProjBlock):
-            continue
         path = tuple(name.split("."))
-        for conv in ("conv1a", "conv2"):
-            leaves = [("params", *path, f"{conv}_up")]
+        if isinstance(m, UpProjBlock):
+            # (port conv, JAX leaf of the unpooled map, of the skip)
+            convs = [(c, (f"{c}_up",), (f"{c}_skip",))
+                     for c in ("conv1a", "conv2")]
+        elif isinstance(m, UpConvBlock):
+            convs = [("conv", ("conv_up",), ("conv_skip", "kernel"))]
+        else:
+            continue
+        for conv, up, skip in convs:
+            leaves = [("params", *path, *up)]
             sizes = [m.in_channels]
             if m.skip_channels:
-                leaves.append(("params", *path, f"{conv}_skip"))
+                leaves.append(("params", *path, *skip))
                 sizes.append(m.skip_channels)
             spec.append(_Entry(f"{name}.{conv}.weight", tuple(leaves),
                                axis=2, sizes=tuple(sizes), conv=True))

@@ -3,7 +3,7 @@
 Counterpart of cspn_monodepth_tpu/models/cspn_net.py:
 
   input (B, H, W, 3|4|1)  [rgb | rgb+sparse-depth | sparse-depth]
-    -> ResNet encoder -> UpProj decoder (skip concat)
+    -> ResNet encoder -> UpProj or UpConv decoder (skip concat)
     -> one 9-channel f32 3x3 head (channel 0 blur depth, 1..8 guidance)
     -> CSPN propagation (num_iters, anchored on the input's sparse channel)
     -> refined depth (B, H, W, 1)

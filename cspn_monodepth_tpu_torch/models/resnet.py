@@ -2,12 +2,11 @@
 
 Counterpart of cspn_monodepth_tpu/models/resnet.py: conv1 7x7/s2 (as many
 input channels as the modality has), BN+ReLU, 3x3/s2 max pool, then
-bottleneck stages producing /4, /8, /16, /32 features. Module names follow
-the JAX parameter tree (`layer{stage}_block{i}/conv1`, ...), so that
-models/convert.py maps one onto the other by name.
-
-Only the bottleneck family (ResNet-50) is ported; the basic-block family
-(ResNet-18/34) raises. The TPU's packed stem is not ported: the plain
+stages of bottleneck blocks (ResNet-50) or basic blocks (ResNet-18/34)
+producing /4, /8, /16, /32 features. Module names follow the JAX parameter
+tree (`layer{stage}_block{i}/conv1`, ...), so that models/convert.py maps
+one onto the other by name, and models/torch_weights.py maps torchvision's
+names onto them. The TPU's packed stem is not ported: the plain
 convolution is the same math.
 """
 
@@ -97,7 +96,26 @@ def batch_norm(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
-class Bottleneck(nn.Module):
+class _Residual(nn.Module):
+    """The shortcut of both block kinds: a 1x1/s conv + BN projection
+    where the block changes the shape (JAX's `residual.shape != y.shape`),
+    the identity elsewhere."""
+
+    def _shortcut(self, in_channels: int, out: int, strides: int):
+        self.out_channels = out
+        self.conv_proj = self.bn_proj = None
+        if strides != 1 or in_channels != out:
+            self.conv_proj = conv(in_channels, out, 1, strides)
+            self.bn_proj = batch_norm(out)
+
+    def _join(self, x, y):
+        residual = x
+        if self.conv_proj is not None:
+            residual = self.bn_proj(self.conv_proj(x))
+        return F.relu(y + residual)
+
+
+class Bottleneck(_Residual):
     """1x1 -> 3x3 -> 1x1 bottleneck with identity/projection shortcut."""
 
     expansion = 4
@@ -111,35 +129,49 @@ class Bottleneck(nn.Module):
         self.bn2 = batch_norm(channels)
         self.conv3 = conv(channels, out, 1)
         self.bn3 = batch_norm(out)
-        self.conv_proj = self.bn_proj = None
-        if strides != 1 or in_channels != out:
-            self.conv_proj = conv(in_channels, out, 1, strides)
-            self.bn_proj = batch_norm(out)
+        self._shortcut(in_channels, out, strides)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x
-        if self.conv_proj is not None:
-            residual = self.bn_proj(self.conv_proj(x))
-        return F.relu(y + residual)
+        return self._join(x, self.bn3(self.conv3(y)))
+
+
+class BasicBlock(_Residual):
+    """3x3/s -> 3x3 basic residual block (ResNet-18/34), expansion 1: the
+    first block of layer1 (64 -> 64, stride 1) has no projection."""
+
+    expansion = 1
+
+    def __init__(self, in_channels: int, channels: int, strides: int = 1):
+        super().__init__()
+        self.conv1 = conv(in_channels, channels, 3, strides)
+        self.bn1 = batch_norm(channels)
+        self.conv2 = conv(channels, channels, 3)
+        self.bn2 = batch_norm(channels)
+        self._shortcut(in_channels, channels, strides)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        return self._join(x, self.bn2(self.conv2(y)))
+
+
+BLOCKS = {"bottleneck": Bottleneck, "basic": BasicBlock}
 
 
 class ResNetEncoder(nn.Module):
     """ResNet-v1 encoder returning the skip pyramid (stem, c1, c2, c3, c4):
     stem /2 with `width` channels (after conv1+BN+ReLU, before the pool),
-    c1..c4 at /4../32 with 4*width*(1, 2, 4, 8) channels."""
+    c1..c4 at /4../32 with e*width*(1, 2, 4, 8) channels, e the block's
+    expansion (4 for bottleneck, 1 for basic blocks)."""
 
     def __init__(self, in_channels: int,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, block: str = "bottleneck"):
         super().__init__()
-        if block == "basic":
-            raise NotImplementedError(
-                "the basic-block encoder (resnet18/34) is not ported yet")
-        if block != "bottleneck":
+        if block not in BLOCKS:
             raise ValueError(f"unknown encoder block: {block!r}")
+        block_cls = BLOCKS[block]
         self.conv1 = nn.Conv2d(in_channels, width, 7, 2, padding=3,
                                bias=False)
         self.bn1 = batch_norm(width)
@@ -151,8 +183,8 @@ class ResNetEncoder(nn.Module):
                 name = f"layer{stage + 1}_block{i}"
                 strides = 2 if stage > 0 and i == 0 else 1
                 self.add_module(
-                    name, Bottleneck(cin, width * 2 ** stage, strides))
-                cin = width * 2 ** stage * Bottleneck.expansion
+                    name, block_cls(cin, width * 2 ** stage, strides))
+                cin = width * 2 ** stage * block_cls.expansion
                 names.append(name)
             self.stages.append(names)
 
@@ -160,7 +192,7 @@ class ResNetEncoder(nn.Module):
     def skip_channels(self) -> tuple[int, ...]:
         """Channels of (stem, c1, c2, c3, c4)."""
         return (self.conv1.out_channels,) + tuple(
-            getattr(self, names[-1]).bn3.num_features
+            getattr(self, names[-1]).out_channels
             for names in self.stages)
 
     def forward(self, x):

@@ -1,9 +1,11 @@
-"""UNet decoder with FCRN-style UpProj blocks (PyTorch, NCHW).
+"""UNet decoder with FCRN-style UpProj or UpConv blocks (PyTorch, NCHW).
 
 Counterpart of cspn_monodepth_tpu/models/unet.py in plain math: nearest 2x
 unpool, then two branches (5x5 -> BN/ReLU -> 3x3 -> BN, and 5x5 -> BN),
 summed and ReLU'd. With a skip, the 5x5 convs read the channel concat of
 the unpooled map and the skip (the reference's `Gudi_UpProj_Block_Cat`).
+The `upconv` family (`Simple_Gudi_UpConv_Block`) has one branch: the 5x5
+conv of the same concat, BN, ReLU.
 
 Odd sizes (228x304 is not divisible by 32): the 5x5 convs run on the
 whole unpooled map and their OUTPUTS are cropped to the skip's H x W, the
@@ -25,6 +27,17 @@ import torch.nn.functional as F
 from cspn_monodepth_tpu_torch.models.resnet import batch_norm, conv
 
 
+def _unpool_cat(x, skip):
+    """Nearest 2x unpool of x, with the skip zero-extended to its size and
+    concatenated along the channels."""
+    x = F.interpolate(x, scale_factor=2, mode="nearest")
+    if skip is None:
+        return x
+    sh, sw = skip.shape[-2:]
+    skip = F.pad(skip, (0, x.shape[-1] - sw, 0, x.shape[-2] - sh))
+    return torch.cat([x, skip.to(x.dtype)], dim=1)
+
+
 class UpProjBlock(nn.Module):
     """FCRN up-projection with optional skip concatenation; the outputs of
     the 5x5 convs are cropped to `out_hw`."""
@@ -43,12 +56,8 @@ class UpProjBlock(nn.Module):
         self.bn2 = batch_norm(channels)
 
     def forward(self, x, out_hw: tuple[int, int], skip=None):
-        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        x = _unpool_cat(x, skip)
         oh, ow = out_hw
-        if skip is not None:
-            sh, sw = skip.shape[-2:]
-            skip = F.pad(skip, (0, x.shape[-1] - sw, 0, x.shape[-2] - sh))
-            x = torch.cat([x, skip.to(x.dtype)], dim=1)
         a = self.conv1a(x)[:, :, :oh, :ow]
         c = self.conv2(x)[:, :, :oh, :ow]
         a = F.relu(self.bn1a(a))
@@ -57,9 +66,35 @@ class UpProjBlock(nn.Module):
         return F.relu(a + c)
 
 
+class UpConvBlock(nn.Module):
+    """Single-branch up-convolution with optional skip concatenation:
+    unpool 2x, one 5x5 conv cropped to `out_hw`, BN, ReLU. JAX keeps the
+    kernel of the unpooled map (`conv_up`) apart from the skip's
+    (`conv_skip`), a SAME conv added after the crop; the concat conv is
+    their sum once the skip is zero-extended (module docstring)."""
+
+    def __init__(self, in_channels: int, channels: int,
+                 skip_channels: int = 0):
+        super().__init__()
+        self.in_channels = in_channels
+        self.skip_channels = skip_channels
+        self.conv = conv(in_channels + skip_channels, channels, 5)
+        self.bn = batch_norm(channels)
+
+    def forward(self, x, out_hw: tuple[int, int], skip=None):
+        oh, ow = out_hw
+        y = self.conv(_unpool_cat(x, skip))[:, :, :oh, :ow]
+        return F.relu(self.bn(y))
+
+
+BLOCKS = {"upproj": UpProjBlock, "upconv": UpConvBlock}
+
+
 class UpProjDecoder(nn.Module):
-    """Bottleneck conv (halving the deepest width), four UpProj blocks with
-    skips /32 -> /2, then a final UpProj to full resolution, no skip.
+    """Bottleneck conv (halving the deepest width), four up blocks with
+    skips /32 -> /2, then a final up block to full resolution, no skip.
+    `block` picks the family: "upproj" (UpProjBlock) or "upconv"
+    (UpConvBlock); the blocks are named upproj1..5 in both, as in JAX.
 
     skip_channels: channels of the encoder's (stem, c1, c2, c3, c4).
     """
@@ -68,19 +103,17 @@ class UpProjDecoder(nn.Module):
                  channels: tuple[int, ...] = (512, 256, 128, 64),
                  channels_out: int = 64, block: str = "upproj"):
         super().__init__()
-        if block == "upconv":
-            raise NotImplementedError(
-                "the upconv decoder block is not ported yet")
-        if block != "upproj":
+        if block not in BLOCKS:
             raise ValueError(f"unknown decoder block: {block!r}")
+        block_cls = BLOCKS[block]
         stem_c, c1, c2, c3, c4 = skip_channels
         self.bottleneck = conv(c4, c4 // 2, 3)
         self.bottleneck_bn = batch_norm(c4 // 2)
         cin = c4 // 2
         for i, (ch, cs) in enumerate(zip(channels, (c3, c2, c1, stem_c))):
-            self.add_module(f"upproj{i + 1}", UpProjBlock(cin, ch, cs))
+            self.add_module(f"upproj{i + 1}", block_cls(cin, ch, cs))
             cin = ch
-        self.upproj5 = UpProjBlock(cin, channels_out)
+        self.upproj5 = block_cls(cin, channels_out)
 
     def forward(self, skips, out_hw: tuple[int, int]):
         stem, c1, c2, c3, c4 = skips

@@ -43,11 +43,20 @@ test.csv (METRIC_FIELDS), best.txt, TensorBoard scalars and an
 rgb|gt|pred panel of the first eval batch. On a mesh rank 0 writes the
 files and every rank restores.
 
-Not ported yet: mixed-dataset batches.
+Mixed training (cfg.data.mix_dataset, `host8_dp`'s NYU + KITTI): every
+mix_every-th step of an epoch takes its batch from a second dataset, at
+its own size; the model is fully convolutional and the CSPN routes each
+shape (ops/cspn.py:route), so NYU steps run K2/K3 and KITTI steps K5/K6.
+Both streams are pure functions of (seed, epoch, step), so a resume
+inside an epoch replays them. Evaluation stays on the main dataset.
+
+`model.pretrained` grafts a torchvision ResNet file into the encoder at
+`init_state` (models/torch_weights.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -63,8 +72,16 @@ from cspn_monodepth_tpu_torch.data.pipeline import (
     make_eval_iterator,
     make_train_iterator,
 )
-from cspn_monodepth_tpu_torch.models import CSPNDepthNet, load_jax_variables
-from cspn_monodepth_tpu_torch.ops.sparse import uniform_sparse_sample
+from cspn_monodepth_tpu_torch.models import (
+    CSPNDepthNet,
+    load_jax_variables,
+    load_pretrained_encoder,
+)
+from cspn_monodepth_tpu_torch.models.cspn_net import MODALITIES
+from cspn_monodepth_tpu_torch.ops.sparse import (
+    stereo_sparse_sample,
+    uniform_sparse_sample,
+)
 from cspn_monodepth_tpu_torch.parallel.mesh import Mesh, make_mesh
 from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 from cspn_monodepth_tpu_torch.train.loss import get_loss_fn
@@ -101,9 +118,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
                  mesh: Mesh | None = None, workdir: str | None = None):
-        if cfg.data.mix_dataset:
-            raise NotImplementedError("mixed-dataset training is not ported "
-                                      "yet")
         if mesh is None and cfg.mesh.data * cfg.mesh.spatial > 1:
             mesh = make_mesh(cfg.mesh, device)
         if mesh is not None and cfg.train.batch_size % mesh.size:
@@ -120,6 +134,18 @@ class Trainer:
         self.last_panel = None
         self.train_ds = make_dataset(cfg.data, "train", seed=cfg.train.seed)
         self.val_ds = make_dataset(cfg.data, "val", seed=cfg.train.seed)
+        # The mix dataset: its own root, size and depth cap, no rotation or
+        # scaling, seed + 1, as in the JAX package.
+        self.mix_ds = None
+        if cfg.data.mix_dataset:
+            d = cfg.data
+            mix_cfg = dataclasses.replace(
+                d, dataset=d.mix_dataset, root=d.mix_root,
+                height=d.mix_height, width=d.mix_width,
+                max_depth=d.mix_max_depth, rotate_deg=0.0, scale_max=1.0,
+                mix_dataset="")
+            self.mix_ds = make_dataset(mix_cfg, "train",
+                                       seed=cfg.train.seed + 1)
         self.steps_per_epoch = cfg.train.steps_per_epoch or max(
             len(self.train_ds) // cfg.train.batch_size, 1)
         self.lr_schedule = make_lr_schedule(cfg.train, self.steps_per_epoch)
@@ -128,21 +154,22 @@ class Trainer:
     # ---------------------------------------------------------- state
     def init_state(self, variables=None) -> TrainState:
         """A fresh model from cfg.train.seed, or the JAX package's
-        {"params", "batch_stats"} tree `variables`, on the device, with
-        its optimizer, at step 0."""
+        {"params", "batch_stats"} tree `variables`, with the torchvision
+        encoder of cfg.model.pretrained grafted in when set, on the
+        device, with its optimizer, at step 0."""
         cfg = self.cfg
         if cfg.model.require_pretrained and not cfg.model.pretrained:
             raise ValueError(
                 f"config {cfg.name!r} is a paper-exact recipe that is "
                 "unstable from scratch: set model.pretrained")
-        if cfg.model.pretrained:
-            raise NotImplementedError("loading a torchvision encoder "
-                                      "(model.pretrained) is not ported yet")
         model = CSPNDepthNet.from_config(
             cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed),
             mesh=self.mesh)
         if variables is not None:
             load_jax_variables(model, variables)
+        if cfg.model.pretrained:
+            load_pretrained_encoder(model.encoder, cfg.model.pretrained,
+                                    MODALITIES[cfg.model.modality][0])
         model.to(self.device)
         return TrainState(step=0, model=model,
                           optimizer=make_optimizer(cfg.train, model))
@@ -181,16 +208,20 @@ class Trainer:
         cfg = self.cfg
         if cfg.data.num_samples <= 0:
             return torch.zeros_like(depth)
-        if cfg.data.sampler == "stereo":
-            raise NotImplementedError("simulated-stereo sampling is not "
-                                      "ported yet; use data.sampler=uniform")
+        cap = cfg.data.max_depth
+        if cfg.data.mix_dataset:
+            # One cap for both datasets: the looser one is a no-op for the
+            # shallower dataset (NYU <= 10 m is unaffected by 85 m).
+            cap = max(cap, cfg.data.mix_max_depth)
         rank, ranks = ((0, 1) if self.mesh is None
                        else (self.mesh.rank, self.mesh.size))
         b = depth.shape[0]
-        return uniform_sparse_sample(
-            depth, cfg.data.num_samples, max_depth=cfg.data.max_depth,
-            generator=generator, batch_offset=rank * b,
-            global_batch=ranks * b)
+        share = dict(max_depth=cap, generator=generator,
+                     batch_offset=rank * b, global_batch=ranks * b)
+        if cfg.data.sampler == "stereo":
+            return stereo_sparse_sample(depth, rgb, cfg.data.num_samples,
+                                        **share)
+        return uniform_sparse_sample(depth, cfg.data.num_samples, **share)
 
     def _shards(self) -> dict:
         """This rank's share of the iterators' global batches."""
@@ -249,6 +280,37 @@ class Trainer:
         return sums, pred
 
     # ---------------------------------------------------------- epochs
+    def _epoch_batches(self, epoch: int, start_step: int = 0):
+        """This epoch's batches on the device from `start_step` on, this
+        rank's share of each; with a mix dataset every mix_every-th step's
+        batch comes from it, as in the JAX package. Of the first
+        start_step steps, start_step // mix_every came from the mix
+        stream, so each stream resumes at its own step. Closing the
+        generator stops both streams' workers."""
+        cfg = self.cfg
+        total = self.steps_per_epoch
+        k = cfg.data.mix_every if self.mix_ds is not None else 0
+        n_mix = total // k if k else 0
+        mix_start = start_step // k if k else 0
+        streams = [make_train_iterator(
+            self.train_ds, global_batch=cfg.train.batch_size, epoch=epoch,
+            seed=cfg.train.seed, num_workers=cfg.data.num_workers,
+            steps=total - n_mix, start_step=start_step - mix_start,
+            **self._shards())]
+        if n_mix:
+            streams.append(make_train_iterator(
+                self.mix_ds, global_batch=cfg.train.batch_size, epoch=epoch,
+                seed=cfg.train.seed + 1, num_workers=cfg.data.num_workers,
+                steps=n_mix, start_step=mix_start, **self._shards()))
+        try:
+            main, *mix = [iter(device_prefetch(it, self.device))
+                          for it in streams]
+            for step in range(start_step, total):
+                yield next(mix[0] if n_mix and step % k == k - 1 else main)
+        finally:
+            for it in streams:
+                it.close()
+
     def train_epoch(self, state: TrainState, epoch: int, log=print,
                     start_step: int = 0, ckpt: CheckpointManager | None = None,
                     ckpt_extra: dict | None = None,
@@ -263,18 +325,13 @@ class Trainer:
         the hook that simulates a crash."""
         cfg = self.cfg
         tag = 17 * epoch + 1
-        it = make_train_iterator(
-            self.train_ds, global_batch=cfg.train.batch_size, epoch=epoch,
-            seed=cfg.train.seed, num_workers=cfg.data.num_workers,
-            steps=self.steps_per_epoch, start_step=start_step,
-            **self._shards())
+        batches = self._epoch_batches(epoch, start_step)
         meter = AverageMeter()
         sums = MetricSums.zeros(cfg.train.metrics_protocol, self.device)
         losses = []
         t_end = time.time()
         try:
-            for step, batch in enumerate(device_prefetch(it, self.device),
-                                         start=start_step):
+            for step, batch in enumerate(batches, start=start_step):
                 data_time = time.time() - t_end
                 state, loss, s = self.train_step(state, batch, tag)
                 if step % cfg.train.log_every == 0:
@@ -298,7 +355,7 @@ class Trainer:
                     break
                 t_end = time.time()
         finally:
-            it.close()
+            batches.close()
 
         metrics = finalize_metrics(sums)
         step_losses = torch.stack(losses).cpu() if losses else None

@@ -174,8 +174,8 @@ def test_fresh_model_head_is_zero_so_clamped_cspn_is_identity():
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(arch="resnet18"), NotImplementedError),
-    (dict(decoder_block="upconv"), NotImplementedError),
+    (dict(encoder_block="wide"), ValueError),
+    (dict(decoder_block="deconv"), ValueError),
     (dict(modality="rgbdd"), ValueError),
 ])
 def test_unported_or_unknown_architecture_raises(kw, error):

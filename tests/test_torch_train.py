@@ -345,19 +345,6 @@ def test_train_iterator_ranks_take_jax_records(n, global_batch, ranks):
                 ranks), (epoch, rank)
 
 
-def test_unported_datasets_and_samplers_raise():
-    # Mixed NYU + KITTI batches (host8_dp) are not ported; the NYU readers
-    # are (tests/test_torch_nyu.py).
-    cfg = get_config("host8_dp").override(**{"mesh.data": 1})
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu")
-    tiny = get_config("synthetic_tiny").override(**{"data.sampler": "stereo"})
-    trainer = Trainer(tiny, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer._sample_sparse(None, torch.ones(1, 4, 4),
-                               torch.ones(1, 4, 4, 3))
-
-
 # ------------------------------------------------------------ train steps
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
