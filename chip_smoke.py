@@ -88,7 +88,18 @@ exits non-zero:
      launches, train steps with their K2/K3 launches, one step against
      the plain loop); `stereo`: stereo_sparse_sample's scores and
      selection on the card against the CPU, timed at NYU B=32 and KITTI
-     B=8, and a train step with data.sampler=stereo.
+     B=8, and a train step with data.sampler=stereo;
+ 13. tools (run after phase 9, before the serving counts and the KITTI
+     epoch): `export`: DepthPredictor.export_program of nyu_completion_500
+     at B=1 and 32 and kitti_1216 at B=1 and 8, each program loaded in one
+     fresh process that imports torch and ops/library.py by name and builds
+     no model, its output against predict_batch, its K1 (NYU) or K4 (KITTI)
+     launches, one a call and nothing else, its host ms per call beside the
+     eager model's; `parity`: ops/parity.py's checks of K1-K9 as the JAX
+     bench runs its parity gate; `profiling`: a trace of a serving batch,
+     StepTimer, marginal_chain of K1 and kernel_roofline; `debug`:
+     checkify_step on a train step, clean and with a NaN in rgb, and a step
+     under enable_debug().
 The kernel checks (3, 6, 9) run first. Then a line with the kernel table
 and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
@@ -119,7 +130,7 @@ from cspn_monodepth_tpu_torch.data import (
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
 from cspn_monodepth_tpu_torch.models.resnet import ARCHS
 from cspn_monodepth_tpu_torch.models.torch_weights import encoder_key
-from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
+from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate, parity
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
     adjoint_sweep_plain,
@@ -141,9 +152,11 @@ from cspn_monodepth_tpu_torch.parallel import (
 )
 from cspn_monodepth_tpu_torch.train import Trainer
 from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
+from cspn_monodepth_tpu_torch.utils import debug, profiling
 
-# H100 SXM published peaks (NVIDIA data sheet, full 700 W power limit).
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM published peaks (NVIDIA data sheet, full 700 W power limit); the
+# memory rate is utils/profiling.py's, which kernel_roofline divides by.
+HBM_BYTES_PER_S = profiling.HBM_BYTES_PER_S["H100 80GB HBM3"]
 F32_FLOPS = 67e12
 
 # Max-relative error, max|a - b| / max|b|. The kernel contracts to FMA and
@@ -241,6 +254,49 @@ ARCH_STEPS = 5
 # stereo_scores on the card vs the CPU: a channel mean and two absolute
 # differences of values in [0, 1], a few float32 roundings.
 STEREO_SCORE_TOL = 1e-6
+# Phase 13, tools. The exported serving program at each served shape, loaded
+# in a fresh process; against predict_batch it is held to the JAX package's
+# own bar for its StableHLO round trip (tests/test_serving.py).
+EXPORT_CELLS = (("nyu_completion_500", 1), ("nyu_completion_500", TRAIN_BATCH),
+                ("kitti_1216", 1), ("kitti_1216", KITTI_BATCH))
+EXPORT_TOL = 1e-6
+# Calls of the loaded program at a batch shape (SINGLE_REQUESTS at B=1).
+EXPORT_BATCH_CALLS = 5
+# StepTimer: warm-up steps, then the counted ones.
+TIMER_WARMUP = 3
+TIMER_STEPS = 6
+DEBUG_BATCH = 8
+# K1's kernel as a trace names it (csrc/cspn_fwd.cu).
+K1_KERNEL = "cspn_fwd_round"
+# The process that loads the programs: torch and ops/library.py by name, no
+# model built, no config read. argv[1] is a JSON list of jobs (program,
+# input .npy, output .npy, calls); prints one JSON line per job.
+LOADER = r'''
+import json, sys, time
+import numpy as np
+import torch
+import cspn_monodepth_tpu_torch.ops.library as library
+
+for path, x_path, out_path, calls in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    program = library.load_program(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.load(x_path)).cuda()
+    program(x).cpu()
+    for fn in library.cspn_cuda.WRAPPERS:
+        fn.launches = 0
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        y = program(x).cpu()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    np.save(out_path, y.numpy())
+    print(json.dumps({"path": path, "load_s": load_s, "ms": ms,
+                      "launches": {fn.__name__: fn.launches
+                                   for fn in library.cspn_cuda.WRAPPERS},
+                      "jax_imported": "jax" in sys.modules}), flush=True)
+    del program
+'''
 
 
 def emit(phase: str, **kw):
@@ -967,7 +1023,8 @@ def timed_train(cfg, variables, batch_size: int, kernels: tuple,
     have launched once per step and no other kernel. Emits `phase` (step
     times, peak memory, launches, losses, which must be finite and fall)
     and `phase`_profile (one step under the profiler: device time by
-    class, idle share). Returns the trainer, its state and the launches."""
+    class, idle share). Returns the trainer, its state, the launches and
+    the median step ms."""
     trainer = Trainer(cfg)
     state = trainer.init_state(variables)
     batch = fixed_batch(trainer, batch_size)
@@ -1005,13 +1062,13 @@ def timed_train(cfg, variables, batch_size: int, kernels: tuple,
          peak_mem_gb=peak_gb, launches=launches, losses=losses, gpu=gpu)
     emit(f"{phase}_profile", batch=batch_size, gpu=gpu,
          **device_profile(lambda: trainer.train_step(state, batch)))
-    return trainer, state, launches
+    return trainer, state, launches, median
 
 
 def phase_train(gpu: str) -> dict:
     cfg = train_config()
     variables = randomized_variables(cfg)
-    trainer, state, launches = timed_train(
+    trainer, state, launches, _ = timed_train(
         cfg, variables, TRAIN_BATCH, ("cspn_fwd_stash", "cspn_bwd"), gpu,
         "train")
 
@@ -1403,7 +1460,7 @@ def write_kitti_frames(root: Path, rng) -> None:
 def phase_kitti_train(gpu: str) -> dict:
     cfg = kitti_config(**{"data.dataset": "synthetic"})
     variables = randomized_variables(cfg)
-    trainer, state, launches = timed_train(
+    trainer, state, launches, _ = timed_train(
         cfg, variables, KITTI_BATCH,
         ("cspn_tiled_fwd_stash", "cspn_tiled_bwd"), gpu, "kitti_train")
     del state, trainer
@@ -2672,6 +2729,242 @@ def phase_breadth(gpu: str) -> dict:
     return dict(mixed=mixed, ref=ref, archs=archs, stereo=stereo)
 
 
+def host_call_ms(fn, calls: int) -> list[float]:
+    """Host-clock ms of each of `calls` closed-loop calls of fn()."""
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def tools_export(tmp: Path, gpu: str) -> dict:
+    """export_program of each EXPORT_CELLS shape on the card, every program
+    loaded in one fresh process (LOADER), its output against predict_batch
+    on the same requests, its CSPN launches (K1 for NYU, K4 for KITTI, one
+    a call, nothing else) and its host ms per call beside the eager
+    model's (input on the card, output copied back). An `export` line per
+    cell. Returns the NYU B=32 predictor, its requests and the loader's
+    launches by cell."""
+    jobs, cells = [], []
+    nyu = None
+    for config in dict.fromkeys(c for c, _ in EXPORT_CELLS):
+        kitti = config == "kitti_1216"
+        cfg = kitti_config() if kitti else get_config(config)
+        predictor = DepthPredictor.from_variables(cfg, randomized_variables(
+            cfg))
+        h, w = cfg.data.height, cfg.data.width
+        depth_range = (1.0, KITTI_MAX_DEPTH) if kitti else (0.5, 9.5)
+        for batch in (b for c, b in EXPORT_CELLS if c == config):
+            path = tmp / f"{config}_b{batch}.pt2"
+            t0 = time.perf_counter()
+            predictor.export_program(str(path), batch=batch)
+            export_s = time.perf_counter() - t0
+            rgb, sparse = requests(np.random.default_rng(SEED + 20 + batch),
+                                   batch, h, w, depth_range=depth_range)
+            x = np.concatenate([rgb, sparse[..., None]], axis=-1)
+            np.save(tmp / f"{path.stem}_x.npy", x)
+            want = predictor.predict_batch(rgb, sparse)
+            x_dev = torch.from_numpy(x).cuda()
+            with torch.inference_mode():
+                predictor.model(x_dev).cpu()
+                eager_ms = host_call_ms(
+                    lambda: predictor.model(x_dev).cpu(),
+                    SINGLE_REQUESTS if batch == 1 else EXPORT_BATCH_CALLS)
+            calls = SINGLE_REQUESTS if batch == 1 else EXPORT_BATCH_CALLS
+            jobs.append([str(path), str(tmp / f"{path.stem}_x.npy"),
+                         str(tmp / f"{path.stem}_y.npy"), calls])
+            cells.append(dict(config=config, batch=batch, h=h, w=w,
+                              export_s=export_s, want=want, sparse=sparse,
+                              eager_ms=eager_ms, calls=calls,
+                              artifact_mb=path.stat().st_size / 1e6,
+                              kernel="cspn_tiled_fwd" if kitti
+                              else "cspn_fwd"))
+            if config == "nyu_completion_500" and batch == TRAIN_BATCH:
+                nyu = (predictor, rgb, sparse)
+        del predictor
+    out = subprocess.run([sys.executable, "-c", LOADER, json.dumps(jobs)],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    if out.returncode != 0:
+        raise AssertionError(f"the loader failed:\n{out.stderr[-4000:]}")
+    loaded = [json.loads(ln) for ln in out.stdout.splitlines()]
+    launches = {}
+    for c, job, res in zip(cells, jobs, loaded, strict=True):
+        got = np.load(job[2])[..., 0]
+        check_depth(got, c["sparse"], c["want"].shape)
+        err = float(np.abs(got - c["want"]).max() / np.abs(c["want"]).max())
+        want_launches = {n: 0 for n in res["launches"]}
+        want_launches[c["kernel"]] = c["calls"]
+        line = dict(config=c["config"], batch=c["batch"], h=c["h"], w=c["w"],
+                    artifact_mb=c["artifact_mb"], export_s=c["export_s"],
+                    load_s=res["load_s"], max_rel=err, tol=EXPORT_TOL,
+                    calls=c["calls"], launches=res["launches"],
+                    jax_imported=res["jax_imported"],
+                    program_ms_p50=float(np.median(res["ms"])),
+                    program_ms_p75=float(np.percentile(res["ms"], 75)),
+                    eager_ms_p50=float(np.median(c["eager_ms"])),
+                    eager_ms_p75=float(np.percentile(c["eager_ms"], 75)),
+                    gpu=gpu)
+        emit("export", **line)
+        if not (err <= EXPORT_TOL and res["launches"] == want_launches
+                and not res["jax_imported"]):
+            raise AssertionError(f"exported program: {line}")
+        launches[f"{c['config']}_b{c['batch']}"] = res["launches"]
+    return dict(nyu=nyu, launches=launches)
+
+
+def tools_parity(gpu: str) -> dict:
+    """ops/parity.py on the card as the JAX package's bench.py runs its
+    parity gate, for both configs: the whole plane at 228x304 (K1; K2/K3)
+    and the H-tiled route at 352x1216 (K4; K5/K6), B=2, T=24, then the
+    slab kernels (K7; K8/K9) on KITTI and NYU slabs at T=8, and the
+    routing asserts. Any error over its tolerance raises."""
+    reset_counts()
+    t0 = time.perf_counter()
+    result = {
+        "routing": parity.routing_check(),
+        "whole_plane_228x304": parity.cspn_parity_check(
+            norms=("8sum_clamp", "8sum_abs"), batch=2, h=NYU_H, w=NYU_W),
+        "tiled_352x1216": parity.cspn_parity_check(
+            norms=("8sum_clamp",), batch=2, h=KITTI_H, w=KITTI_W,
+            impl="cuda_tiled"),
+        "prenorm_104x1216": parity.prenorm_parity_check(
+            batch=2, h=104, w=KITTI_W, num_iters=8),
+        "prenorm_96x304": parity.prenorm_parity_check(
+            batch=2, h=96, w=NYU_W, num_iters=8)}
+    torch.cuda.synchronize()
+    launches = counts()
+    emit("parity", **result, fwd_tol=parity.FWD_TOL,
+         grad_tol=parity.GRAD_TOL, launches=launches,
+         seconds=time.perf_counter() - t0, gpu=gpu)
+    if not all(launches.values()):
+        raise AssertionError(f"the parity checks left a kernel unlaunched: "
+                             f"{launches}")
+    return dict(result, launches=launches)
+
+
+def tools_profiling(tmp: Path, nyu, gpu: str) -> dict:
+    """utils/profiling.py on the card: `trace` of one NYU B=32 serving
+    batch (files written, K1's round kernel named in them); StepTimer over
+    TIMER_STEPS NYU B=32 train steps after TIMER_WARMUP, beside
+    timed_train's median of the same configuration; marginal_chain of K1
+    at B=32 beside its CUDA-event time; kernel_roofline(32, 228, 304)
+    against the byte term of cspn_bound_ms."""
+    predictor, rgb, sparse = nyu
+    predictor.predict_batch(rgb, sparse)
+    logdir = tmp / "trace"
+    with profiling.trace(str(logdir)):
+        predictor.predict_batch(rgb, sparse)
+        torch.cuda.synchronize()
+    files = [p for p in logdir.rglob("*") if p.is_file()]
+    k1_named = any(K1_KERNEL in p.read_text(errors="ignore")
+                   for p in files)
+
+    cfg = train_config()
+    trainer, state, _, train_ms = timed_train(
+        cfg, randomized_variables(cfg), TRAIN_BATCH,
+        ("cspn_fwd_stash", "cspn_bwd"), gpu, "tools_train")
+    batch = fixed_batch(trainer, TRAIN_BATCH)
+    timer = profiling.StepTimer(warmup=TIMER_WARMUP)
+    for _ in range(TIMER_WARMUP + TIMER_STEPS):
+        with timer:
+            state, loss, _ = trainer.train_step(state, batch)
+    del trainer, state, batch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    guid, blur, sp = cspn_problem(gen, TRAIN_BATCH, NYU_H, NYU_W)
+    kw = dict(num_iters=24, norm_type="8sum_clamp")
+    k1_ms = time_ms(lambda: cspn_cuda.cspn_fwd(guid, blur, sp, **kw), 50)
+    step_s, dispatch_s = profiling.marginal_chain(
+        lambda d, p: cspn_cuda.cspn_fwd(p[0], d, p[1], **kw), blur,
+        (guid, sp))
+    roof = profiling.kernel_roofline(TRAIN_BATCH, NYU_H, NYU_W)
+    bound, bound_by = cspn_bound_ms(TRAIN_BATCH, NYU_H, NYU_W, 24, True)
+    line = dict(trace_files=len(files),
+                trace_mb=sum(p.stat().st_size for p in files) / 1e6,
+                trace_names_k1=k1_named,
+                step_timer_ms_mean=1e3 * timer.mean(),
+                step_timer_steps=len(timer.times),
+                step_timer_ms=[1e3 * t for t in timer.times],
+                timed_train_ms_p50=train_ms,
+                marginal_k1_ms=1e3 * step_s,
+                marginal_dispatch_ms=1e3 * dispatch_s, k1_event_ms=k1_ms,
+                roofline_ms=1e3 * roof["sol_seconds"], bound_ms=bound,
+                bound_by=bound_by, device_kind=torch.cuda.get_device_name(),
+                gpu=gpu)
+    emit("profiling", **line)
+    if not (files and k1_named and len(timer.times) == TIMER_STEPS
+            and step_s > 0 and bound_by == "bytes"
+            and abs(line["roofline_ms"] - bound) <= 1e-9 * bound):
+        raise AssertionError(f"profiling: {line}")
+    return line
+
+
+def tools_debug(gpu: str) -> dict:
+    """utils/debug.py on the card: checkify_step on one nyu_completion_500
+    train step at batch DEBUG_BATCH (float records on the card), clean,
+    then with one NaN in rgb on a fresh state (the step would spread it
+    into the weights): it must name an op that touches the input, not a
+    convolution further on; then one step under enable_debug() runs
+    finite. The global flags are restored."""
+    cfg = train_config().override(**{"train.batch_size": DEBUG_BATCH})
+    variables = randomized_variables(cfg)
+    trainer = Trainer(cfg)
+    recs = [trainer.train_ds.get(i) for i in range(DEBUG_BATCH)]
+    batch = {k: torch.from_numpy(np.stack([r[k] for r in recs])).cuda()
+             for k in ("rgb", "depth")}
+    checked = debug.checkify_step(trainer.train_step)
+    err, (_, loss, _) = checked(trainer.init_state(variables), batch)
+    clean = err.get()
+    bad = {k: v.clone() for k, v in batch.items()}
+    bad["rgb"][0, NYU_H // 2, NYU_W // 2, 1] = float("nan")
+    err, _ = checked(trainer.init_state(variables), bad)
+    nan_op = err.get()
+    try:
+        err.throw()
+        raised = False
+    except FloatingPointError:
+        raised = True
+    flags = {f: getattr(torch.backends.cudnn, f)
+             for f in ("benchmark", "deterministic", "allow_tf32")}
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        debug.enable_debug()
+        _, debug_loss, _ = trainer.train_step(trainer.init_state(variables),
+                                              batch)
+        debug_loss = float(debug_loss)
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+        for f, v in flags.items():
+            setattr(torch.backends.cudnn, f, v)
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    line = dict(batch=DEBUG_BATCH, clean_error=clean, clean_loss=float(loss),
+                nan_error=nan_op, raised=raised, debug_loss=debug_loss,
+                gpu=gpu)
+    emit("debug", **line)
+    if not (clean is None and raised and nan_op is not None
+            and "conv" not in nan_op and np.isfinite(debug_loss)):
+        raise AssertionError(f"debug: {line}")
+    return line
+
+
+def phase_tools(gpu: str) -> dict:
+    """Phase 13 in a temporary directory that it removes: the exported
+    serving program, the parity checks, the profiling and the debug
+    utilities."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tools_") as tmp:
+        tmp = Path(tmp)
+        export = tools_export(tmp, gpu)
+        prof = tools_profiling(tmp, export.pop("nyu"), gpu)
+    par = tools_parity(gpu)
+    dbg = tools_debug(gpu)
+    emit("tools", seconds=time.perf_counter() - t0, gpu=gpu)
+    return dict(export=export, parity=par, profiling=prof, debug=dbg)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -2685,6 +2978,8 @@ def main():
     k789 = phase_spatial_kernels(gpu)
     phase_geometry_sweep(gpu)
     forward_times(gpu)
+    # Before the serving counts and before the KITTI epoch (the profiler).
+    phase_tools(gpu)
     reset_counts()
     launches, max_abs_err = phase_serving(gpu)
     train = phase_train(gpu)

@@ -14,7 +14,7 @@ Training resumes from the latest checkpoint in the workdir when there is
 one. `--evaluate` evaluates the best checkpoint, else the latest, else a
 fresh model. The model runs on `--device` (default cuda); `--multihost`
 joins the process group that torchrun describes and runs each rank on its
-own card.
+own card (with `--device cpu`, on the CPU over gloo).
 """
 
 from __future__ import annotations
@@ -73,13 +73,9 @@ def main(argv=None) -> int:
 
     device, mesh = torch.device(args.device), None
     if args.multihost:
-        rank_device = init_distributed()
-        if rank_device.type != device.type:
-            raise SystemExit(f"--multihost runs each rank on "
-                             f"{rank_device.type}, --device asks for "
-                             f"{device.type}")
+        device = init_distributed(device.type)
         # Every rank on the config's mesh: refuses a world of another size.
-        device, mesh = rank_device, make_mesh(cfg.mesh, rank_device)
+        mesh = make_mesh(cfg.mesh, device)
     trainer = Trainer(cfg, device=device, mesh=mesh, workdir=args.workdir)
 
     if args.evaluate:

@@ -21,7 +21,6 @@ does with its `spatial_mesh`.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -34,6 +33,7 @@ from cspn_monodepth_tpu_torch.models.resnet import (
 )
 from cspn_monodepth_tpu_torch.models.unet import UpProjDecoder
 from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate
+from cspn_monodepth_tpu_torch.ops.library import no_tf32
 from cspn_monodepth_tpu_torch.parallel.halo import (
     cspn_propagate_spatial,
     gather_rows,
@@ -43,16 +43,6 @@ from cspn_monodepth_tpu_torch.parallel.halo import (
 # modality -> (input channels, index of the sparse-depth channel or None)
 MODALITIES = {"rgbd": (4, 3), "rgb": (3, None), "d": (1, 0)}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 class CSPNDepthNet(nn.Module):
@@ -151,7 +141,7 @@ class CSPNDepthNet(nn.Module):
         with torch.autocast(dev, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             feat = self.decoder(self.encoder(x), (h, w))
-        with torch.autocast(dev, enabled=False), _no_tf32():
+        with torch.autocast(dev, enabled=False), no_tf32():
             heads = self.head(feat.float())           # (B, 9, H, W) f32
         if self.spatial_mesh is not None:
             return self._propagate_spatial(heads, sparse)[..., None]

@@ -10,13 +10,14 @@ Two routes, as in the JAX package (its ops/cspn.py routes by image size):
   normalize the raw guidance themselves. When an input needs a gradient,
   `CSPNFunction` runs the stash forward (K2) and its backward the
   hand-written adjoint with the chain rule (K3); with no gradient wanted,
-  the forward is K1 alone.
+  the forward is K1 alone, as the operator `cspn_fwd` (ops/library.py).
 * H-tiled, `impl="cuda_tiled"` (JAX's "pallas_tiled", `_cspn_pallas_tiled`):
   `prenorm_gates9` and the anchoring of d^0 run in plain torch, then
   `TiledCSPNFunction` runs K5 forward and K6 backward (K4 alone without a
-  gradient) on the prenormalized gates. The normalization's chain rule
-  and the anchor's gradient, d_blur = (1 - m) lam^0 and d_sparse += m lam^0,
-  are torch autograd of those plain ops, as JAX takes `jax.vjp` of them.
+  gradient, as the operator `cspn_tiled_fwd`) on the prenormalized gates.
+  The normalization's chain rule and the anchor's gradient, d_blur =
+  (1 - m) lam^0 and d_sparse += m lam^0, are torch autograd of those plain
+  ops, as JAX takes `jax.vjp` of them.
 `impl="auto"` picks the route the JAX package picks on a TPU (`route`);
 `impl="torch"` is the independent plain loop under torch autograd.
 
@@ -32,15 +33,14 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+import cspn_monodepth_tpu_torch.ops.library  # noqa: F401 (the operators)
 from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
     cspn_bwd,
-    cspn_fwd,
     cspn_fwd_stash,
     cspn_prenorm_bwd,
     cspn_prenorm_fwd,
     cspn_prenorm_fwd_stash,
     cspn_tiled_bwd,
-    cspn_tiled_fwd,
     cspn_tiled_fwd_stash,
 )
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
@@ -52,6 +52,13 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
 )
 
 IMPLS = ("auto", "torch", "cuda", "cuda_tiled")
+
+# K1 and K4 without a gradient: the registered operators (ops/library.py),
+# whose CUDA implementations are the wrappers of the same names in
+# ops/cspn_cuda.py, so that eager serving and an exported program launch
+# the same operator.
+cspn_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_fwd
+cspn_tiled_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_tiled_fwd
 
 # The JAX package's routing rule, kept as the port's own copy
 # (cspn_monodepth_tpu/ops/cspn.py:_fits_vmem): an image whose ~13 f32

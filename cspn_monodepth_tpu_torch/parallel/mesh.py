@@ -83,20 +83,27 @@ def make_mesh(cfg, device: str | torch.device = "cuda") -> Mesh:
                 device=torch.device(device))
 
 
-def init_distributed(backend: str | None = None) -> torch.device:
+def init_distributed(device: str = "cuda",
+                     backend: str | None = None) -> torch.device:
     """Join the process group that torchrun describes (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR, MASTER_PORT in the environment) and return
-    this rank's device: cuda:LOCAL_RANK where there is a card (NCCL), else
-    the CPU (gloo). `backend` overrides the choice (gloo lets several ranks
-    share one card)."""
-    local_rank = int(os.environ.get("LOCAL_RANK", 0))
-    if torch.cuda.is_available():
-        device = torch.device("cuda", local_rank)
-        torch.cuda.set_device(device)
+    this rank's device: for "cuda", cuda:LOCAL_RANK over NCCL, and a
+    RuntimeError where there is no card; for "cpu", the CPU over gloo.
+    `backend` overrides the choice (gloo lets several ranks share one
+    card)."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: no CUDA device; pass "
+                               "device='cpu' to run the ranks on the CPU")
+        rank_device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                              0)))
+        torch.cuda.set_device(rank_device)
+    elif device == "cpu":
+        rank_device = torch.device("cpu")
     else:
-        device = torch.device("cpu")
+        raise ValueError(f"init_distributed: unknown device {device!r}")
     dist.init_process_group(
-        backend or ("nccl" if device.type == "cuda" else "gloo"),
+        backend or ("nccl" if device == "cuda" else "gloo"),
         init_method="env://", rank=int(os.environ["RANK"]),
         world_size=int(os.environ["WORLD_SIZE"]), timeout=TIMEOUT)
-    return device
+    return rank_device

@@ -5,6 +5,8 @@
     depth = predictor.predict(rgb)                  # (h, w, 3) -> (h, w)
     depth = predictor.predict(rgb, sparse_depth)    # depth completion
     depths = predictor.predict_batch(rgb_batch, sparse_batch)
+    predictor.export_program("depth.pt2", batch=1)  # weights baked in
+    program = load_program("depth.pt2")             # ops/library.py
 
 Counterpart of cspn_monodepth_tpu/serving.py: inputs up to the configured
 (height, width) are zero-padded to it and the output is cropped back;
@@ -21,6 +23,7 @@ import torch
 from cspn_monodepth_tpu_torch.configs import Config
 from cspn_monodepth_tpu_torch.models.convert import load_jax_variables
 from cspn_monodepth_tpu_torch.models.cspn_net import CSPNDepthNet
+from cspn_monodepth_tpu_torch.ops.library import load_program
 from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 from cspn_monodepth_tpu_torch.train.train_state import (
     TrainState,
@@ -108,3 +111,34 @@ class DepthPredictor:
         """Single image (h, w, 3) [+ (h, w) sparse] -> (h, w) depth."""
         sp = None if sparse_depth is None else sparse_depth[None]
         return self.predict_batch(rgb[None], sp)[0]
+
+    # ------------------------------------------------------------ export
+    def export_program(self, path, batch: int = 1
+                       ) -> torch.export.ExportedProgram:
+        """Write the forward pass (weights baked in, BatchNorm in eval mode)
+        to `path` as a `torch.export` program, the counterpart of the JAX
+        package's `export_stablehlo`. Input: (batch, height, width, C)
+        float32 with C fixed by the modality (rgb 3, rgbd 4, d 1); output
+        (batch, height, width, 1) depth. Returns the ExportedProgram.
+
+        The forward is traced under torch.no_grad() on the predictor's
+        device, so that the CSPN is the one node of the K1 (or K4)
+        operator and nothing of the training path. Two differences from
+        the JAX artifact, by design:
+        * loading needs the operators registered: a process imports
+          `cspn_monodepth_tpu_torch.ops.library` and calls its
+          `load_program` (the kernels are bound with ctypes, not compiled
+          into PyTorch);
+        * the program runs on the kind of device it was exported on (the
+          bf16 autocast node holds the device type): export on "cuda" for
+          the card.
+        """
+        ch = {"rgb": 3, "rgbd": 4, "d": 1}[self.model.modality]
+        example = torch.zeros((batch, self.height, self.width, ch),
+                              device=self.device)
+        with torch.no_grad():
+            program = torch.export.export(self.model, (example,))
+        # The artifact holds the program and its weights, not a request.
+        program.example_inputs = None
+        torch.export.save(program, path)
+        return program

@@ -588,3 +588,60 @@ def test_a_plan_the_kernel_cannot_run_raises(cuda, plan):
         cspn_cuda.cspn_fwd(guid, blur, sparse, num_iters=9,
                            norm_type="8sum", **plan)
     assert cspn_cuda.cspn_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sparse", [True, False])
+def test_operators_launch_the_kernels_on_the_card(cuda, with_sparse):
+    """The registered operators (ops/library.py) on CUDA tensors are the
+    wrappers: K1 and K4 launch once a call, bit for bit the wrapper's
+    output; torch.library.opcheck holds the fake and the real alike."""
+    ops = torch.ops.cspn_monodepth_tpu_torch
+    guid, blur, sparse = to(problem(12, 2, 40, 56, with_sparse), cuda)
+    before = cspn_cuda.cspn_fwd.launches
+    got = ops.cspn_fwd(guid, blur, sparse, 7, "8sum_clamp")
+    assert cspn_cuda.cspn_fwd.launches == before + 1
+    assert torch.equal(got, cspn_cuda.cspn_fwd(
+        guid, blur, sparse, num_iters=7, norm_type="8sum_clamp"))
+    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sparse)
+    before = cspn_cuda.cspn_tiled_fwd.launches
+    got = ops.cspn_tiled_fwd(gates9, d0, sparse, 7)
+    assert cspn_cuda.cspn_tiled_fwd.launches == before + 1
+    assert torch.equal(got, cspn_cuda.cspn_tiled_fwd(gates9, d0, sparse,
+                                                     num_iters=7))
+    torch.library.opcheck(ops.cspn_fwd.default,
+                          (guid, blur, sparse, 3, "8sum"))
+    torch.library.opcheck(ops.cspn_tiled_fwd.default, (gates9, d0, sparse, 3))
+
+
+@pytest.mark.cuda
+def test_program_exported_on_the_card_equals_predict_batch(cuda, tmp_path):
+    """export_program on the card, then load_program: the same output as
+    predict_batch (cuDNN's TF32 off in both), one K1 launch a call; the
+    program refuses the CPU."""
+    from cspn_monodepth_tpu_torch.ops.library import load_program
+
+    cfg = get_config("synthetic_tiny")
+    model = CSPNDepthNet.from_config(
+        cfg.model, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.05,
+                                  generator=torch.Generator().manual_seed(1))
+        model.head.bias.fill_(0.5)
+    h, w = cfg.data.height, cfg.data.width
+    predictor = DepthPredictor(model, h, w, device=cuda)
+    path = tmp_path / "tiny.pt2"
+    predictor.export_program(str(path), batch=2)
+    rng = np.random.default_rng(3)
+    rgb = rng.random((2, h, w, 3), dtype=np.float32)
+    sparse = np.where(rng.random((2, h, w)) < 0.01,
+                      rng.uniform(0.5, 9.5, (2, h, w)), 0.0).astype(np.float32)
+    want = predictor.predict_batch(rgb, sparse)
+    program = load_program(str(path), device="cuda")
+    x = torch.from_numpy(np.concatenate([rgb, sparse[..., None]], -1))
+    before = cspn_cuda.cspn_fwd.launches
+    got = program(x.to(cuda)).cpu().numpy()[..., 0]
+    assert cspn_cuda.cspn_fwd.launches == before + 1
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="exported on cuda"):
+        load_program(str(path), device="cpu")

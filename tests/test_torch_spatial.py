@@ -221,7 +221,7 @@ INIT_DISTRIBUTED = """
 import torch, torch.distributed as dist
 from cspn_monodepth_tpu_torch.configs import MeshConfig
 from cspn_monodepth_tpu_torch.parallel import init_distributed, make_mesh
-device = init_distributed()
+device = init_distributed(device="cpu")
 mesh = make_mesh(MeshConfig(data=1, spatial=1), device=device)
 x = torch.ones(3)
 dist.all_reduce(x, group=mesh.world_group)
@@ -231,9 +231,9 @@ dist.destroy_process_group()
 
 
 def test_init_distributed_joins_the_group_torchrun_describes():
-    """torchrun's environment in a fresh process without a card: the CPU,
-    gloo, the world and rank it names (MASTER_PORT=0: the store picks a
-    free port)."""
+    """torchrun's environment in a fresh process without a card, asked for
+    the CPU: gloo, the world and rank it names (MASTER_PORT=0: the store
+    picks a free port)."""
     env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                MASTER_ADDR="127.0.0.1", MASTER_PORT="0",
                CUDA_VISIBLE_DEVICES="")
@@ -241,6 +241,21 @@ def test_init_distributed_joins_the_group_torchrun_describes():
                          capture_output=True, text=True, timeout=120,
                          check=True, cwd=Path(__file__).parents[1])
     assert out.stdout.split() == ["cpu", "gloo", "1", "0", "tensor(3.)"]
+
+
+def test_init_distributed_without_a_card_raises():
+    """No CPU fallback: asked for the default "cuda" where no card is
+    visible, init_distributed raises before it joins any group."""
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="0",
+               CUDA_VISIBLE_DEVICES="")
+    code = ("from cspn_monodepth_tpu_torch.parallel import init_distributed\n"
+            "init_distributed()\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=Path(__file__).parents[1])
+    assert out.returncode != 0
+    assert "RuntimeError: init_distributed: no CUDA device" in out.stderr
 
 
 def test_non_divisible_height_pads_and_crops(ranks):
