@@ -50,12 +50,16 @@ exits non-zero:
      timed beside their plain versions and bounds; K9's stage kernels
      against their plain stages and timed;
      then the forward round's launch plan: K1 and K4 at B=1 and at the
-     batch shape and K7 on both slabs over every tile geometry
-     (`geometry` lines, every output bit for bit the same, K2 = K1 and
-     K5 = K4 at every geometry), and the six forward entries timed at
-     every shape this
+     batch shape and K7 on both slabs over every tile geometry, and K2
+     and K5 at the batch shape over every geometry (`geometry` lines,
+     every output bit for bit the same, K2 = K1 and K5 = K4, every stash
+     bit for bit the first point's; `geometry_best` with the plan's own
+     choice), and the six forward entries timed at every shape this
      script times them, with K1 and K4's round split at T = 0, 4 and 24
-     (`forward_time`, `round_split` lines);
+     and what each stash entry adds to its plain entry (`forward_time`,
+     `round_split`, `stash_split` lines). The stash entries' checks in
+     phases 3, 6 and 9 add shapes whose W is not a multiple of 4 or is
+     narrower than a tile (57x75, 13x17, 13x16; a 20x75 slab);
  10. spatial: ranks on the one card, each a process on cuda:0 over gloo
      (NCCL refuses two ranks on one device): cspn_propagate_spatial on a
      1x4 spatial group against the whole-image tiled route (K4-K6), then
@@ -915,6 +919,14 @@ def grad_case(gen, c: dict, impl: str, phase: str):
                              f"plain loop: {c} {errs}")
 
 
+def stash_path_cases() -> list[dict]:
+    """Stash shapes beside the deployed ones: W % 4 != 0 at T=24, and
+    narrower than a tile at T=5 with W % 4 != 0 and == 0."""
+    return [dict(b=1, h=57, w=75, t=24, norm="8sum_clamp", sparse=True),
+            dict(b=2, h=13, w=17, t=5, norm="8sum", sparse=True),
+            dict(b=2, h=13, w=16, t=5, norm="8sum_abs", sparse=True)]
+
+
 def phase_train_kernels(gpu: str) -> dict:
     """K2 (stash forward) and K3 (adjoint) against their plain versions on
     K1's case matrix plus zero guidance; the autograd Function's gradients
@@ -922,7 +934,7 @@ def phase_train_kernels(gpu: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases = kernel_cases() + [
         dict(b=2, h=NYU_H, w=NYU_W, t=24, norm=n, sparse=True, zero=True)
-        for n in NORM_TYPES]
+        for n in NORM_TYPES] + stash_path_cases()
     for c in cases:
         guid, blur, sp = cspn_problem(gen, c["b"], c["h"], c["w"],
                                       sparse=c["sparse"],
@@ -1253,12 +1265,14 @@ def tiled_ok(r: dict) -> bool:
 
 def kitti_kernel_cases() -> list[dict]:
     """B=2 352x1216, T in {1, 24} x 3 norms x sparse on/off; 37x48 and
-    13x17 at T=5 (H not a tile multiple, a remainder round); zero guidance
-    x 3 norms; head slices; batch 8."""
+    13x17 at T=5 (H not a tile multiple, a remainder round); 57x75 and
+    13x16 (stash_path_cases); zero guidance x 3 norms; head slices; batch
+    8."""
     cases = [dict(b=2, h=KITTI_H, w=KITTI_W, t=t, norm=n, sparse=s)
              for t in (1, 24) for n in NORM_TYPES for s in (True, False)]
     cases += [dict(b=2, h=37, w=48, t=5, norm="8sum", sparse=True),
               dict(b=2, h=13, w=17, t=5, norm="8sum_abs", sparse=False)]
+    cases += [c for c in stash_path_cases() if c["w"] != 17]
     cases += [dict(b=1, h=KITTI_H, w=KITTI_W, t=24, norm=n, sparse=True,
                    zero=True) for n in NORM_TYPES]
     cases += [dict(b=2, h=KITTI_H, w=KITTI_W, t=24, norm="8sum_clamp",
@@ -1583,7 +1597,9 @@ def phase_spatial_kernels(gpu: str) -> dict:
                                               sparse=False),
              dict(slab=(1,) + KITTI_SLAB[1:], r=HALO_K),
              dict(slab=KITTI_SLAB, r=HALO_K, edge="first"),
-             dict(slab=KITTI_SLAB, r=HALO_K, edge="last")]
+             dict(slab=KITTI_SLAB, r=HALO_K, edge="last"),
+             # W % 4 != 0.
+             dict(slab=(2, 20, 75), r=HALO_K)]
     max_abs = {}
     for c in cases:
         *args, kw = slab_problem(gen, *c["slab"], c["r"],
@@ -1690,6 +1706,16 @@ def forward_calls(gen) -> list:
     return calls
 
 
+# Each stash entry beside the entry it adds the stash to, at the shapes
+# forward_calls times both: (stash entry, plain entry, b, h, w, t).
+STASH_SPLITS = (
+    ("cspn_fwd_stash", "cspn_fwd", TRAIN_BATCH, NYU_H, NYU_W, 24),
+    ("cspn_tiled_fwd_stash", "cspn_tiled_fwd", KITTI_BATCH, KITTI_H, KITTI_W,
+     24),
+    ("cspn_prenorm_fwd_stash", "cspn_prenorm_fwd", *KITTI_SLAB, HALO_K),
+    ("cspn_prenorm_fwd_stash", "cspn_prenorm_fwd", *NYU_SLAB, HALO_K))
+
+
 def forward_times(gpu: str) -> dict:
     """Each of forward_calls timed: CUDA-event ms over 50 calls and
     torch.profiler's device ms of one, a `forward_time` line each; then a
@@ -1697,7 +1723,9 @@ def forward_times(gpu: str) -> dict:
     runs one round with no iteration (its time is the load, normalize and
     store phase alone), T=4 one round of 4 iterations, T=24 every round:
     the line models T=24 as rounds x T=0 plus 24 iterations at (T=4 -
-    T=0)/4 each. Returns the lines' times by (kernel, b, h, t)."""
+    T=0)/4 each. Then a `stash_split` line per stash entry: what the stash
+    adds to the plain entry's time, beside the stash's bytes at the card's
+    memory rate. Returns the lines' times by (kernel, b, h, t)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     times = {}
     for kernel, shape, fn in forward_calls(gen):
@@ -1721,6 +1749,21 @@ def forward_times(gpu: str) -> dict:
                  load_phase_ms=ms[0], iteration_ms=per_iter,
                  t24_model_ms=model, t24_minus_model_ms=ms[24] - model,
                  gpu=gpu)
+    for kernel, plain, b, h, w, t in STASH_SPLITS:
+        stash_bytes = 4 * b * t * h * w
+        base_ms, base_device_ms = times[(plain, b, h, t)]
+        ms, device_ms = times[(kernel, b, h, t)]
+        added = (ms - base_ms, device_ms - base_device_ms)
+        emit("stash_split", kernel=kernel, minus=plain, b=b, h=h, w=w, t=t,
+             plan_geometry=cspn_cuda.fwd_plan(b, h, w, t), ms=ms,
+             device_ms=device_ms, plain_ms=base_ms,
+             plain_device_ms=base_device_ms, minus_plain_ms=added[0],
+             minus_plain_device_ms=added[1], stash_bytes=stash_bytes,
+             stash_bytes_ms=1e3 * stash_bytes / HBM_BYTES_PER_S,
+             stash_tb_per_s=stash_bytes / added[0] / 1e9
+             if added[0] > 0 else None,
+             stash_tb_per_s_device=stash_bytes / added[1] / 1e9
+             if added[1] > 0 else None, gpu=gpu)
     return times
 
 
@@ -1740,15 +1783,33 @@ def geometry_registers(entries: list[dict], geometry: int) -> dict:
     return out
 
 
+def geometry_point(kernel, fn, b, h, w, t, geometry, entries, gpu,
+                   **extra) -> dict:
+    """Time fn() at one geometry (CUDA-event ms over 30 calls,
+    torch.profiler's device ms of one) and describe the point."""
+    tile, halo, run, minb = cspn_cuda.FWD_GEOMETRIES[geometry]
+    slab = tile + 2 * halo
+    point = dict(kernel=kernel, b=b, h=h, w=w, t=t, geometry=geometry,
+                 tile=tile, halo=halo, run=run, minb=minb,
+                 threads=slab * (slab // run),
+                 blocks_per_launch=-(-h // tile) * -(-w // tile) * b,
+                 launches=cspn_cuda.rounds(geometry, t), **extra,
+                 ms=time_ms(fn, 30), device_ms=device_profile(fn)["busy_ms"])
+    emit("geometry", **point, registers=geometry_registers(entries, geometry),
+         gpu=gpu)
+    return point
+
+
 def phase_geometry_sweep(gpu: str) -> dict:
     """K1 (NYU 228x304) and K4 (KITTI 352x1216), T=24, 8sum_clamp, at B=1
     and at the batch shape, then K7 on both deployed slabs (T=4), over
     every tile geometry: a `geometry` line per point (CUDA-event ms over
     30 calls, torch.profiler's device ms of one, the geometry's registers
     and spills); every point's output must equal the first point's bit for
-    bit, and at the batch shape K2's must equal K1's and K5's K4's at every
-    geometry. A `geometry_best` line per shape with the fastest point and
-    the wrappers' own choice."""
+    bit. Then K2 and K5 at the batch shape over every geometry: each
+    output must equal K1's (K4's) and each stash the first point's, bit
+    for bit. A `geometry_best` line per shape with the
+    fastest point and the wrappers' own choice."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     entries = parse_ptxas(cspn_cuda.build_log.get("cspn_fwd", ""))
     guid, blur, sp = cspn_problem(gen, TRAIN_BATCH, NYU_H, NYU_W)
@@ -1763,7 +1824,7 @@ def phase_geometry_sweep(gpu: str) -> dict:
 
     def k2(b, geometry):
         return cspn_cuda.cspn_fwd_stash(guid[:b], blur[:b], sp[:b], **raw,
-                                        geometry=geometry)[0]
+                                        geometry=geometry)
 
     def k4(b, geometry):
         return cspn_cuda.cspn_tiled_fwd(gates9[:b], d0[:b], ks[:b],
@@ -1772,7 +1833,7 @@ def phase_geometry_sweep(gpu: str) -> dict:
     def k5(b, geometry):
         return cspn_cuda.cspn_tiled_fwd_stash(gates9[:b], d0[:b], ks[:b],
                                               num_iters=24,
-                                              geometry=geometry)[0]
+                                              geometry=geometry)
 
     slabs = {name: slab_problem(gen, *slab, HALO_K)[:3]
              for name, slab in (("kitti_2x4", KITTI_SLAB),
@@ -1784,55 +1845,59 @@ def phase_geometry_sweep(gpu: str) -> dict:
                                               geometry=geometry)
         return fn
 
-    best = {}
-    for kernel, fn, stash_fn, (h, w), batches, t in (
-            ("cspn_fwd", k1, k2, (NYU_H, NYU_W), (1, TRAIN_BATCH), 24),
-            ("cspn_tiled_fwd", k4, k5, (KITTI_H, KITTI_W), (1, KITTI_BATCH),
+    best, wants = {}, {}
+    for kernel, fn, (h, w), batches, t in (
+            ("cspn_fwd", k1, (NYU_H, NYU_W), (1, TRAIN_BATCH), 24),
+            ("cspn_tiled_fwd", k4, (KITTI_H, KITTI_W), (1, KITTI_BATCH),
              24),
-            ("cspn_prenorm_fwd", k7("kitti_2x4"), None, KITTI_SLAB[1:],
+            ("cspn_prenorm_fwd", k7("kitti_2x4"), KITTI_SLAB[1:],
              (KITTI_SLAB[0],), HALO_K),
-            ("cspn_prenorm_fwd", k7("nyu_16x2"), None, NYU_SLAB[1:],
+            ("cspn_prenorm_fwd", k7("nyu_16x2"), NYU_SLAB[1:],
              (NYU_SLAB[0],), HALO_K)):
         for b in batches:
             want, points = None, []
-            for geometry, (tile, halo, run, minb) in enumerate(
-                    cspn_cuda.FWD_GEOMETRIES):
+            for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
                 out = fn(b, geometry)
                 want = out if want is None else want
-                same = bool(torch.equal(out, want))
-                ms = time_ms(lambda: fn(b, geometry), 30)
-                device_ms = device_profile(lambda: fn(b, geometry))[
-                    "busy_ms"]
-                slab = tile + 2 * halo
-                point = dict(kernel=kernel, b=b, h=h, w=w, t=t,
-                             geometry=geometry, tile=tile, halo=halo,
-                             run=run, minb=minb,
-                             threads=slab * (slab // run),
-                             blocks_per_launch=-(-h // tile) * -(-w // tile)
-                             * b,
-                             launches=cspn_cuda.rounds(geometry, t), ms=ms,
-                             device_ms=device_ms)
-                emit("geometry", **point,
-                     registers=geometry_registers(entries, geometry),
-                     bitwise_equal=same, gpu=gpu)
-                if not same:
+                if not torch.equal(out, want):
                     raise AssertionError(f"{kernel} at geometry {geometry} "
-                                         f"differs from {points[0]}")
-                points.append(point)
-                if stash_fn is not None and b > 1:
-                    stash_same = bool(torch.equal(stash_fn(b, geometry),
-                                                  want))
-                    emit("geometry_stash", kernel=kernel, b=b,
-                         geometry=geometry,
-                         stash_equals_plain_entry=stash_same)
-                    if not stash_same:
-                        raise AssertionError(f"the stash forward of {kernel} "
-                                             f"differs at geometry {geometry}")
+                                         f"differs from geometry 0")
+                points.append(geometry_point(
+                    kernel, lambda: fn(b, geometry), b, h, w, t, geometry,
+                    entries, gpu, bitwise_equal=True))
+            wants[(kernel, b)] = want
             own = points[cspn_cuda.fwd_plan(b, h, w, t)]
             best[(kernel, b)] = own
             emit("geometry_best", kernel=kernel, b=b,
                  fastest=min(points, key=lambda p: p["ms"]), own_plan=own,
                  gpu=gpu)
+
+    for kernel, fn, plain_entry, (h, w), b in (
+            ("cspn_fwd_stash", k2, "cspn_fwd", (NYU_H, NYU_W), TRAIN_BATCH),
+            ("cspn_tiled_fwd_stash", k5, "cspn_tiled_fwd", (KITTI_H, KITTI_W),
+             KITTI_BATCH)):
+        want, first, points = wants[(plain_entry, b)], None, []
+        for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
+            out, stash = fn(b, geometry)
+            first = stash if first is None else first
+            same = (bool(torch.equal(out, want)),
+                    bool(torch.equal(stash, first)))
+            del out, stash
+            if not all(same):
+                raise AssertionError(
+                    f"{kernel} at geometry {geometry}: output equals "
+                    f"{plain_entry}'s {same[0]}, stash equals the first "
+                    f"point's {same[1]}")
+            points.append(geometry_point(
+                kernel, lambda: fn(b, geometry), b, h, w, 24, geometry,
+                entries, gpu, equals_plain_entry=True,
+                stash_equals_first=True))
+        del first
+        own = points[cspn_cuda.fwd_plan(b, h, w, 24)]
+        best[(kernel, b)] = own
+        emit("geometry_best", kernel=kernel, b=b,
+             fastest=min(points, key=lambda p: p["ms"]), own_plan=own,
+             gpu=gpu)
     return best
 
 

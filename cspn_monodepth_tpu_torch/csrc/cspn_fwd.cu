@@ -100,10 +100,10 @@
 //        KITTI image, device 0.044; NYU B=32 0.281 ms);
 //     3: 40/12, 4-row runs, 1024 threads: beyond (KITTI B=8 0.328 ms, two
 //        rounds).
-//   Every geometry has HALO >= 4, so the spatial path's rounds of r <= 4
-//   (K7, K8) are one launch. Under their 64-register cap the stash
-//   variants of the 1024-thread geometries spill 28-56 bytes; no other
-//   variant spills.
+//   A stash call takes the same: the stash entries' own sweep found the
+//   same points fastest. Every geometry has HALO >= 4, so the spatial
+//   path's rounds of r <= 4 (K7, K8) are one launch. No variant spills
+//   under its register cap (ptxas, chip_smoke.py's build line).
 // * Per-pixel arithmetic: each pixel's gates and its 9-term fmaf chain are
 //   the same in every geometry and variant, so every geometry gives the
 //   same output bit for bit, K2's is K1's and K5's is K4's.
@@ -117,7 +117,21 @@
 // * Stash (K2, K5, K8): at the start of each iteration every block writes
 //   its tile's interior of d^t. The interior is exact at every iteration of
 //   a round, and the interiors tile the image, so the stash is exact.
-//   H and W need not be multiples of the tile.
+//   H and W need not be multiples of the tile. Each thread stores its
+//   interior pixels' d^t from registers through one pointer advanced a
+//   plane an iteration; addressing each store from t spills 20-124 bytes
+//   at the 1024-thread geometries. The stores are issued and
+//   not waited for, so the memory system overlaps them with the stencil:
+//   on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6) K2 at
+//   NYU B=32 takes 0.345 ms and K5 at KITTI B=8 0.439 (0.409 and 0.548
+//   before), the stash's bytes at the card's memory rate taking 0.064 and
+//   0.098. Two designs that copied the stash from shared memory with
+//   Hopper's bulk asynchronous copies lost there and are gone: one
+//   cp.async.bulk per interior row (~33 ns a copy per SM, K2 0.612 ms),
+//   and a cp.async.bulk.tensor store of a dense staging tile per plane
+//   (K2 0.363, K5 0.471): the iterations are bound by instruction issue,
+//   and the staging stores and the proxy fence cost more there than the
+//   per-thread stores.
 // * Strides: each plane is contiguous (row stride W), the guidance planes
 //   of one image are H*W apart, and every input takes its own batch
 //   stride, so the model's head output (B, 9, H, W) is passed as
@@ -161,8 +175,8 @@ struct Geometry {
 // One round on one slab: `guid` is the raw guidance (B, 8, H, W) for kRaw
 // and kRawToGates, else gates9 (B, 9, H, W) = [g0, g_1..8]. kRawToGates
 // writes the interior's gates9 to gates_out (contiguous (B, 9, H, W));
-// STASH writes d^(t0 + t) of the
-// interior to stash[b, t0 + t] of a contiguous (B, T, H, W) array.
+// STASH writes d^(t0 + t) of the interior to stash[b, t0 + t] of a
+// contiguous (B, T, H, W) array.
 template <int SRC, bool STASH, class G>
 __global__ void __launch_bounds__(G::THREADS, G::MINB)
 cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
@@ -264,7 +278,9 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
         for (int k = 0; k < 9; ++k) go[k * plane + base + j * W] = gate[j][k];
       }
   }
-  float* st = STASH ? stash + ((int64_t)b * T + t0) * plane : nullptr;
+  // The stash: pixel 0's element of stash[b, t0 + t], advanced a plane an
+  // iteration.
+  float* st = STASH ? stash + ((int64_t)b * T + t0) * plane + base : nullptr;
   __syncthreads();
 
   int cur = 0;
@@ -284,7 +300,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
       const float m1 = c[j];
       const float m2 = j + 1 < RUN ? c[j + 1] : below;
       if (STASH && (interior >> j & 1u))
-        st[(int64_t)t * plane + base + j * W] = m1;   // d^t
+        st[j * W] = m1;   // d^t
       float v = gate[j][0] * m1;
       v = fmaf(gate[j][1], l0, v);
       v = fmaf(gate[j][2], m0, v);
@@ -300,6 +316,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
     }
     __syncthreads();
     cur ^= 1;
+    if constexpr (STASH) st += plane;
   }
 
 #pragma unroll

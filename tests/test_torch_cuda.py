@@ -166,6 +166,8 @@ def test_small_model_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got[m], sparse[m])
 
 
+# The stash is stored by each thread: W % 4 != 0 (57x75, 13x17, 33x65)
+# and narrower than a tile (13x16, 13x17) among the shapes.
 GRAD_CASES = [
     (1, (228, 304), "8sum_clamp", True),
     (24, (228, 304), "8sum", True),
@@ -173,6 +175,8 @@ GRAD_CASES = [
     (24, (57, 76), "8sum_clamp", False),
     (5, (13, 17), "8sum", False),
     (0, (33, 65), "8sum_clamp", True),
+    (24, (57, 75), "8sum_clamp", True),
+    (5, (13, 16), "8sum", True),
 ]
 
 
@@ -303,6 +307,8 @@ TILED_CASES = [
     (24, (13, 17), "8sum_abs", False),
     (24, (97, 130), "8sum", True),
     (0, (33, 65), "8sum_clamp", True),
+    (24, (57, 75), "8sum_clamp", True),      # W % 4 != 0
+    (5, (13, 16), "8sum", True),             # narrower than a tile
 ]
 
 
@@ -548,33 +554,40 @@ def test_adjoints_are_deterministic(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["raw", "prenorm"])
-def test_every_geometry_gives_the_same_bits(cuda, route):
+@pytest.mark.parametrize("w", [53, 56])
+def test_every_geometry_gives_the_same_bits(cuda, route, w):
     """The forward round under every tile geometry of the launch plan
-    (ops/cspn_cuda.py:fwd_plan): the outputs bit for bit the same, the
-    stash entries' outputs the plain entries', and each within TOL of the
-    plain version."""
-    guid, blur, sparse = to(problem(11, 5, 37, 53), cuda)
+    (ops/cspn_cuda.py:fwd_plan), at a W that is not a multiple of 4 and
+    one that is: the outputs bit for bit the same, the stash entries'
+    outputs the plain entries', the stashes bit for bit the same and
+    within TOL of the plain stash, and each output within TOL of the plain
+    version."""
+    guid, blur, sparse = to(problem(11, 5, 37, w), cuda)
     t = 17
     if route == "raw":
         kw = dict(num_iters=t, norm_type="8sum_clamp")
         args = (guid, blur, sparse)
         fwd, stash = cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash
-        want = cspn_cuda.cspn_fwd_plain(*args, **kw)
+        want, want_stash = cspn_cuda.cspn_fwd_stash_plain(*args, **kw)
     else:
         kw = dict(num_iters=t)
         args = (prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sparse),
                 sparse)
         fwd, stash = cspn_cuda.cspn_tiled_fwd, cspn_cuda.cspn_tiled_fwd_stash
-        want = cspn_cuda.cspn_tiled_fwd_plain(*args, **kw)
-    first = None
+        want, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(*args, **kw)
+    first = first_stash = None
     for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
         got = fwd(*args, **kw, geometry=geometry)
-        out, _ = stash(*args, **kw, geometry=geometry)
+        out, st = stash(*args, **kw, geometry=geometry)
         torch.cuda.synchronize()
         first = got if first is None else first
+        first_stash = st if first_stash is None else first_stash
         assert torch.equal(got, first), geometry
         assert torch.equal(out, got), geometry
+        assert torch.equal(st, first_stash), geometry
     assert max_rel(first, want) <= TOL
+    for i in range(t):
+        assert max_rel(first_stash[:, i], want_stash[:, i]) <= TOL, i
     m = sparse > 0
     assert torch.equal(first[m], sparse[m])
 

@@ -2,11 +2,12 @@
 
 csrc/cspn_fwd.cu runs a forward call as rounds of recompute-in-halo tiles,
 each round one launch over the whole batch; the wrapper picks the tile
-geometry by shape. These tests hold the pure-Python plan to what the
-kernel needs: each geometry has a halo of at least the spatial path's 4
-rows and a block that fits an H100's threads, shared memory and
-registers, the library is rebuilt when the geometry table changes, and a
-shape or geometry the kernel cannot serve raises. The kernels themselves
+geometry by shape, a stash call (K2, K5, K8) as the plain call of its
+shape. These tests hold the pure-Python plan to what the kernel needs:
+each geometry has a halo of at least the spatial path's 4 rows and a
+block that fits an H100's threads, shared memory and registers, the
+library is rebuilt when the geometry table changes, and a shape or
+geometry the kernel cannot serve raises. The kernels themselves
 run only on the card (tests/test_torch_cuda.py); on CPU tensors the
 wrappers take the plain version whatever geometry they are given.
 """
@@ -32,7 +33,8 @@ SM_THREADS, SM_REGISTERS, SM_SMEM = 2048, 65536, 228 * 1024
 
 def geometry_resources(geometry: int) -> dict:
     """What one block of a geometry holds: threads, static shared memory
-    (bytes; two (SLAB + 2)^2 planes of d), the registers a thread may use
+    (bytes; two (SLAB + 2)^2 planes of d, in every variant: a stash
+    variant's threads store from their registers), the registers a thread may use
     under its MINB cap (allocated in units of 8) and the registers its
     pixels' state takes at least (9 gates, an anchor and d for each of RUN
     pixels)."""
@@ -130,3 +132,57 @@ def test_cpu_tensors_take_the_plain_version_under_any_geometry():
     assert torch.equal(
         cspn_cuda.cspn_tiled_fwd(g9, d0, sp, num_iters=9, geometry=2),
         cspn_cuda.cspn_tiled_fwd_plain(g9, d0, sp, num_iters=9))
+
+
+def pr6_geometry(b: int, h: int, w: int, num_iters: int) -> int:
+    """K1's, K4's and K7's geometry by shape as the H100 sweep set it
+    (PERF.md section 6)."""
+    if num_iters <= 4:
+        return 0
+    px = b * h * w
+    return 1 if px < 200_000 else 2 if px < 3_000_000 else 3
+
+
+@pytest.mark.parametrize("b,h,w", SHAPES)
+@pytest.mark.parametrize("t", [0, 4, 24])
+def test_k1_and_k4_keep_their_plan(b, h, w, t):
+    assert cspn_cuda.fwd_plan(b, h, w, t) == pr6_geometry(b, h, w, t)
+
+
+@pytest.mark.parametrize("b,h,w", SHAPES + [(2, 57, 75), (2, 13, 17),
+                                            (2, 13, 16)])
+@pytest.mark.parametrize("t", [1, 4, 24])
+def test_the_stash_plan_serves_the_shape(b, h, w, t):
+    """A stash call's launch plan: the geometry by shape, its rounds, and
+    whether more than one round runs (the wrapper's scratch)."""
+    geometry, more = cspn_cuda._launch_plan(b, h, w, t, None)
+    assert geometry == cspn_cuda.pick_geometry(b, h, w, t)
+    assert 0 <= geometry < len(cspn_cuda.FWD_GEOMETRIES)
+    # The spatial path's rounds of r <= 4 iterations are one launch.
+    assert t > 4 or cspn_cuda.rounds(geometry, t) == 1
+    assert more == (cspn_cuda.rounds(geometry, t) > 1)
+
+
+def test_cpu_stash_calls_take_the_plain_version_under_any_geometry():
+    rng = np.random.default_rng(1)
+    guid = torch.from_numpy(rng.standard_normal((2, 8, 13, 16)).astype(
+        np.float32))
+    blur = torch.from_numpy(rng.uniform(0.5, 9.5, (2, 13, 16)).astype(
+        np.float32))
+    sp = torch.where(torch.from_numpy(rng.random((2, 13, 16)) < 0.1),
+                     blur + 0.25, torch.zeros_like(blur))
+    kw = dict(num_iters=6, norm_type="8sum")
+    want = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw)
+    g9, d0 = prenorm_gates9(guid, "8sum"), anchor(blur, sp)
+    want9 = cspn_cuda.cspn_tiled_fwd_stash_plain(g9, d0, sp, num_iters=6)
+    before = (cspn_cuda.cspn_fwd_stash.launches,
+              cspn_cuda.cspn_tiled_fwd_stash.launches)
+    for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
+        for got, ref in ((cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw,
+                                                   geometry=geometry), want),
+                         (cspn_cuda.cspn_tiled_fwd_stash(
+                             g9, d0, sp, num_iters=6, geometry=geometry),
+                          want9)):
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert (cspn_cuda.cspn_fwd_stash.launches,
+            cspn_cuda.cspn_tiled_fwd_stash.launches) == before
