@@ -63,11 +63,16 @@ exits non-zero:
  10. spatial: ranks on the one card, each a process on cuda:0 over gloo
      (NCCL refuses two ranks on one device): cspn_propagate_spatial on a
      1x4 spatial group against the whole-image tiled route (K4-K6), then
-     the kitti_1216 Trainer at its own 2x4 mesh on 8 ranks at full width
-     (an f32 step against the 1x1 Trainer's, timed bf16 steps and an
-     eval step with the K7/K8/K9 launch counts of that run, peak memory
-     per rank, the ranks' parameters bit for bit). Times of this phase are
-     one card time-shared by 8 processes, not a multi-GPU figure;
+     the kitti_1216 Trainer at its own 2x4 mesh on 8 ranks at full width,
+     three runs in one spawn (MESH_RUNS): the images layout at batch 8,
+     and every feature map sharded over H (the rows layout) at batch 2,
+     which "auto" picks, and at batch 8; each an f32 step against the 1x1
+     Trainer's at the same batch, timed bf16 steps and an eval step with
+     the K7/K8/K9 launch counts and the exchanges and bytes of that run,
+     peak memory per rank, the ranks' parameters bit for bit
+     (`spatial_train`, and a `spatial_rows` line per run). Times of this
+     phase are one card time-shared by 8 processes, not a multi-GPU
+     figure;
  11. fit: nyu_completion_500 as configured (ResNet-50, batch 8) on packed
      NYU shards that the script writes (raw 480x640, tools/prepare_nyu.py's
      format): a kill after a checkpoint and a resume inside the epoch
@@ -149,6 +154,7 @@ from cspn_monodepth_tpu_torch.ops.sparse import (
     uniform_sparse_sample,
 )
 from cspn_monodepth_tpu_torch.parallel import (
+    comm,
     cspn_propagate_spatial,
     exchange_halo,
     make_mesh,
@@ -1958,17 +1964,18 @@ def param_digest(model) -> str:
     return h.hexdigest()
 
 
-def f32_step(cfg, variables, batch) -> dict:
+def f32_step(cfg, variables, batch, layout: str = "auto") -> dict:
     """One float32 train step (TF32 off, cuDNN deterministic, no clip) from
-    `variables` on `batch` with the Trainer's own sparse samples: the loss,
-    the head's gradients and the samples' sum and count."""
+    `variables` on `batch` with the Trainer's own sparse samples, in
+    `layout` on a mesh: the loss, the head's gradients and the samples'
+    sum and count."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     try:
         trainer = Trainer(cfg.override(**{"model.dtype": "float32",
                                           "train.clip_norm": 0.0}),
-                          device="cuda:0")
+                          device="cuda:0", layout=layout)
         state = trainer.init_state(variables)
         drawn = trainer._sample_sparse(trainer._rng(0, state.step),
                                        trainer._unpack(batch)["depth"], None)
@@ -1983,28 +1990,38 @@ def f32_step(cfg, variables, batch) -> dict:
         torch.backends.cudnn.deterministic = False
 
 
-def mesh_rank(rank: int, batch_np: dict) -> dict:
-    """One rank of the kitti_1216 2x4 Trainer on cuda:0: the f32 step
-    against which the 1x1 step is held, then one warm-up and SPATIAL_STEPS
-    timed bf16 steps with the launch counts set to 0 just before and read
-    just after, one eval step (K7) the same way, peak memory and a digest
-    of the parameters."""
-    torch.cuda.set_device(0)
-    cfg = mesh_config()
+# The 2x4 runs of phase 10, each on the same 8 ranks: (name, global batch,
+# layout). "auto" takes images at batch 8 (one image a rank) and rows at
+# batch 2 (one image a data group, 88 of its 352 rows a rank).
+MESH_RUNS = (("images_b8", KITTI_BATCH, "auto"), ("rows_b2", 2, "auto"),
+             ("rows_b8", KITTI_BATCH, "rows"))
+
+
+def mesh_run(rank: int, batch_np: dict, batch_size: int, layout: str
+             ) -> dict:
+    """One rank of the kitti_1216 2x4 Trainer on cuda:0 at `batch_size`
+    (the first images of batch_np) in `layout`: the f32 step against which
+    the 1x1 step is held, then one warm-up and SPATIAL_STEPS timed bf16
+    steps with the launch and exchange counts set to 0 just before and
+    read just after, one eval step (K7) the same way, peak memory and a
+    digest of the parameters."""
+    cfg = mesh_config(**{"train.batch_size": batch_size})
     variables = randomized_variables(cfg)
-    b = KITTI_BATCH // 8
-    mine = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).cuda()
+    trainer = Trainer(cfg, device="cuda:0", layout=layout)
+    index, count = trainer._share()
+    b = batch_size // count
+    mine = {k: torch.from_numpy(v[index * b:(index + 1) * b]).cuda()
             for k, v in batch_np.items()}
-    ref = f32_step(cfg, variables, mine)
+    ref = f32_step(cfg, variables, mine, trainer.layout)
     torch.cuda.empty_cache()
 
-    trainer = Trainer(cfg, device="cuda:0")
     state = trainer.init_state(variables)
     state, loss, _ = trainer.train_step(state, mine)         # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     exchange_halo.calls = 0
+    comm.reset_counts()
     step_ms, losses = [], [float(loss)]
     for _ in range(SPATIAL_STEPS):
         t0 = time.perf_counter()
@@ -2012,6 +2029,7 @@ def mesh_rank(rank: int, batch_np: dict) -> dict:
         losses.append(float(loss))
         step_ms.append(1e3 * (time.perf_counter() - t0))
     train_launches, train_exchanges = counts(), exchange_halo.calls
+    per_step = {k: v / SPATIAL_STEPS for k, v in comm.COUNTS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     reset_counts()
@@ -2023,12 +2041,63 @@ def mesh_rank(rank: int, batch_np: dict) -> dict:
     eval_launches = counts()
     return dict(ref=ref, losses=losses, step_ms=step_ms,
                 launches=train_launches, exchanges=train_exchanges,
+                comm_per_step=per_step, layout=trainer.layout,
                 eval_launches=eval_launches, eval_ms=eval_ms,
                 eval_n_images=float(sums.n_images), eval_rmse=rmse,
                 pred_finite=bool(torch.isfinite(pred).all()),
                 pred_shape=list(pred.shape), peak_gb=peak_gb,
-                digest=param_digest(state.model),
+                digest=param_digest(state.model), spatial_index=trainer.mesh.s,
                 trainer_mesh=[trainer.mesh.data, trainer.mesh.spatial])
+
+
+def mesh_rank(rank: int, batch_np: dict) -> dict:
+    """One rank's MESH_RUNS, in order."""
+    torch.cuda.set_device(0)
+    out = {}
+    for name, batch_size, layout in MESH_RUNS:
+        out[name] = mesh_run(rank, batch_np, batch_size, layout)
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_vs_single(runs: list[dict], single: dict) -> dict:
+    """A mesh run's f32 step (rank 0's loss and head gradients, every
+    data group's samples once) against the 1x1 step at the same batch."""
+    ref = runs[0]["ref"]
+    once = [r["ref"] for r in runs
+            if r["layout"] == "images" or r["spatial_index"] == 0]
+    return dict(
+        loss_mesh=ref["loss"], loss_1x1=single["loss"],
+        loss_rel=abs(ref["loss"] - single["loss"]) / abs(single["loss"]),
+        head_grad_max_rel={n: float(np.abs(ref[n] - single[n]).max()
+                                    / np.abs(single[n]).max())
+                           for n in ("weight", "bias")},
+        sparse_samples_equal=(
+            sum(r["sparse_count"] for r in once) == single["sparse_count"]
+            and abs(sum(r["sparse_sum"] for r in once)
+                    - single["sparse_sum"]) <= 1e-9 * single["sparse_sum"]),
+        tol=MESH_STEP_TOL)
+
+
+def mesh_run_ok(runs: list[dict], vs: dict, batch_size: int,
+                rounds: int) -> bool:
+    """Within MESH_STEP_TOL of the 1x1 step; K8 and K9 once a round in
+    each timed step and K7 once a round in the eval step, nothing else;
+    every rank's parameters bit for bit the same; finite outputs."""
+    want_train = {k: (SPATIAL_STEPS * rounds
+                      if k in ("cspn_prenorm_fwd_stash", "cspn_prenorm_bwd")
+                      else 0) for k in runs[0]["launches"]}
+    want_eval = {k: rounds if k == "cspn_prenorm_fwd" else 0
+                 for k in runs[0]["eval_launches"]}
+    return (vs["loss_rel"] <= MESH_STEP_TOL
+            and max(vs["head_grad_max_rel"].values()) <= MESH_STEP_TOL
+            and vs["sparse_samples_equal"]
+            and all(r["launches"] == want_train for r in runs)
+            and all(r["eval_launches"] == want_eval for r in runs)
+            and len({r["digest"] for r in runs}) == 1
+            and runs[0]["eval_n_images"] == batch_size
+            and all(r["pred_finite"] for r in runs)
+            and all(np.isfinite(r["losses"]).all() for r in runs))
 
 
 def phase_spatial(gpu: str) -> dict:
@@ -2057,71 +2126,80 @@ def phase_spatial(gpu: str) -> dict:
         raise AssertionError(f"the sharded CSPN op on 4 ranks: {errs} "
                              f"{[r['launches'] for r in op]}")
 
-    # The 1x1 reference step, freed before the ranks start.
+    # The 1x1 reference steps, freed before the ranks start.
     cfg = mesh_config()
     variables = randomized_variables(cfg)
     batch_np = {k: v.cpu().numpy() for k, v in fixed_batch(
         Trainer(cfg.override(**{"mesh.data": 1, "mesh.spatial": 1}),
                 device="cpu"), KITTI_BATCH).items()}
-    single = f32_step(cfg.override(**{"mesh.data": 1, "mesh.spatial": 1}),
-                      variables,
-                      {k: torch.from_numpy(v).cuda()
-                       for k, v in batch_np.items()})
+    single = {n: f32_step(cfg.override(**{"mesh.data": 1, "mesh.spatial": 1,
+                                          "train.batch_size": bs}),
+                          variables, {k: torch.from_numpy(v[:bs]).cuda()
+                                      for k, v in batch_np.items()})
+              for n, bs, _ in MESH_RUNS if n != "rows_b8"}
+    single["rows_b8"] = single["images_b8"]
     del variables
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ranks = spawn_ranks(mesh_rank, 8, batch_np, timeout=RANK_DEADLINE_S)
     seconds = time.perf_counter() - t0
-    r0 = ranks[0]
-    mesh_ref = r0["ref"]
-    loss_err = abs(mesh_ref["loss"] - single["loss"]) / abs(single["loss"])
-    grad_errs = {n: float(np.abs(mesh_ref[n] - single[n]).max()
-                          / np.abs(single[n]).max()) for n in ("weight",
-                                                               "bias")}
-    sparse_same = (sum(r["ref"]["sparse_count"] for r in ranks)
-                   == single["sparse_count"] and abs(
-                       sum(r["ref"]["sparse_sum"] for r in ranks)
-                       - single["sparse_sum"]) <= 1e-9 * single["sparse_sum"])
-    rounds_per_forward = rounds
-    want_train = {k: (SPATIAL_STEPS * rounds_per_forward
-                      if k in ("cspn_prenorm_fwd_stash", "cspn_prenorm_bwd")
-                      else 0) for k in r0["launches"]}
-    want_eval = {k: rounds_per_forward if k == "cspn_prenorm_fwd" else 0
-                 for k in r0["eval_launches"]}
-    digests = {r["digest"] for r in ranks}
+    runs = {n: [r[n] for r in ranks] for n, _, _ in MESH_RUNS}
+    vs = {n: mesh_vs_single(runs[n], single[n]) for n in runs}
+    images = runs["images_b8"]
+    r0 = images[0]
     emit("spatial_train", config=cfg.name, mesh=r0["trainer_mesh"], ranks=8,
          arch=cfg.model.arch, dtype=cfg.model.dtype, batch=KITTI_BATCH,
          h=KITTI_H, w=KITTI_W, num_iters=cfg.model.num_iters,
-         f32_step_vs_1x1={"loss_mesh": mesh_ref["loss"],
-                          "loss_1x1": single["loss"], "loss_rel": loss_err,
-                          "head_grad_max_rel": grad_errs,
-                          "sparse_samples_equal": sparse_same,
-                          "tol": MESH_STEP_TOL},
+         layout=r0["layout"], f32_step_vs_1x1=vs["images_b8"],
          losses=r0["losses"],
          step_ms_rank0=r0["step_ms"],
          step_ms_median_all=float(np.median(
-             [ms for r in ranks for ms in r["step_ms"]])),
+             [ms for r in images for ms in r["step_ms"]])),
          eval_ms_rank0=r0["eval_ms"],
          eval_n_images=r0["eval_n_images"], eval_rmse=r0["eval_rmse"],
-         launches_per_rank=[r["launches"] for r in ranks],
-         eval_launches_per_rank=[r["eval_launches"] for r in ranks],
-         exchanges_per_rank=[r["exchanges"] for r in ranks],
-         peak_gb_per_rank=[r["peak_gb"] for r in ranks],
-         params_identical=len(digests) == 1, seconds=seconds,
+         launches_per_rank=[r["launches"] for r in images],
+         eval_launches_per_rank=[r["eval_launches"] for r in images],
+         exchanges_per_rank=[r["exchanges"] for r in images],
+         peak_gb_per_rank=[r["peak_gb"] for r in images],
+         params_identical=len({r["digest"] for r in images}) == 1,
+         seconds=seconds,
          timing="one card time-shared by 8 processes, collectives through "
                 "the host over gloo: not a multi-GPU figure", gpu=gpu)
-    if not (loss_err <= MESH_STEP_TOL
-            and max(grad_errs.values()) <= MESH_STEP_TOL and sparse_same
-            and all(r["launches"] == want_train for r in ranks)
-            and all(r["eval_launches"] == want_eval for r in ranks)
-            and len(digests) == 1 and r0["eval_n_images"] == KITTI_BATCH
-            and all(r["pred_finite"] for r in ranks)
-            and all(np.isfinite(r["losses"]).all() for r in ranks)):
-        raise AssertionError(f"the kitti_1216 2x4 Trainer on 8 ranks: loss "
-                             f"{loss_err}, head grads {grad_errs}, sparse "
-                             f"{sparse_same}, digests {len(digests)}, "
-                             f"launches {[r['launches'] for r in ranks]}")
+    kernels = ("cspn_prenorm_fwd", "cspn_prenorm_fwd_stash",
+               "cspn_prenorm_bwd")
+    for name, batch_size, layout in MESH_RUNS:
+        rs = runs[name]
+        emit("spatial_rows", run=name, layout=rs[0]["layout"],
+             asked=layout, config=cfg.name, mesh=rs[0]["trainer_mesh"],
+             batch=batch_size, h=KITTI_H, w=KITTI_W,
+             pred_shape_rank0=rs[0]["pred_shape"],
+             f32_step_vs_1x1=vs[name], losses=rs[0]["losses"],
+             comm_exchanges_per_step_per_rank=[r["comm_per_step"]
+                                               for r in rs],
+             halo_exchanges_per_step=rs[0]["exchanges"] / SPATIAL_STEPS,
+             max_memory_allocated_gb_per_rank=[r["peak_gb"] for r in rs],
+             step_ms_gloo_on_one_card_rank0=rs[0]["step_ms"],
+             step_ms_gloo_on_one_card_median_all=float(np.median(
+                 [ms for r in rs for ms in r["step_ms"]])),
+             eval_ms_rank0=rs[0]["eval_ms"],
+             k7_k9_launches_train_per_rank=[
+                 {k: r["launches"][k] for k in kernels} for r in rs],
+             k7_k9_launches_eval_per_rank=[
+                 {k: r["eval_launches"][k] for k in kernels} for r in rs],
+             params_identical=len({r["digest"] for r in rs}) == 1,
+             timing="gloo on one card: 8 processes time-share one H100, "
+                    "collectives staged through the host; not a multi-GPU "
+                    "figure", gpu=gpu)
+    want_layout = {"images_b8": "images", "rows_b2": "rows",
+                   "rows_b8": "rows"}
+    bad = [n for n, bs, _ in MESH_RUNS
+           if not (mesh_run_ok(runs[n], vs[n], bs, rounds)
+                   and runs[n][0]["layout"] == want_layout[n])]
+    if bad:
+        raise AssertionError(f"the kitti_1216 2x4 Trainer on 8 ranks: "
+                             f"{bad} failed: {[vs[n] for n in bad]}, "
+                             f"launches {[runs[n][0]['launches'] for n in bad]}")
     return dict(train_launches=r0["launches"],
                 eval_launches=r0["eval_launches"])
 

@@ -45,8 +45,8 @@ class ModelConfig:
     packed_stem: bool = True
     # Path to a torchvision ResNet checkpoint (.pth) to graft into the
     # encoder at init — the reference's `pretrained=True` workflow (4th
-    # input channel = mean of RGB filters). Not read by the port yet.
-    # "" = random init.
+    # input channel = mean of RGB filters); Trainer.init_state grafts it
+    # (models/torch_weights.py). "" = random init.
     pretrained: str = ""
     # Refuse to train without a pretrained encoder (the paper-exact
     # "8sum" recipe is unstable from scratch — ops/cspn_ref.py norm note).

@@ -31,11 +31,12 @@ class SyntheticDataset:
     surfaces plus a shaded rendering, so training has learnable signal.
     The same records as the JAX package's SyntheticDataset."""
 
-    def __init__(self, cfg: DataConfig, split: str, seed: int = 0):
+    def __init__(self, cfg: DataConfig, split: str, seed: int = 0,
+                 length: int = 64):
         self.cfg = cfg
         self.split = split
         self.seed = seed if split == "train" else seed + 10_000
-        self.length = 64
+        self.length = length
         self._cache: dict[int, dict[str, np.ndarray]] = {}
 
     def __len__(self) -> int:

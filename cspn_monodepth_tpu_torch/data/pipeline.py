@@ -9,8 +9,11 @@ cspn_monodepth_tpu/data/pipeline.py, and a PyTorch `device_prefetch`).
 * Shuffling is a seeded per-epoch permutation, so an epoch's batches are a
   pure function of (seed, epoch, step), and a run resumed at step s of an
   epoch (`start_step`) reads what an uninterrupted run read from s on.
-* On a mesh each rank (process_index of process_count) takes its own
+* On a mesh each share (process_index of process_count) is its own
   consecutive images of every global batch, from the same permutation.
+  The Trainer hands out one share a rank on the images layout, and one a
+  data group on the rows layout (process_index the data index, every
+  spatial rank of the group reading the same images; parallel/mesh.py).
 * `device_prefetch` copies each batch from pinned host memory with
   non-blocking copies, DEVICE_AHEAD batches ahead of use, so the copy
   overlaps the running step.

@@ -15,11 +15,16 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from cspn_monodepth_tpu_torch.parallel.comm import all_reduce
+from cspn_monodepth_tpu_torch.parallel.rows import (
+    Rows,
+    conv2d_rows,
+    conv_on,
+    max_pool_rows,
+)
 
 # arch name -> (stage_sizes, block kind), as in the JAX package.
 ARCHS = {
@@ -75,10 +80,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _global_batch_norm(self, x):
         self.num_batches_tracked.add_(1)
         xf = x.float()
-        # Every rank holds as many images of the same size.
-        n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+        count = xf.new_full((x.shape[1],), x.numel() // x.shape[1])
         sums = all_reduce(torch.stack([xf.sum((0, 2, 3)),
-                                       (xf * xf).sum((0, 2, 3))]), self.group)
+                                       (xf * xf).sum((0, 2, 3)), count]),
+                          self.group)
+        n = sums[2]
         mean = sums[0] / n
         var = (sums[1] / n - mean * mean).clamp_min(0.0)
         with torch.no_grad():
@@ -108,10 +114,10 @@ class _Residual(nn.Module):
             self.conv_proj = conv(in_channels, out, 1, strides)
             self.bn_proj = batch_norm(out)
 
-    def _join(self, x, y):
+    def _join(self, x, y, rows):
         residual = x
         if self.conv_proj is not None:
-            residual = self.bn_proj(self.conv_proj(x))
+            residual = self.bn_proj(conv_on(self.conv_proj, x, rows))
         return F.relu(y + residual)
 
 
@@ -131,10 +137,11 @@ class Bottleneck(_Residual):
         self.bn3 = batch_norm(out)
         self._shortcut(in_channels, out, strides)
 
-    def forward(self, x):
+    def forward(self, x, rows: Rows | None = None):
+        """x: whole images, or this rank's rows laid out as `rows`."""
         y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        return self._join(x, self.bn3(self.conv3(y)))
+        y = F.relu(self.bn2(conv_on(self.conv2, y, rows)))
+        return self._join(x, self.bn3(self.conv3(y)), rows)
 
 
 class BasicBlock(_Residual):
@@ -151,9 +158,11 @@ class BasicBlock(_Residual):
         self.bn2 = batch_norm(channels)
         self._shortcut(in_channels, channels, strides)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        return self._join(x, self.bn2(self.conv2(y)))
+    def forward(self, x, rows: Rows | None = None):
+        """x: whole images, or this rank's rows laid out as `rows`."""
+        y = F.relu(self.bn1(conv_on(self.conv1, x, rows)))
+        out = rows and rows.down(self.conv1.stride[0])
+        return self._join(x, self.bn2(conv_on(self.conv2, y, out)), rows)
 
 
 BLOCKS = {"bottleneck": Bottleneck, "basic": BasicBlock}
@@ -195,13 +204,32 @@ class ResNetEncoder(nn.Module):
             getattr(self, names[-1]).out_channels
             for names in self.stages)
 
-    def forward(self, x):
-        stem = F.relu(self.bn1(self.conv1(x)))
-        # Pads with -inf, as the JAX package's max pool does.
-        x = F.max_pool2d(stem, 3, 2, 1)
+    def levels(self, rows: Rows) -> list[Rows]:
+        """The layouts of (stem, c1, c2, c3, c4) for an input laid out as
+        `rows`: /2, /4, ..., each ceil(height / 2) of the one before."""
+        out = [rows.down(2, "/2")]
+        for stage in range(len(self.stages)):
+            out.append(out[-1].down(2, f"/{2 ** (stage + 2)}"))
+        return out
+
+    def forward(self, x, rows: Rows | None = None):
+        """x: whole images. With `rows` (the input's layout, x still whole)
+        every feature map is this rank's rows: the stem reads its own rows
+        and their halo from x, the rest exchange halos."""
+        if rows is None:
+            stem = F.relu(self.bn1(self.conv1(x)))
+            # Pads with -inf, as the JAX package's max pool does.
+            x = F.max_pool2d(stem, 3, 2, 1)
+        else:
+            levels = self.levels(rows)
+            stem = F.relu(self.bn1(conv2d_rows(x, self.conv1, rows,
+                                               whole=True)))
+            x = max_pool_rows(stem, levels[0])
         skips = [stem]
-        for names in self.stages:
-            for name in names:
-                x = getattr(self, name)(x)
+        for stage, names in enumerate(self.stages):
+            for i, name in enumerate(names):
+                # The first block of stages 2-4 reads the level above.
+                level = stage + 1 if i or stage == 0 else stage
+                x = getattr(self, name)(x, rows and levels[level])
             skips.append(x)
         return tuple(skips)

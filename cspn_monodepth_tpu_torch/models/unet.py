@@ -14,6 +14,11 @@ first, which is the SAME zero padding of the skip once the output is
 cropped. Cropping the unpooled map before the convs would change the last
 row and column.
 
+On rows (parallel/rows.py) the 5x5 convs compute only this rank's output
+rows inside the skip's height, from a window of the unpooled map and the
+skip with a 2-row halo (`unpool_cat_rows`): they read unpooled rows past
+that height, and skip rows there read as zero, as above.
+
 The TPU's sub-pixel decomposition and packed blocks are not ported; they
 compute this same function.
 """
@@ -25,6 +30,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cspn_monodepth_tpu_torch.models.resnet import batch_norm, conv
+from cspn_monodepth_tpu_torch.parallel.rows import (
+    Rows,
+    conv2d_window,
+    conv_on,
+    unpool_cat_rows,
+)
 
 
 def _unpool_cat(x, skip):
@@ -36,6 +47,17 @@ def _unpool_cat(x, skip):
     sh, sw = skip.shape[-2:]
     skip = F.pad(skip, (0, x.shape[-1] - sw, 0, x.shape[-2] - sh))
     return torch.cat([x, skip.to(x.dtype)], dim=1)
+
+
+def _up_convs(convs, x, out_hw, skip, rows):
+    """The 5x5 convs of the unpooled concat, cropped to out_hw: on whole
+    images, or (rows = (x's layout, the output's)) on this rank's rows."""
+    oh, ow = out_hw
+    if rows is None:
+        x = _unpool_cat(x, skip)
+        return [c(x)[:, :, :oh, :ow] for c in convs]
+    x = unpool_cat_rows(x, *rows, convs[0].padding[0], skip)
+    return [conv2d_window(x, c)[..., :ow] for c in convs]
 
 
 class UpProjBlock(nn.Module):
@@ -54,14 +76,17 @@ class UpProjBlock(nn.Module):
         self.bn1b = batch_norm(channels)
         self.conv2 = conv(cin, channels, 5)
         self.bn2 = batch_norm(channels)
+        if skip_channels:
+            for c in (self.conv1a, self.conv2):
+                c.input_parts = (in_channels, skip_channels)
 
-    def forward(self, x, out_hw: tuple[int, int], skip=None):
-        x = _unpool_cat(x, skip)
-        oh, ow = out_hw
-        a = self.conv1a(x)[:, :, :oh, :ow]
-        c = self.conv2(x)[:, :, :oh, :ow]
+    def forward(self, x, out_hw: tuple[int, int], skip=None,
+                rows: tuple[Rows, Rows] | None = None):
+        """rows: None (whole images) or the layouts of x and of the output
+        (whose height is out_hw's), x and skip this rank's rows."""
+        a, c = _up_convs((self.conv1a, self.conv2), x, out_hw, skip, rows)
         a = F.relu(self.bn1a(a))
-        a = self.bn1b(self.conv1b(a))
+        a = self.bn1b(conv_on(self.conv1b, a, rows and rows[1]))
         c = self.bn2(c)
         return F.relu(a + c)
 
@@ -79,11 +104,14 @@ class UpConvBlock(nn.Module):
         self.in_channels = in_channels
         self.skip_channels = skip_channels
         self.conv = conv(in_channels + skip_channels, channels, 5)
+        if skip_channels:
+            self.conv.input_parts = (in_channels, skip_channels)
         self.bn = batch_norm(channels)
 
-    def forward(self, x, out_hw: tuple[int, int], skip=None):
-        oh, ow = out_hw
-        y = self.conv(_unpool_cat(x, skip))[:, :, :oh, :ow]
+    def forward(self, x, out_hw: tuple[int, int], skip=None,
+                rows: tuple[Rows, Rows] | None = None):
+        """rows: as UpProjBlock's."""
+        y, = _up_convs((self.conv,), x, out_hw, skip, rows)
         return F.relu(self.bn(y))
 
 
@@ -115,9 +143,16 @@ class UpProjDecoder(nn.Module):
             cin = ch
         self.upproj5 = block_cls(cin, channels_out)
 
-    def forward(self, skips, out_hw: tuple[int, int]):
+    def forward(self, skips, out_hw: tuple[int, int],
+                rows: list[Rows] | None = None):
+        """rows: None (whole images) or the layouts of the output and of
+        (stem, c1, c2, c3, c4), the skips this rank's rows."""
         stem, c1, c2, c3, c4 = skips
-        x = F.relu(self.bottleneck_bn(self.bottleneck(c4)))
+        x = F.relu(self.bottleneck_bn(conv_on(self.bottleneck, c4,
+                                              rows and rows[5])))
         for i, skip in enumerate((c3, c2, c1, stem)):
-            x = getattr(self, f"upproj{i + 1}")(x, skip.shape[-2:], skip)
-        return self.upproj5(x, out_hw)
+            hw = (skip.shape[-2] if rows is None else rows[4 - i].height,
+                  skip.shape[-1])
+            x = getattr(self, f"upproj{i + 1}")(
+                x, hw, skip, rows and (rows[5 - i], rows[4 - i]))
+        return self.upproj5(x, out_hw, rows=rows and (rows[1], rows[0]))

@@ -11,7 +11,8 @@ frame (375x1242) is ~6x an NYU frame at the same crop work per pixel.
 Built with g++ at first use into the package's `_build/` directory, keyed
 by a hash of the source. Where no compiler is found or the build fails,
 `lib()` returns None and data/transforms.py runs its numpy executor, as
-the JAX package does; `executor()` names the one that runs.
+the JAX package does; CSPN_NATIVE=0 in the environment chooses the numpy
+executor too. `executor()` names the one that runs.
 """
 
 from __future__ import annotations
@@ -79,8 +80,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def lib() -> ctypes.CDLL | None:
     """The loaded native library, building it if needed; None where it
-    cannot be built (no compiler)."""
+    cannot be built (no compiler) or is disabled (CSPN_NATIVE=0)."""
     global _lib, _tried
+    if os.environ.get("CSPN_NATIVE", "1") == "0":
+        return None
     if _lib is not None or _tried:
         return _lib
     with _lock:

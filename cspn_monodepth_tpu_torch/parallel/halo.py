@@ -19,9 +19,11 @@ spatial group (parallel/comm.py), differentiable: the backward sends each
 halo's cotangent back and adds it into the sender's edge rows, as XLA
 transposes ppermute.
 
-`scatter_rows` and `gather_rows` reshard between the model's layout (whole
-images per rank) and this one, zero-padding H to a multiple of S on the way
-in and cropping on the way out.
+`scatter_rows` and `gather_rows` reshard between the images layout's model
+(whole images per rank) and this one, zero-padding H to a multiple of S on
+the way in and cropping on the way out. On the rows layout the model
+already holds these rows (parallel/rows.py) and calls
+`cspn_propagate_spatial` on them directly, with no reshard.
 """
 
 from __future__ import annotations

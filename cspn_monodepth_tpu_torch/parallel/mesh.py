@@ -3,18 +3,25 @@ cspn_monodepth_tpu/parallel/mesh.py).
 
 The JAX package lays a 2-D device mesh out and lets GSPMD shard every array
 on it: the batch over "data", and for large images the H axis of the feature
-and depth maps over "spatial". PyTorch has no such partitioner, so the port
-computes the same function with this layout on `data * spatial` ranks:
+and depth maps over "spatial". PyTorch has no such partitioner; the port
+computes the same function on `data * spatial` ranks in one of two layouts
+(`choose_layout`), with BatchNorm statistics, the loss, the gradients and
+the metric sums reduced over the ranks (models/resnet.py, train/):
 
-* the network is data-parallel over all ranks: rank r holds images
-  [r b, (r + 1) b) of the global batch, b = B / (data * spatial), with
-  BatchNorm statistics, the loss, the gradients and the metric sums reduced
-  over the world group (models/resnet.py, train/);
-* only the CSPN runs on H slabs over "spatial" (parallel/halo.py): inside
-  each spatial group an all_to_all turns "b whole images per rank" into "the
-  data group's S b images, H / S rows each", as JAX's
-  `cspn_propagate_spatial` shards them, and a second one brings the refined
-  depth back.
+* "rows", JAX's layout: the global batch splits over "data" only, and rank
+  (d, s) computes, of the data group's images [d b, (d + 1) b), b = B /
+  data, only its rows of every feature map, the depth and the CSPN
+  (parallel/rows.py: ceil(H_l / S) rows a rank at each level, halos
+  exchanged in the spatial group);
+* "images": the network is data-parallel over all ranks, rank r holding
+  whole images [r b, (r + 1) b), b = B / (data * spatial), and only the
+  CSPN runs on H slabs over "spatial" (parallel/halo.py): an all_to_all
+  turns "b whole images per rank" into "the data group's S b images,
+  H / S rows each", and a second one brings the refined depth back.
+
+"auto" takes "images" where the batch splits over every rank (fewer
+exchanges: two all_to_alls and the CSPN's halos a forward) and "rows"
+where it splits over "data" only.
 
 Ranks are numbered data-major: rank = d * spatial + s, as
 `np.reshape(devices, (data, spatial))` orders the JAX mesh. Multi-host
@@ -59,6 +66,42 @@ class Mesh:
     @property
     def s(self) -> int:
         return self.rank % self.spatial
+
+
+LAYOUTS = ("auto", "images", "rows")
+
+
+def choose_layout(mesh: Mesh | None, batch_size: int | None,
+                  layout: str = "auto") -> str:
+    """The layout ("images" or "rows") of a model on `mesh` for the global
+    `batch_size`: "auto" is "images" where the batch splits over data *
+    spatial ranks (or is not given, or there is no mesh) and "rows" where
+    it splits over mesh.data only. Refuses a batch that does not split over
+    mesh.data, "images" for one that does not split over every rank, and
+    "rows" without a spatial axis > 1.
+
+    The criterion is per-rank memory and exchanges a step, measured on one
+    card time-shared by every rank (PERF.md): where both layouts apply,
+    images held less memory and made fewer exchanges. How the two compare
+    in step time across several cards is not measured yet, and may change
+    this choice."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}: one of {LAYOUTS}")
+    if layout == "rows" and (mesh is None or mesh.spatial == 1):
+        raise ValueError("the rows layout needs a spatial axis > 1")
+    if mesh is None or batch_size is None:
+        return "rows" if layout == "rows" else "images"
+    if batch_size % mesh.data:
+        raise ValueError(f"batch {batch_size} does not split over the "
+                         f"{mesh.data}x{mesh.spatial} mesh's {mesh.data} "
+                         "data groups")
+    if layout == "auto":
+        layout = "images" if batch_size % mesh.size == 0 else "rows"
+    if layout == "images" and batch_size % mesh.size:
+        raise ValueError(f"batch {batch_size} does not split over the "
+                         f"{mesh.data}x{mesh.spatial} mesh's {mesh.size} "
+                         "ranks: the images layout needs a multiple")
+    return layout
 
 
 def make_mesh(cfg, device: str | torch.device = "cuda") -> Mesh:

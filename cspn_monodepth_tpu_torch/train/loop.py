@@ -23,15 +23,24 @@ of an eval batch by (seed, eval tag, batch index), so evaluation is
 deterministic. They are not the JAX package's threefry samples.
 
 On a data x spatial mesh (parallel/mesh.py) each of the data * spatial
-ranks runs this Trainer on its own images of every global batch (the
-iterators hand each rank its share; `train_step` and `eval_step` take it).
-BatchNorm, the loss's pixel count, the gradients and the metric sums are
-reduced over all ranks, and the CSPN runs on H slabs over "spatial", so a
-step computes what one device computes on the global batch, and every rank
-ends it with the same parameters. Each rank draws the whole batch's sparse
-scores and keeps its own images', so the samples do not depend on the
-mesh. Unlike the JAX package, the global batch must split evenly over all
-ranks.
+ranks runs this Trainer on its share of every global batch (the iterators
+hand it out; `train_step` and `eval_step` take it), in the layout that
+parallel/mesh.py `choose_layout` picks from the global batch (or that
+`layout=` forces):
+* "rows", as the JAX package shards: the batch splits over mesh.data,
+  every rank of a data group is given the group's whole images, and each
+  computes its rows of every feature map; the sparse samples are drawn on
+  the whole images, then each rank keeps its rows of the input's depth
+  and of the target;
+* "images", where the batch splits over every rank: each rank computes
+  its own whole images, and only the CSPN runs on H slabs.
+BatchNorm, the loss's pixel count and the gradients are reduced over all
+ranks, and the metric sums over the ranks that hold distinct images (on
+rows, each image is first finished over its spatial group), so a step
+computes what one device computes on the global batch, and every rank ends
+it with the same parameters. Each rank draws the sparse scores of the
+whole batch and keeps its own images', so the samples do not depend on the
+mesh or the layout.
 
 `fit` runs the epochs as the JAX package's does, in `workdir` (default
 cfg.train.checkpoint_dir): it restores the latest checkpoint
@@ -82,7 +91,16 @@ from cspn_monodepth_tpu_torch.ops.sparse import (
     stereo_sparse_sample,
     uniform_sparse_sample,
 )
-from cspn_monodepth_tpu_torch.parallel.mesh import Mesh, make_mesh
+from cspn_monodepth_tpu_torch.parallel.mesh import (
+    Mesh,
+    choose_layout,
+    make_mesh,
+)
+from cspn_monodepth_tpu_torch.parallel.rows import (
+    Rows,
+    fetch_rows,
+    row_range,
+)
 from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 from cspn_monodepth_tpu_torch.train.loss import get_loss_fn
 from cspn_monodepth_tpu_torch.train.metrics import (
@@ -113,18 +131,16 @@ PANEL_IMAGES = 4
 class Trainer:
     """Train and evaluate cfg's model on `device`, or on `mesh` (a
     parallel.Mesh over the initialized process group; built from cfg.mesh
-    when that asks for more than one rank); checkpoints and logs go to
-    `workdir`."""
+    when that asks for more than one rank) in `layout` ("auto", "images"
+    or "rows"; parallel/mesh.py `choose_layout`); checkpoints and logs go
+    to `workdir`."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
-                 mesh: Mesh | None = None, workdir: str | None = None):
+                 mesh: Mesh | None = None, workdir: str | None = None,
+                 layout: str = "auto"):
         if mesh is None and cfg.mesh.data * cfg.mesh.spatial > 1:
             mesh = make_mesh(cfg.mesh, device)
-        if mesh is not None and cfg.train.batch_size % mesh.size:
-            raise ValueError(
-                f"batch {cfg.train.batch_size} does not split over the "
-                f"{mesh.data}x{mesh.spatial} mesh's {mesh.size} ranks: the "
-                "port's data-parallel network needs a multiple")
+        self.layout = choose_layout(mesh, cfg.train.batch_size, layout)
         self.cfg = cfg
         self.mesh = mesh
         self.group = None if mesh is None else mesh.world_group
@@ -164,7 +180,7 @@ class Trainer:
                 "unstable from scratch: set model.pretrained")
         model = CSPNDepthNet.from_config(
             cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed),
-            mesh=self.mesh)
+            mesh=self.mesh, layout=self.layout)
         if variables is not None:
             load_jax_variables(model, variables)
         if cfg.model.pretrained:
@@ -213,8 +229,7 @@ class Trainer:
             # One cap for both datasets: the looser one is a no-op for the
             # shallower dataset (NYU <= 10 m is unaffected by 85 m).
             cap = max(cap, cfg.data.mix_max_depth)
-        rank, ranks = ((0, 1) if self.mesh is None
-                       else (self.mesh.rank, self.mesh.size))
+        rank, ranks = self._share()
         b = depth.shape[0]
         share = dict(max_depth=cap, generator=generator,
                      batch_offset=rank * b, global_batch=ranks * b)
@@ -223,12 +238,40 @@ class Trainer:
                                         **share)
         return uniform_sparse_sample(depth, cfg.data.num_samples, **share)
 
+    def _share(self) -> tuple[int, int]:
+        """(index, count) of this rank's share of a global batch: its data
+        group's on rows (every rank of the group reads the same images),
+        its own on images."""
+        if self.mesh is None:
+            return 0, 1
+        if self.layout == "rows":
+            return self.mesh.d, self.mesh.data
+        return self.mesh.rank, self.mesh.size
+
     def _shards(self) -> dict:
         """This rank's share of the iterators' global batches."""
         if self.mesh is None:
             return {}
-        return dict(process_index=self.mesh.rank,
-                    process_count=self.mesh.size)
+        index, count = self._share()
+        return dict(process_index=index, process_count=count)
+
+    def _mine(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of (B, H, ...) maps on rows; t itself on
+        images."""
+        if self.layout != "rows":
+            return t
+        lo, hi = row_range(t.shape[1], self.mesh.spatial, self.mesh.s)
+        return t[:, lo:hi]
+
+    def _metric_sums(self, pred, target, **kw) -> MetricSums:
+        """The global batch's metric sums, the same on every rank."""
+        rows = self.layout == "rows"
+        sums = metric_sums_from_batch(
+            pred, target, protocol=self.cfg.train.metrics_protocol,
+            spatial_group=self.mesh.spatial_group if rows else None, **kw)
+        if self.mesh is None:
+            return sums
+        return sums.all_reduce(self.mesh.data_group if rows else self.group)
 
     # ---------------------------------------------------------- steps
     def train_step(self, state: TrainState, batch: dict, tag: int = 0):
@@ -241,7 +284,7 @@ class Trainer:
         sparse = self._sample_sparse(self._rng(tag, state.step),
                                      batch["depth"], batch["rgb"])
         x = self._assemble_input(batch["rgb"], sparse)
-        target = batch["depth"][..., None]
+        target = self._mine(batch["depth"])[..., None]
 
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -252,31 +295,26 @@ class Trainer:
                               self.group)
         loss = loss.detach()
         with torch.no_grad():
-            sums = metric_sums_from_batch(
-                pred, target, protocol=cfg.train.metrics_protocol)
+            sums = self._metric_sums(pred, target)
         if self.group is not None:
             torch.distributed.all_reduce(loss, group=self.group)
-            sums = sums.all_reduce(self.group)
         return state, loss, sums
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict, batch_idx: int):
         """Metric sums of one eval batch (of the global batch on a mesh)
-        and the prediction of this rank's images, BN on its running
-        statistics; the sparse input is a pure function of batch_idx."""
-        cfg = self.cfg
+        and the prediction of this rank's images (on rows: its rows of
+        them), BN on its running statistics; the sparse input is a pure
+        function of batch_idx."""
         batch = self._unpack(self._to_device(batch))
         sparse = self._sample_sparse(self._rng(EVAL_TAG, batch_idx),
                                      batch["depth"], batch["rgb"])
         x = self._assemble_input(batch["rgb"], sparse)
         pred = state.model.eval()(x)
-        sums = metric_sums_from_batch(
-            pred, batch["depth"][..., None],
+        sums = self._metric_sums(
+            pred, self._mine(batch["depth"])[..., None],
             valid_image=batch.get("valid_image"),
-            max_depth=cfg.data.eval_max_depth,
-            protocol=cfg.train.metrics_protocol)
-        if self.group is not None:
-            sums = sums.all_reduce(self.group)
+            max_depth=self.cfg.data.eval_max_depth)
         return sums, pred
 
     # ---------------------------------------------------------- epochs
@@ -386,6 +424,14 @@ class Trainer:
                 sums = sums + s
                 if i == 0:
                     n_warm = float(sums.n_images)
+                    if save_panels and self.layout == "rows":
+                        # Every rank of the spatial group takes part.
+                        rows = Rows(self.mesh, batch["depth"].shape[1])
+                        with torch.no_grad():
+                            pred = fetch_rows(
+                                pred.movedim(-1, 1), rows,
+                                [(0, rows.height)] * self.mesh.spatial
+                            ).movedim(1, -1)
                     if save_panels and self.is_main:
                         self._save_panel(batch, pred, epoch)
                     t_warm = time.time()

@@ -11,7 +11,10 @@ Two averaging protocols, as in the JAX package:
 * "pixel": means over all valid pixels.
 Both take an eval depth cap (`max_depth` > 0 excludes gt above it) and a
 per-image `valid_image` weight that drops the padding of the last eval
-batch.
+batch. On the rows layout (parallel/rows.py) each rank holds some rows of
+every image: each image's partial sums and pixel count are first summed
+over the spatial group (`spatial_group`), then the image is finished, and
+the finished sums are the same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -78,12 +81,14 @@ def metric_sums_from_batch(
     valid_image: torch.Tensor | None = None,
     max_depth: float = 0.0,
     protocol: str = "image",
+    spatial_group=None,
 ) -> MetricSums:
     """Per-batch metric sums on the device.
 
-    pred/target: (B, H, W) or (B, H, W, 1) depth in meters; target == 0
-    marks invalid pixels. Predictions are clamped to >= 1e-3 m before the
-    ratio, inverse and log metrics, as in the JAX package.
+    pred/target: (B, H, W) or (B, H, W, 1) depth in meters, or this rank's
+    rows of them with the `spatial_group` that holds the others; target ==
+    0 marks invalid pixels. Predictions are clamped to >= 1e-3 m before
+    the ratio, inverse and log metrics, as in the JAX package.
     """
     if pred.dim() == 4:
         pred = pred[..., 0]
@@ -117,23 +122,27 @@ def metric_sums_from_batch(
         "imae": (inv_d - inv_g).abs(),
     }
 
-    if protocol == "pixel":
-        img_has_valid = (m.sum((1, 2)) > 0).float()
-        return MetricSums(protocol="pixel", n_images=img_has_valid.sum(),
-                          n_pixels=m.sum(),
-                          **{k: (x * m).sum() for k, x in terms.items()})
-    if protocol != "image":
+    if protocol not in ("image", "pixel"):
         raise ValueError(f"unknown metrics protocol {protocol!r}")
-
-    npix = m.sum((1, 2))                        # (B,)
+    # (1 + terms, B): each image's pixel count and sums over its pixels.
+    per_image = torch.stack([m.sum((1, 2))] + [(x * m).sum((1, 2))
+                                               for x in terms.values()])
+    if spatial_group is not None:
+        dist.all_reduce(per_image, group=spatial_group)
+    npix, per_image = per_image[0], dict(zip(terms, per_image[1:]))
     w = (npix > 0).float()                      # image weight
+    if protocol == "pixel":
+        return MetricSums(protocol="pixel", n_images=w.sum(),
+                          n_pixels=npix.sum(),
+                          **{k: x.sum() for k, x in per_image.items()})
+
     denom = npix.clamp_min(1.0)
     sums = {}
-    for k, x in terms.items():
-        per_image = (x * m).sum((1, 2)) / denom
+    for k, x in per_image.items():
+        x = x / denom
         if k in ("rmse", "irmse"):
-            per_image = per_image.sqrt()
-        sums[k] = (per_image * w).sum()
+            x = x.sqrt()
+        sums[k] = (x * w).sum()
     return MetricSums(protocol="image", n_images=w.sum(),
                       n_pixels=(npix * w).sum(), **sums)
 

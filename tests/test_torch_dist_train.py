@@ -26,7 +26,12 @@ this module without JAX, which only the pytest process imports.
   sampler's samples of its images;
 * train_epoch and evaluate through the iterators, each rank its share:
   the global batch's metrics, equal on every rank;
-* a batch that does not split over the mesh's ranks is refused.
+* at 2x4 (batch 8), the same two steps and eval step with every feature
+  map on rows (`layout="rows"`, tests/test_torch_rows.py): within the
+  same tolerances of the whole-image layout's on the same batch;
+* "auto" takes the whole-image layout where the batch splits over every
+  rank, the rows layout where it splits over mesh.data only (batch 12 on
+  2x4), and a batch that does not split over mesh.data is refused.
 """
 
 import dataclasses
@@ -51,6 +56,7 @@ TINY = {"model.dtype": "float32", "model.arch": "",
 # Two pixels of one image at a delta threshold.
 DELTA_ATOL = 2.0 / (TINY["data.height"] * TINY["data.width"])
 MESHES = {(2, 4): 8, (2, 2): 4}       # mesh -> global batch
+ROWS_VS_IMAGES = (2, 4)
 EVAL_IMAGES = 5
 DEADLINE_S = 300
 
@@ -90,6 +96,17 @@ def _rank_run(rank, data, spatial, variables, batch, sparse, workdir):
     out = run_steps(trainer, variables, local, sparse[mine],
                     dict(local, valid_image=np.ones(b, np.float32)))
     out["drawn"] = drawn.numpy()
+    assert trainer.layout == "images"
+    if (data, spatial) == ROWS_VS_IMAGES:
+        # Every feature map on rows: the data group's images on every
+        # rank of the group.
+        rows = Trainer(cfg, device="cpu", layout="rows")
+        n = b * spatial
+        group = slice(rows.mesh.d * n, (rows.mesh.d + 1) * n)
+        out["rows"] = run_steps(
+            rows, variables, {k: v[group] for k, v in batch.items()},
+            sparse[group], {**{k: v[group] for k, v in batch.items()},
+                            "valid_image": np.ones(n, np.float32)})
 
     # An epoch of one step and an evaluation of 5 images (the last batch
     # padded) through the iterators, each rank taking its share.
@@ -269,9 +286,29 @@ def test_sparse_samples_do_not_depend_on_the_mesh(ranks, single):
     np.testing.assert_array_equal(drawn, want)
 
 
+@pytest.mark.parametrize("ranks", [ROWS_VS_IMAGES], indirect=True,
+                         ids=["2x4"])
+@pytest.mark.parametrize("steps", [1, 2])
+def test_rows_layout_matches_the_images_layout(ranks, steps):
+    for r in ranks["results"]:
+        got, want = r["rows"], r
+        assert got["losses"][steps - 1] == pytest.approx(
+            want["losses"][steps - 1], rel=LOSS_TOL)
+        assert_states_close(got["states"][steps - 1],
+                            want["states"][steps - 1])
+        for name, w in want["sums"].items():
+            atol = DELTA_ATOL if name.startswith("delta") else 0.0
+            np.testing.assert_allclose(got["sums"][name], w, rtol=SUMS_TOL,
+                                       atol=atol, err_msg=name)
+
+
 def test_a_batch_that_does_not_split_over_the_ranks_is_refused():
     mesh = Mesh(data=2, spatial=4, rank=0, world_group=None,
                 data_group=None, spatial_group=None,
                 device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="batch 12 does not split over"):
-        Trainer(port_config(2, 4, 12), device="cpu", mesh=mesh)
+    assert Trainer(port_config(2, 4, 8), device="cpu",
+                   mesh=mesh).layout == "images"
+    assert Trainer(port_config(2, 4, 12), device="cpu",
+                   mesh=mesh).layout == "rows"
+    with pytest.raises(ValueError, match="batch 7 does not split over"):
+        Trainer(port_config(2, 4, 7), device="cpu", mesh=mesh)
