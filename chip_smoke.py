@@ -27,13 +27,17 @@ exits non-zero:
      plain CSPN loop, and a small f32 model's train step on the card
      against the CPU;
   6. kitti_kernels: the H-tiled route's kernels (K4 forward, K5 stash
-     forward, K6 adjoint, on prenormalized gates) against their plain
-     versions at KITTI's 352x1216 and at edge cases, TiledCSPNFunction's
+     forward, K6 adjoint, on the raw inputs as JAX's `_cspn_pallas_tiled`
+     takes them, through K1-K3's C entries) against their plain versions
+     at KITTI's 352x1216 and at edge cases, K5 = K4 and K4 = the gates9
+     contract on cspn_gates9's planes bit for bit, TiledCSPNFunction's
      gradients against torch autograd of the plain loop, the tiled route
-     against K1 on the same raw guidance; K4-K6, K1, the plain versions
-     and the prenormalization timed at batch 8, K4 also at batch 1; K6's
-     stage kernels (sweep, sums) against their plain stages and timed, two
-     K6 runs bit for bit;
+     against K1 on the same raw guidance; K4-K6, K1 and the plain versions
+     timed at batch 8, K4 also at batch 1; K6's stage kernels (gates9,
+     sweep, sums) against their plain stages and timed, two K6 runs bit
+     for bit; what the normalization costs on the route against the plain
+     ops it replaced (`prenorm_time`), and the two ways to serve without a
+     gradient (`serving_route`);
   7. kitti_serving: DepthPredictor at the full width of kitti_1216 (one
      device) with seeded random weights, single requests and batches of 8,
      the K4/K1 launch counts of that run, a profile of one batch, the path
@@ -46,9 +50,12 @@ exits non-zero:
   9. spatial_kernels: the spatial path's slab kernels (K7 forward, K8
      stash forward, K9 adjoint) against their plain versions on the
      deployed slabs (kitti_1216 on 2x4: 4 x 96x1216; multihost on 16x2:
-     16 x 122x304), a remainder round, B=1 and a first and a last shard;
-     timed beside their plain versions and bounds; K9's stage kernels
-     against their plain stages and timed;
+     16 x 122x304), a remainder round, B=1 and a first and a last shard,
+     and d^0 anchored on load (the slab route's first round); timed beside
+     their plain versions and bounds; K9's stage kernels against their
+     plain stages and timed; the normalization's kernel pair cspn_gates9 /
+     cspn_gates9_bwd against its plain versions at KITTI and slab shapes
+     and at zero guidance, and timed (`gates9_case`);
      then the forward round's launch plan: K1 and K4 at B=1 and at the
      batch shape and K7 on both slabs over every tile geometry, and K2
      and K5 at the batch shape over every geometry (`geometry` lines,
@@ -68,11 +75,14 @@ exits non-zero:
      and every feature map sharded over H (the rows layout) at batch 2,
      which "auto" picks, and at batch 8; each an f32 step against the 1x1
      Trainer's at the same batch, timed bf16 steps and an eval step with
-     the K7/K8/K9 launch counts and the exchanges and bytes of that run,
+     the slab route's launch counts (K7/K8/K9, cspn_gates9,
+     cspn_gates9_bwd) and the exchanges and bytes of that run,
      peak memory per rank, the ranks' parameters bit for bit
      (`spatial_train`, and a `spatial_rows` line per run). Times of this
      phase are one card time-shared by 8 processes, not a multi-GPU
-     figure;
+     figure. `phase_spatial(gpu, gap_probe=True)` also takes the f32
+     step's gap apart (`mesh_gap`: cuDNN off on both sides, the 1x1
+     BatchNorm on the mesh's sums);
  11. fit: nyu_completion_500 as configured (ResNet-50, batch 8) on packed
      NYU shards that the script writes (raw 480x640, tools/prepare_nyu.py's
      format): a kill after a checkpoint and a resume inside the epoch
@@ -104,20 +114,25 @@ exits non-zero:
      fresh process that imports torch and ops/library.py by name and builds
      no model, its output against predict_batch, its K1 (NYU) or K4 (KITTI)
      launches, one a call and nothing else, its host ms per call beside the
-     eager model's; `parity`: ops/parity.py's checks of K1-K9 as the JAX
+     eager model's, and a program on the gates9 operator contract of K4
+     before it took raw guidance (it loads and runs K7's entry); `parity`: ops/parity.py's checks of K1-K9 as the JAX
      bench runs its parity gate; `profiling`: a trace of a serving batch,
      StepTimer, marginal_chain of K1 and kernel_roofline; `debug`:
      checkify_step on a train step, clean and with a NaN in rgb, and a step
      under enable_debug().
-The kernel checks (3, 6, 9) run first. Then a line with the kernel table
-and, last, the device line.
+The kernel checks (3, 6, 9) run first. Every path's launch counts also
+count the plain normalization's and anchor's calls on a CUDA tensor
+("prenorm_gates9", "anchor"), which must stay 0. Then a line with the
+kernel table and, last, the device line.
 It exits non-zero, printing no result, where no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -137,6 +152,7 @@ from cspn_monodepth_tpu_torch.data import (
     pack_batch,
 )
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
+from cspn_monodepth_tpu_torch.models import resnet
 from cspn_monodepth_tpu_torch.models.resnet import ARCHS
 from cspn_monodepth_tpu_torch.models.torch_weights import encoder_key
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate, parity
@@ -146,6 +162,7 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     anchor,
     cspn_bwd_sums_plain,
     prenorm_gates9,
+    prenorm_gates9_bwd_plain,
 )
 from cspn_monodepth_tpu_torch.ops.sparse import (
     keep_top,
@@ -381,22 +398,23 @@ def bwd_bound_ms(b, h, w, num_iters, sparse: bool):
                     px * (40 * num_iters + 80))
 
 
-def tiled_fwd_bound_ms(b, h, w, num_iters, sparse: bool):
-    """K4: read the 9 gate planes, d0 and sparse once, write the result
-    once; 19 flop/px per iteration (no normalization)."""
+def prenorm_fwd_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K7 (the gates9 contract): read the 9 gate planes, d0 and sparse
+    once, write the result once; 19 flop/px per iteration (no
+    normalization). K4-K6 compute K1-K3's functions, with their bounds."""
     px = b * h * w
     return bound_ms(9 + 1 + int(sparse) + 1, px, px * 19 * num_iters)
 
 
-def tiled_stash_bound_ms(b, h, w, num_iters, sparse: bool):
-    """K5: K4's planes plus the T stash planes written once."""
+def prenorm_stash_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K8: K7's planes plus the T stash planes written once."""
     px = b * h * w
     return bound_ms(9 + 1 + int(sparse) + 1 + num_iters, px,
                     px * 19 * num_iters)
 
 
-def tiled_bwd_bound_ms(b, h, w, num_iters, sparse: bool):
-    """K6: read the 9 gate planes, sparse, the cotangent and the T stash
+def prenorm_bwd_bound_ms(b, h, w, num_iters, sparse: bool):
+    """K9: read the 9 gate planes, sparse, the cotangent and the T stash
     planes once, write the 9 gate gradients, lam0 and the sparse sums once;
     ~40 flop/px per iteration, no chain rule."""
     px = b * h * w
@@ -405,10 +423,17 @@ def tiled_bwd_bound_ms(b, h, w, num_iters, sparse: bool):
 
 
 def gates9_bound_ms(b, h, w):
-    """K3's stage 0: read the 8 guidance planes, write the 9 gate planes;
-    ~32 flop/px."""
+    """cspn_gates9 (K3's and K6's stage 0): read the 8 guidance planes,
+    write the 9 gate planes; ~32 flop/px."""
     px = b * h * w
     return bound_ms(8 + 9, px, 32 * px)
+
+
+def gates9_bwd_bound_ms(b, h, w):
+    """cspn_gates9_bwd: read the 8 guidance and 9 gate-gradient planes,
+    write the 8 guidance gradients; ~60 flop/px (the chain rule)."""
+    px = b * h * w
+    return bound_ms(8 + 9 + 8, px, 60 * px)
 
 
 def sweep_bound_ms(b, h, w, num_iters, sparse: bool):
@@ -442,8 +467,7 @@ def check_adjoint_stages(c: dict, gates9, sp, stash, cot, guid=None,
     kw = dict(num_iters=c["t"])
     errs = {}
     if guid is not None:
-        errs["gates9"] = max_rel(cspn_cuda.cspn_bwd_gates9(guid,
-                                                           norm_type=norm),
+        errs["gates9"] = max_rel(cspn_cuda.cspn_gates9(guid, norm_type=norm),
                                  prenorm_gates9(guid, norm))
     lam_stash, lam0 = cspn_cuda.cspn_bwd_sweep(gates9, sp, cot, **kw)
     want_stash, want_lam0 = adjoint_sweep_plain(gates9, sp, cot, **kw)
@@ -469,7 +493,7 @@ def check_adjoint_stages(c: dict, gates9, sp, stash, cot, guid=None,
 
 def time_adjoint_stages(gpu: str, kernel: str, shape: dict, gates9, sp,
                         stash, cot, guid=None, norm=None):
-    """Each stage of `kernel` (K3 with `guid`, else K6 or K9) timed alone on
+    """Each stage of `kernel` (K3 or K6 with `guid`, else K9) timed alone on
     the inputs it gets inside the adjoint, beside its plain stage and its
     own bound: one `stage_time` line each."""
     b, h, w, t = shape["b"], shape["h"], shape["w"], shape["t"]
@@ -480,8 +504,7 @@ def time_adjoint_stages(gpu: str, kernel: str, shape: dict, gates9, sp,
     stages = []
     if guid is not None:
         stages.append(("gates9",
-                       lambda: cspn_cuda.cspn_bwd_gates9(guid,
-                                                         norm_type=norm),
+                       lambda: cspn_cuda.cspn_gates9(guid, norm_type=norm),
                        lambda: prenorm_gates9(guid, norm),
                        gates9_bound_ms(b, h, w)))
     stages += [
@@ -1027,10 +1050,16 @@ def fixed_batch(trainer: Trainer, n: int) -> dict:
 def reset_counts():
     for fn in cspn_cuda.WRAPPERS:
         fn.launches = 0
+    prenorm_gates9.cuda_calls = anchor.cuda_calls = 0
 
 
 def counts() -> dict:
-    return {fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS}
+    """Each wrapper's launches, and the calls of the plain normalization
+    and anchor on a CUDA tensor ("prenorm_gates9", "anchor"), which no
+    route makes: every check of a path's counts holds them at 0."""
+    return {**{fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS},
+            "prenorm_gates9": prenorm_gates9.cuda_calls,
+            "anchor": anchor.cuda_calls}
 
 
 def timed_train(cfg, variables, batch_size: int, kernels: tuple,
@@ -1230,25 +1259,29 @@ def phase_train_device_vs_cpu():
 
 def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
                         norm_type: str) -> dict:
-    """K4, K5 and K6 against their plain versions on the prenormalized
-    gates of raw guidance `guid` and the anchored d^0: the largest
-    max-relative error of each output (every stash plane on its own),
-    their largest absolute errors, anchors exact, and whether K5's output
-    is K4's bit for bit."""
-    gates9, d0 = prenorm_gates9(guid, norm_type), anchor(blur, sp)
-    kw = dict(num_iters=num_iters)
-    k4 = cspn_cuda.cspn_tiled_fwd(gates9, d0, sp, **kw)
-    out, stash = cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp, **kw)
-    grads = cspn_cuda.cspn_tiled_bwd(gates9, sp, stash, cot, **kw)
+    """K4, K5 and K6 on the raw guidance `guid`, blur and sparse against
+    their plain versions: the largest max-relative error of each output
+    (every stash plane on its own), their largest absolute errors, anchors
+    exact, whether K5's output is K4's bit for bit, and whether K4's is,
+    bit for bit, the gates9 contract's on cspn_gates9's planes with d^0
+    anchored on load (K7's entry: what K4 computed before it took raw
+    guidance)."""
+    kw = dict(num_iters=num_iters, norm_type=norm_type)
+    k4 = cspn_cuda.cspn_tiled_fwd(guid, blur, sp, **kw)
+    out, stash = cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw)
+    grads = cspn_cuda.cspn_tiled_bwd(guid, sp, stash, cot, **kw)
+    on_gates9 = cspn_cuda.cspn_prenorm_fwd(
+        cspn_cuda.cspn_gates9(guid, norm_type=norm_type), blur, sp,
+        num_iters=num_iters, anchor_d0=True)
     want_out, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(
-        gates9, d0, sp, **kw)
-    want_grads = cspn_cuda.cspn_tiled_bwd_plain(gates9, sp, want_stash, cot,
+        guid, blur, sp, **kw)
+    want_grads = cspn_cuda.cspn_tiled_bwd_plain(guid, sp, want_stash, cot,
                                                 **kw)
     torch.cuda.synchronize()
     errs = {"k4_out": max_rel(k4, want_out),
             "k5_stash": max([max_rel(stash[:, t], want_stash[:, t])
                              for t in range(stash.shape[1])], default=0.0)}
-    for name, got, want in zip(("d_gates9", "lam0", "d_sparse"), grads,
+    for name, got, want in zip(("d_guid", "d_blur", "d_sparse"), grads,
                                want_grads):
         errs[name] = max_rel_or_zero(got, want)
     anchors_exact = True
@@ -1256,6 +1289,7 @@ def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
         m = sp > 0
         anchors_exact = bool(torch.equal(k4[m], sp[m]))
     return dict(max_rel=errs, k5_equals_k4=bool(torch.equal(out, k4)),
+                k4_equals_gates9_contract=bool(torch.equal(k4, on_gates9)),
                 anchors_exact=anchors_exact,
                 k4_max_abs=float((k4 - want_out).abs().max()),
                 k5_max_abs=float((stash - want_stash).abs().max())
@@ -1266,7 +1300,7 @@ def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
 
 def tiled_ok(r: dict) -> bool:
     return (max(r["max_rel"].values()) <= KERNEL_TOL and r["k5_equals_k4"]
-            and r["anchors_exact"])
+            and r["k4_equals_gates9_contract"] and r["anchors_exact"])
 
 
 def kitti_kernel_cases() -> list[dict]:
@@ -1291,7 +1325,8 @@ def kitti_kernel_cases() -> list[dict]:
 def phase_kitti_kernels(gpu: str) -> dict:
     """K4, K5 and K6 against their plain versions; TiledCSPNFunction's
     gradients against torch autograd of the plain loop; the tiled route
-    against K1 on the same raw guidance; times at batch 8, 352x1216."""
+    against K1 on the same raw guidance; times at batch 8, 352x1216, with
+    the normalization's cost on the route (`prenorm_time`)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     for c in kitti_kernel_cases():
         guid, blur, sp = cspn_problem(gen, c["b"], c["h"], c["w"],
@@ -1309,15 +1344,16 @@ def phase_kitti_kernels(gpu: str) -> dict:
             raise AssertionError(f"K4/K5/K6 disagree with their plain "
                                  f"versions: {c} {r}")
 
-    # Gradients of every input through prenorm_gates9, the anchor and
-    # TiledCSPNFunction (K5 + K6) against torch autograd of the plain loop.
+    # Gradients of every input through TiledCSPNFunction (K5 + K6), the
+    # normalization and the anchor inside, against torch autograd of the
+    # plain loop.
     for c in (dict(b=2, h=KITTI_H, w=KITTI_W, t=24, norm="8sum_clamp",
                    sparse=True),
               dict(b=1, h=37, w=48, t=10, norm="8sum_abs", sparse=False)):
         grad_case(gen, c, "cuda_tiled", "tiled_function_grad_case")
 
-    # The same function by two routes: the tiled kernels on prenormalized
-    # gates against K1 on the raw guidance.
+    # The same function by two routes: K4 against K1 on the same raw
+    # guidance (one C entry: bit for bit).
     for norm in NORM_TYPES:
         guid, blur, sp = cspn_problem(gen, 2, KITTI_H, KITTI_W)
         kw = dict(num_iters=24, norm_type=norm, guidance_layout="NCHW")
@@ -1325,39 +1361,36 @@ def phase_kitti_kernels(gpu: str) -> dict:
         whole = cspn_propagate(guid, blur, sp, impl="cuda", **kw)
         err = max_rel(tiled, whole)
         emit("tiled_vs_whole_plane_route", norm=norm, max_rel=err,
-             tol=KERNEL_TOL)
+             bitwise_equal=bool(torch.equal(tiled, whole)), tol=KERNEL_TOL)
         if not err <= KERNEL_TOL:
             raise AssertionError(f"tiled route vs K1 ({norm}): {err}")
 
     b, t = KITTI_BATCH, 24
     guid, blur, sp = cspn_problem(gen, b, KITTI_H, KITTI_W, strided=True)
-    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
     cot = torch.randn(blur.shape, generator=gen, device="cuda")
-    kw = dict(num_iters=t)
-    _, stash = cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp, **kw)
-    _, plain_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(gates9, d0, sp,
+    kw = dict(num_iters=t, norm_type="8sum_clamp")
+    _, stash = cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw)
+    _, plain_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(guid, blur, sp,
                                                           **kw)
     timing = {}
     for name, fn, plain, bound in (
             ("cspn_tiled_fwd",
-             lambda: cspn_cuda.cspn_tiled_fwd(gates9, d0, sp, **kw),
-             lambda: cspn_cuda.cspn_tiled_fwd_plain(gates9, d0, sp, **kw),
-             tiled_fwd_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+             lambda: cspn_cuda.cspn_tiled_fwd(guid, blur, sp, **kw),
+             lambda: cspn_cuda.cspn_tiled_fwd_plain(guid, blur, sp, **kw),
+             cspn_bound_ms(b, KITTI_H, KITTI_W, t, True)),
             ("cspn_tiled_fwd_stash",
-             lambda: cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp, **kw),
-             lambda: cspn_cuda.cspn_tiled_fwd_stash_plain(gates9, d0, sp,
+             lambda: cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw),
+             lambda: cspn_cuda.cspn_tiled_fwd_stash_plain(guid, blur, sp,
                                                           **kw),
-             tiled_stash_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+             stash_bound_ms(b, KITTI_H, KITTI_W, t, True)),
             ("cspn_tiled_bwd",
-             lambda: cspn_cuda.cspn_tiled_bwd(gates9, sp, stash, cot, **kw),
-             lambda: cspn_cuda.cspn_tiled_bwd_plain(gates9, sp, plain_stash,
+             lambda: cspn_cuda.cspn_tiled_bwd(guid, sp, stash, cot, **kw),
+             lambda: cspn_cuda.cspn_tiled_bwd_plain(guid, sp, plain_stash,
                                                     cot, **kw),
-             tiled_bwd_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+             bwd_bound_ms(b, KITTI_H, KITTI_W, t, True)),
             ("cspn_fwd",
-             lambda: cspn_cuda.cspn_fwd(guid, blur, sp, num_iters=t,
-                                        norm_type="8sum_clamp"),
-             lambda: cspn_cuda.cspn_fwd_plain(guid, blur, sp, num_iters=t,
-                                              norm_type="8sum_clamp"),
+             lambda: cspn_cuda.cspn_fwd(guid, blur, sp, **kw),
+             lambda: cspn_cuda.cspn_fwd_plain(guid, blur, sp, **kw),
              cspn_bound_ms(b, KITTI_H, KITTI_W, t, True))):
         ms = time_ms(fn, 20)
         plain_ms = time_ms(plain, 3, warmup=1)
@@ -1371,23 +1404,26 @@ def phase_kitti_kernels(gpu: str) -> dict:
 
     # K6's stages at batch 8 and on a case with a remainder round.
     shape = dict(b=b, h=KITTI_H, w=KITTI_W, t=t, norm="8sum_clamp")
-    check_adjoint_stages(shape, gates9, sp, stash, cot)
-    time_adjoint_stages(gpu, "cspn_tiled_bwd", shape, gates9, sp, stash, cot)
+    gates9 = cspn_cuda.cspn_gates9(guid, norm_type="8sum_clamp")
+    check_adjoint_stages(shape, gates9, sp, stash, cot, guid, "8sum_clamp")
+    time_adjoint_stages(gpu, "cspn_tiled_bwd", shape, gates9, sp, stash, cot,
+                        guid, "8sum_clamp")
     check_deterministic("cspn_tiled_bwd",
-                        lambda: cspn_cuda.cspn_tiled_bwd(gates9, sp, stash,
+                        lambda: cspn_cuda.cspn_tiled_bwd(guid, sp, stash,
                                                          cot, **kw))
     del stash, plain_stash
     g2, b2, s2 = cspn_problem(gen, 2, 37, 48)
-    g2, b2 = prenorm_gates9(g2, "8sum"), anchor(b2, s2)
     c2 = torch.randn(b2.shape, generator=gen, device="cuda")
-    _, st2 = cspn_cuda.cspn_tiled_fwd_stash(g2, b2, s2, num_iters=10)
-    check_adjoint_stages(dict(b=2, h=37, w=48, t=10, norm="8sum"), g2, s2,
-                         st2, c2)
+    _, st2 = cspn_cuda.cspn_tiled_fwd_stash(g2, b2, s2, num_iters=10,
+                                            norm_type="8sum")
+    check_adjoint_stages(dict(b=2, h=37, w=48, t=10, norm="8sum"),
+                         cspn_cuda.cspn_gates9(g2, norm_type="8sum"), s2,
+                         st2, c2, g2, "8sum")
 
     # K4 on single images, as the serving path's single requests call it.
-    g1, d1, s1 = gates9[:1], d0[:1], sp[:1]
+    g1, d1, s1 = guid[:1], blur[:1], sp[:1]
     fn = lambda: cspn_cuda.cspn_tiled_fwd(g1, d1, s1, **kw)   # noqa: E731
-    bound = tiled_fwd_bound_ms(1, KITTI_H, KITTI_W, t, True)
+    bound = cspn_bound_ms(1, KITTI_H, KITTI_W, t, True)
     timing["cspn_tiled_fwd_b1"] = dict(
         ms=time_ms(fn, 50), device_ms=device_profile(fn)["busy_ms"],
         plain_ms=time_ms(lambda: cspn_cuda.cspn_tiled_fwd_plain(
@@ -1395,21 +1431,96 @@ def phase_kitti_kernels(gpu: str) -> dict:
     emit("kernel_time", kernel="cspn_tiled_fwd", b=1, h=KITTI_H, w=KITTI_W,
          t=t, norm="8sum_clamp", **timing["cspn_tiled_fwd_b1"],
          library_ms=None, gpu=gpu)
+    prenorm_time(gen, guid, blur, sp, cot, gpu)
+    serving_route(guid, blur, sp, gpu)
+    return timing
 
-    # The prenormalization and its chain rule, plain torch outside the
-    # kernels, on the same inputs.
+
+def prenorm_time(gen, guid, blur, sp, cot, gpu: str):
+    """What the normalization and d^0's anchor cost at KITTI B=8 (T=24,
+    8sum_clamp): the plain versions (forward, forward and backward, the
+    anchor), as the route ran them before it took raw guidance; the kernel
+    pair cspn_gates9 / cspn_gates9_bwd (the slab route's), each beside its
+    bound; the route itself, K5 and K5 + K6 on the raw guidance, against
+    the same kernels on the gates9 contract (K8's and K9's entries on
+    cspn_gates9's planes with d^0 anchored on load: the route's old kernel
+    work without the plain normalization), the difference being what the
+    normalization and the anchor add inside the kernels."""
+    b, t, norm = KITTI_BATCH, 24, "8sum_clamp"
+    kw = dict(num_iters=t, norm_type=norm)
     g = guid.detach().clone().requires_grad_()
     d_gates9 = torch.randn((b, 9, KITTI_H, KITTI_W), generator=gen,
                            device="cuda")
 
-    def prenorm_fwd_bwd():
-        torch.autograd.grad(prenorm_gates9(g, "8sum_clamp"), g, d_gates9)
+    def plain_fwd_bwd():
+        torch.autograd.grad(prenorm_gates9(g, norm), g, d_gates9)
 
-    emit("prenorm_time", b=b, h=KITTI_H, w=KITTI_W, norm="8sum_clamp",
-         fwd_ms=time_ms(lambda: prenorm_gates9(guid, "8sum_clamp"), 20),
-         fwd_bwd_ms=time_ms(prenorm_fwd_bwd, 20),
-         anchor_ms=time_ms(lambda: anchor(blur, sp), 20), gpu=gpu)
-    return timing
+    def pair_fwd_bwd():
+        cspn_cuda.cspn_gates9(guid, norm_type=norm)
+        cspn_cuda.cspn_gates9_bwd(guid, d_gates9, norm_type=norm)
+
+    gates9 = cspn_cuda.cspn_gates9(guid, norm_type=norm)
+    _, stash = cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw)
+    raw_fwd = lambda: cspn_cuda.cspn_tiled_fwd_stash(   # noqa: E731
+        guid, blur, sp, **kw)
+    raw_bwd = lambda: cspn_cuda.cspn_tiled_bwd(         # noqa: E731
+        guid, sp, stash, cot, **kw)
+    g9_fwd = lambda: cspn_cuda.cspn_prenorm_fwd_stash(  # noqa: E731
+        gates9, blur, sp, num_iters=t, anchor_d0=True)
+    g9_bwd = lambda: cspn_cuda.cspn_prenorm_bwd(        # noqa: E731
+        gates9, sp, stash, cot, num_iters=t, anchor_d0=True)
+    route = dict(fwd_ms=time_ms(raw_fwd, 20), bwd_ms=time_ms(raw_bwd, 20),
+                 gates9_fwd_ms=time_ms(g9_fwd, 20),
+                 gates9_bwd_ms=time_ms(g9_bwd, 20))
+    route.update(
+        fwd_bound_ms=stash_bound_ms(b, KITTI_H, KITTI_W, t, True)[0],
+        fwd_bwd_bound_ms=stash_bound_ms(b, KITTI_H, KITTI_W, t, True)[0]
+        + bwd_bound_ms(b, KITTI_H, KITTI_W, t, True)[0],
+        normalization_fwd_ms=route["fwd_ms"] - route["gates9_fwd_ms"],
+        normalization_bwd_ms=route["bwd_ms"] - route["gates9_bwd_ms"])
+    emit("prenorm_time", b=b, h=KITTI_H, w=KITTI_W, norm=norm,
+         plain=dict(fwd_ms=time_ms(lambda: prenorm_gates9(guid, norm), 20),
+                    fwd_bwd_ms=time_ms(plain_fwd_bwd, 20),
+                    anchor_ms=time_ms(lambda: anchor(blur, sp), 20)),
+         kernel_pair=dict(
+             fwd_ms=time_ms(lambda: cspn_cuda.cspn_gates9(guid,
+                                                          norm_type=norm),
+                            20),
+             fwd_bound_ms=gates9_bound_ms(b, KITTI_H, KITTI_W)[0],
+             fwd_bwd_ms=time_ms(pair_fwd_bwd, 20),
+             fwd_bwd_bound_ms=gates9_bound_ms(b, KITTI_H, KITTI_W)[0]
+             + gates9_bwd_bound_ms(b, KITTI_H, KITTI_W)[0]),
+         route=route, gpu=gpu)
+
+
+def serving_route(guid, blur, sp, gpu: str):
+    """The two ways the H-tiled route can serve without a gradient, timed at
+    KITTI B=1 and B=8 (T=24, 8sum_clamp) on the same inputs: K4, the round
+    in raw mode (one call: the first round normalizes, anchors and writes
+    the gates9 the later rounds read), against cspn_gates9 followed by the
+    gates9 contract with d^0 anchored on load (K7's entry: two calls). The
+    port serves with the first; a `serving_route` line each, and the two
+    outputs bit for bit."""
+    norm = "8sum_clamp"
+    for b in (1, KITTI_BATCH):
+        g, d, s = guid[:b], blur[:b], sp[:b]
+        raw = lambda: cspn_cuda.cspn_tiled_fwd(   # noqa: E731
+            g, d, s, num_iters=24, norm_type=norm)
+
+        def two_calls():
+            return cspn_cuda.cspn_prenorm_fwd(
+                cspn_cuda.cspn_gates9(g, norm_type=norm), d, s, num_iters=24,
+                anchor_d0=True)
+
+        same = bool(torch.equal(raw(), two_calls()))
+        emit("serving_route", b=b, h=KITTI_H, w=KITTI_W, t=24, norm=norm,
+             raw_round_ms=time_ms(raw, 50),
+             raw_round_device_ms=device_profile(raw)["busy_ms"],
+             gates9_then_k7_ms=time_ms(two_calls, 50),
+             gates9_then_k7_device_ms=device_profile(two_calls)["busy_ms"],
+             bitwise_equal=same, gpu=gpu)
+        if not same:
+            raise AssertionError(f"serving routes differ at B={b}")
 
 
 def kitti_config(**overrides):
@@ -1427,20 +1538,21 @@ def phase_kitti_serving(gpu: str) -> tuple[int, float]:
                            depth_range=(1.0, KITTI_MAX_DEPTH))
     launches = serve(cfg, predictor, rgb, sparse, gpu,
                      "kitti_serving")["launches"]
-    if not (launches["cspn_tiled_fwd"] == SINGLE_REQUESTS + BATCH_REQUESTS
-            and launches["cspn_fwd"] == 0):
+    want_launches = {k: 0 for k in launches}
+    want_launches["cspn_tiled_fwd"] = SINGLE_REQUESTS + BATCH_REQUESTS
+    if launches != want_launches:
         raise AssertionError(f"the KITTI serving path's launches "
-                             f"{launches}: expected K4 on every request, "
-                             f"K1 never")
+                             f"{launches}: expected K4 on every request and "
+                             f"nothing else, no plain normalization or "
+                             f"anchor")
 
     # K4 against its plain version on the heads the path computed.
     heads = path_heads(predictor, rgb, sparse)
     sp = torch.from_numpy(sparse).cuda()
-    gates9 = prenorm_gates9(heads[:, 1:], cfg.model.norm_type)
-    d0 = anchor(heads[:, 0], sp)
-    kw = dict(num_iters=cfg.model.num_iters)
-    got = cspn_cuda.cspn_tiled_fwd(gates9, d0, sp, **kw)
-    want = cspn_cuda.cspn_tiled_fwd_plain(gates9, d0, sp, **kw)
+    kw = dict(num_iters=cfg.model.num_iters, norm_type=cfg.model.norm_type)
+    got = cspn_cuda.cspn_tiled_fwd(heads[:, 1:], heads[:, 0], sp, **kw)
+    want = cspn_cuda.cspn_tiled_fwd_plain(heads[:, 1:], heads[:, 0], sp,
+                                          **kw)
     heads_err = max_rel(got, want)
     heads_abs = float((got - want).abs().max())
     if not heads_err <= KERNEL_TOL:
@@ -1544,7 +1656,8 @@ def phase_kitti_epoch(variables, gpu: str) -> dict:
          eval_img_per_s=ev["images_per_sec"], eval_launches=launches,
          gpu=gpu)
     if not (np.isfinite(metrics["loss"]) and launches["cspn_tiled_fwd"] > 0
-            and launches["cspn_fwd"] == 0 and all(
+            and launches["cspn_fwd"] == 0 and launches["prenorm_gates9"] ==
+            launches["anchor"] == 0 and all(
                 np.isfinite(ev[k]) for k in ("rmse", "mae", "rel",
                                              "delta1"))):
         raise AssertionError(f"KITTI epoch: {metrics['loss']} {ev} "
@@ -1552,20 +1665,25 @@ def phase_kitti_epoch(variables, gpu: str) -> dict:
     return dict(launches=launches)
 
 
-def slab_problem(gen, b, h, w, r, sparse=True, edge=None):
+def slab_problem(gen, b, h, w, r, sparse=True, edge=None,
+                 anchor_d0=False):
     """A rank's halo'd slab: prenormalized gates of N(0, 1) guidance, an
-    anchored d^0, ~1% anchors and a cotangent, on the card. edge "first"
+    anchored d^0 (the blur as it is with anchor_d0, for the kernels to
+    anchor on load), ~1% anchors and a cotangent, on the card. edge "first"
     or "last" zeroes the outer HALO_K rows, as the exchange leaves them on
     the first and last shard."""
     guid, blur, sp = cspn_problem(gen, b, h, w, sparse=sparse)
-    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
+    gates9 = prenorm_gates9(guid, "8sum_clamp")
+    d0 = blur if anchor_d0 else anchor(blur, sp)
     if edge is not None:
         rows = slice(0, HALO_K) if edge == "first" else slice(h - HALO_K, h)
         for t in (gates9[:, :, rows], d0[:, rows]) + (
                 () if sp is None else (sp[:, rows],)):
             t.zero_()
     cot = torch.randn((b, h, w), generator=gen, device="cuda")
-    return gates9, d0, sp, cot, dict(num_iters=r)
+    kw = dict(num_iters=r, anchor_d0=True) if anchor_d0 else dict(
+        num_iters=r)
+    return gates9, d0, sp, cot, kw
 
 
 def slab_kernel_errors(gates9, d0, sp, cot, kw) -> dict:
@@ -1605,12 +1723,18 @@ def phase_spatial_kernels(gpu: str) -> dict:
              dict(slab=KITTI_SLAB, r=HALO_K, edge="first"),
              dict(slab=KITTI_SLAB, r=HALO_K, edge="last"),
              # W % 4 != 0.
-             dict(slab=(2, 20, 75), r=HALO_K)]
+             dict(slab=(2, 20, 75), r=HALO_K),
+             # d^0 anchored on load: the slab route's first round.
+             dict(slab=KITTI_SLAB, r=HALO_K, anchor_d0=True),
+             dict(slab=KITTI_SLAB, r=3, sparse=False, anchor_d0=True),
+             dict(slab=KITTI_SLAB, r=HALO_K, edge="first", anchor_d0=True),
+             dict(slab=(2, 20, 75), r=2, anchor_d0=True)]
     max_abs = {}
     for c in cases:
         *args, kw = slab_problem(gen, *c["slab"], c["r"],
                                  sparse=c.get("sparse", True),
-                                 edge=c.get("edge"))
+                                 edge=c.get("edge"),
+                                 anchor_d0=c.get("anchor_d0", False))
         r = slab_kernel_errors(*args, kw)
         emit("spatial_kernel_case", kernels=["cspn_prenorm_fwd",
                                              "cspn_prenorm_fwd_stash",
@@ -1620,7 +1744,8 @@ def phase_spatial_kernels(gpu: str) -> dict:
                 and r["k8_equals_k7"]):
             raise AssertionError(f"K7/K8/K9 disagree with their plain "
                                  f"versions: {c} {r}")
-        if c["slab"] == KITTI_SLAB and c["r"] == HALO_K and "edge" not in c:
+        if (c["slab"] == KITTI_SLAB and c["r"] == HALO_K
+                and "edge" not in c and "anchor_d0" not in c):
             max_abs = r
 
     timing = {}
@@ -1635,19 +1760,19 @@ def phase_spatial_kernels(gpu: str) -> dict:
                  lambda: cspn_cuda.cspn_prenorm_fwd(gates9, d0, sp, **kw),
                  lambda: cspn_cuda.cspn_prenorm_fwd_plain(gates9, d0, sp,
                                                           **kw),
-                 tiled_fwd_bound_ms(b, h, w, HALO_K, True)),
+                 prenorm_fwd_bound_ms(b, h, w, HALO_K, True)),
                 ("cspn_prenorm_fwd_stash",
                  lambda: cspn_cuda.cspn_prenorm_fwd_stash(gates9, d0, sp,
                                                           **kw),
                  lambda: cspn_cuda.cspn_prenorm_fwd_stash_plain(gates9, d0,
                                                                 sp, **kw),
-                 tiled_stash_bound_ms(b, h, w, HALO_K, True)),
+                 prenorm_stash_bound_ms(b, h, w, HALO_K, True)),
                 ("cspn_prenorm_bwd",
                  lambda: cspn_cuda.cspn_prenorm_bwd(gates9, sp, stash, cot,
                                                     **kw),
                  lambda: cspn_cuda.cspn_prenorm_bwd_plain(
                      gates9, sp, plain_stash, cot, **kw),
-                 tiled_bwd_bound_ms(b, h, w, HALO_K, True))):
+                 prenorm_bwd_bound_ms(b, h, w, HALO_K, True))):
             ms = time_ms(fn, 50)
             plain_ms = time_ms(plain, 10)
             device_ms = device_profile(fn)["busy_ms"]
@@ -1663,6 +1788,83 @@ def phase_spatial_kernels(gpu: str) -> dict:
         check_adjoint_stages(shape, gates9, sp, stash, cot)
         time_adjoint_stages(gpu, "cspn_prenorm_bwd", shape, gates9, sp,
                             stash, cot)
+    gates9 = gates9_pair(gen, gpu)
+    return dict(timing=timing, max_abs=max_abs, gates9=gates9)
+
+
+def gates9_pair_errors(guid, d_gates9, norm: str) -> dict:
+    """cspn_gates9 and cspn_gates9_bwd against their plain versions
+    (prenorm_gates9 and torch autograd of it) on the same inputs."""
+    got = cspn_cuda.cspn_gates9(guid, norm_type=norm)
+    want = prenorm_gates9(guid, norm)
+    got_grad = cspn_cuda.cspn_gates9_bwd(guid, d_gates9, norm_type=norm)
+    want_grad = prenorm_gates9_bwd_plain(guid, d_gates9, norm)
+    torch.cuda.synchronize()
+    return dict(max_rel={"gates9": max_rel(got, want),
+                         "d_guid": max_rel_or_zero(got_grad, want_grad)},
+                gates9_max_abs=float((got - want).abs().max()),
+                gates9_bwd_max_abs=float((got_grad - want_grad).abs().max()),
+                d_guid_finite=bool(torch.isfinite(got_grad).all()))
+
+
+def gates9_pair(gen, gpu: str) -> dict:
+    """The normalization's kernel pair (the slab route's Gates9Function)
+    against its plain versions at KITTI's 352x1216 (B=2 in the three norms,
+    B=8, the head's strided guidance slices), on the KITTI 2x4 slab and at
+    zero guidance (sign(0) = 0 under 8sum_abs: a zero gradient), then timed
+    at KITTI B=8 beside their plain versions and bounds. Returns the
+    kernels line's numbers."""
+    cases = [dict(b=2, h=KITTI_H, w=KITTI_W, norm=n) for n in NORM_TYPES]
+    cases += [dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, norm="8sum_clamp"),
+              dict(b=2, h=KITTI_H, w=KITTI_W, norm="8sum", strided=True)]
+    cases += [dict(b=KITTI_SLAB[0], h=KITTI_SLAB[1], w=KITTI_SLAB[2],
+                   norm=n) for n in NORM_TYPES]
+    cases += [dict(b=1, h=KITTI_H, w=KITTI_W, norm=n, zero=True)
+              for n in NORM_TYPES]
+    cases += [dict(b=KITTI_SLAB[0], h=KITTI_SLAB[1], w=KITTI_SLAB[2],
+                   norm="8sum_abs", zero=True)]
+    max_abs = {}
+    for c in cases:
+        guid, _, _ = cspn_problem(gen, c["b"], c["h"], c["w"], sparse=False,
+                                  strided=c.get("strided", False))
+        if c.get("zero"):
+            guid = torch.zeros_like(guid)
+        d_gates9 = torch.randn((c["b"], 9, c["h"], c["w"]), generator=gen,
+                               device="cuda")
+        r = gates9_pair_errors(guid, d_gates9, c["norm"])
+        emit("gates9_case", kernels=["cspn_gates9", "cspn_gates9_bwd"], **c,
+             **r, tol=KERNEL_TOL)
+        if not (max(r["max_rel"].values()) <= KERNEL_TOL
+                and r["d_guid_finite"]):
+            raise AssertionError(f"cspn_gates9/cspn_gates9_bwd disagree with "
+                                 f"their plain versions: {c} {r}")
+        if c["b"] == KITTI_BATCH and c["h"] == KITTI_H:
+            max_abs = r
+
+    b, norm = KITTI_BATCH, "8sum_clamp"
+    guid, _, _ = cspn_problem(gen, b, KITTI_H, KITTI_W, sparse=False,
+                              strided=True)
+    d_gates9 = torch.randn((b, 9, KITTI_H, KITTI_W), generator=gen,
+                           device="cuda")
+    timing = {}
+    for name, fn, plain, bound in (
+            ("cspn_gates9",
+             lambda: cspn_cuda.cspn_gates9(guid, norm_type=norm),
+             lambda: prenorm_gates9(guid, norm),
+             gates9_bound_ms(b, KITTI_H, KITTI_W)),
+            ("cspn_gates9_bwd",
+             lambda: cspn_cuda.cspn_gates9_bwd(guid, d_gates9,
+                                               norm_type=norm),
+             lambda: prenorm_gates9_bwd_plain(guid, d_gates9, norm),
+             gates9_bwd_bound_ms(b, KITTI_H, KITTI_W))):
+        ms = time_ms(fn, 50)
+        plain_ms = time_ms(plain, 10)
+        device_ms = device_profile(fn)["busy_ms"]
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1])
+        emit("kernel_time", kernel=name, b=b, h=KITTI_H, w=KITTI_W,
+             norm=norm, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+             bound_ms=bound[0], bound_by=bound[1], library_ms=None, gpu=gpu)
     return dict(timing=timing, max_abs=max_abs)
 
 
@@ -1687,19 +1889,17 @@ def forward_calls(gen) -> list:
     calls.append(("cspn_fwd", dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24),
                   lambda g=guid, d=blur, s=sp: cspn_cuda.cspn_fwd(
                       g, d, s, num_iters=24, norm_type="8sum_clamp")))
-    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
-    del guid, blur
     for b in (1, KITTI_BATCH):
-        g, d, s = gates9[:b], d0[:b], sp[:b]
+        g, d, s = guid[:b], blur[:b], sp[:b]
         for t in SPLIT_ITERS:
             calls.append(("cspn_tiled_fwd", dict(b=b, h=KITTI_H, w=KITTI_W,
                                                  t=t),
                           lambda g=g, d=d, s=s, t=t: cspn_cuda.cspn_tiled_fwd(
-                              g, d, s, num_iters=t)))
+                              g, d, s, num_iters=t, norm_type="8sum_clamp")))
     calls.append(("cspn_tiled_fwd_stash",
                   dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24),
-                  lambda: cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sp,
-                                                         num_iters=24)))
+                  lambda: cspn_cuda.cspn_tiled_fwd_stash(
+                      guid, blur, sp, num_iters=24, norm_type="8sum_clamp")))
     for name, slab in (("kitti_2x4", KITTI_SLAB), ("nyu_16x2", NYU_SLAB)):
         g, d, s, _, kw = slab_problem(gen, *slab, HALO_K)
         shape = dict(slab=name, b=slab[0], h=slab[1], w=slab[2], t=HALO_K)
@@ -1820,8 +2020,6 @@ def phase_geometry_sweep(gpu: str) -> dict:
     entries = parse_ptxas(cspn_cuda.build_log.get("cspn_fwd", ""))
     guid, blur, sp = cspn_problem(gen, TRAIN_BATCH, NYU_H, NYU_W)
     kg, kb, ks = cspn_problem(gen, KITTI_BATCH, KITTI_H, KITTI_W)
-    gates9, d0 = prenorm_gates9(kg, "8sum_clamp"), anchor(kb, ks)
-    del kg, kb
     raw = dict(num_iters=24, norm_type="8sum_clamp")
 
     def k1(b, geometry):
@@ -1833,12 +2031,11 @@ def phase_geometry_sweep(gpu: str) -> dict:
                                         geometry=geometry)
 
     def k4(b, geometry):
-        return cspn_cuda.cspn_tiled_fwd(gates9[:b], d0[:b], ks[:b],
-                                        num_iters=24, geometry=geometry)
+        return cspn_cuda.cspn_tiled_fwd(kg[:b], kb[:b], ks[:b], **raw,
+                                        geometry=geometry)
 
     def k5(b, geometry):
-        return cspn_cuda.cspn_tiled_fwd_stash(gates9[:b], d0[:b], ks[:b],
-                                              num_iters=24,
+        return cspn_cuda.cspn_tiled_fwd_stash(kg[:b], kb[:b], ks[:b], **raw,
                                               geometry=geometry)
 
     slabs = {name: slab_problem(gen, *slab, HALO_K)[:3]
@@ -1910,9 +2107,10 @@ def phase_geometry_sweep(gpu: str) -> dict:
 def spatial_op_rank(rank: int) -> dict:
     """One rank of a 1x4 spatial group on cuda:0: this rank's rows of 4
     images of 352x1216 through cspn_propagate_spatial, without a gradient
-    (K7) and with one (K8, K9), against the whole-image tiled route (K4-K6)
-    on all the rows; returns the largest errors of its rows, the largest
-    values of the reference, the launch and exchange counts."""
+    (cspn_gates9, K7) and with one (cspn_gates9, K8; K9, cspn_gates9_bwd),
+    against the whole-image tiled route (K4-K6) on all the rows; returns
+    the largest errors of its rows, the largest values of the reference,
+    the launch and exchange counts."""
     torch.cuda.set_device(0)
     mesh = make_mesh(MeshConfig(data=1, spatial=4), device="cuda:0")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1964,19 +2162,30 @@ def param_digest(model) -> str:
     return h.hexdigest()
 
 
-def f32_step(cfg, variables, batch, layout: str = "auto") -> dict:
+def f32_step(cfg, variables, batch, layout: str = "auto", *,
+             cudnn: bool = True, bn_sums: bool = False) -> dict:
     """One float32 train step (TF32 off, cuDNN deterministic, no clip) from
     `variables` on `batch` with the Trainer's own sparse samples, in
     `layout` on a mesh: the loss, the head's gradients and the samples'
-    sum and count."""
+    sum and count. `cudnn` False runs it with cuDNN off (PyTorch's own
+    CUDA convolutions and BatchNorm); `bn_sums` (one process only) takes
+    BatchNorm's train statistics from the per-channel sums as a mesh does
+    (flax's fast variance) instead of torch's batch_norm kernel."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = cudnn
+    if bn_sums:
+        resnet.all_reduce = lambda t, group: t
     try:
         trainer = Trainer(cfg.override(**{"model.dtype": "float32",
                                           "train.clip_norm": 0.0}),
                           device="cuda:0", layout=layout)
         state = trainer.init_state(variables)
+        if bn_sums:
+            for m in state.model.modules():
+                if isinstance(m, resnet.BatchNorm2d):
+                    m.group = "one process"
         drawn = trainer._sample_sparse(trainer._rng(0, state.step),
                                        trainer._unpack(batch)["depth"], None)
         state, loss, _ = trainer.train_step(state, batch)
@@ -1988,6 +2197,8 @@ def f32_step(cfg, variables, batch, layout: str = "auto") -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.enabled = True
+        resnet.all_reduce = comm.all_reduce
 
 
 # The 2x4 runs of phase 10, each on the same 8 ranks: (name, global batch,
@@ -1995,16 +2206,19 @@ def f32_step(cfg, variables, batch, layout: str = "auto") -> dict:
 # batch 2 (one image a data group, 88 of its 352 rows a rank).
 MESH_RUNS = (("images_b8", KITTI_BATCH, "auto"), ("rows_b2", 2, "auto"),
              ("rows_b8", KITTI_BATCH, "rows"))
+# The run whose f32 step is also taken apart (`mesh_gap` line): with cuDNN
+# off on both sides, and with the 1x1 BatchNorm on the mesh's sums.
+GAP_RUN = "images_b8"
 
 
-def mesh_run(rank: int, batch_np: dict, batch_size: int, layout: str
-             ) -> dict:
+def mesh_run(rank: int, batch_np: dict, batch_size: int, layout: str,
+             gap_probe: bool = False) -> dict:
     """One rank of the kitti_1216 2x4 Trainer on cuda:0 at `batch_size`
     (the first images of batch_np) in `layout`: the f32 step against which
-    the 1x1 step is held, then one warm-up and SPATIAL_STEPS timed bf16
-    steps with the launch and exchange counts set to 0 just before and
-    read just after, one eval step (K7) the same way, peak memory and a
-    digest of the parameters."""
+    the 1x1 step is held (with `gap_probe` also with cuDNN off), then one
+    warm-up and SPATIAL_STEPS timed bf16 steps with the launch and
+    exchange counts set to 0 just before and read just after, one eval
+    step (K7) the same way, peak memory and a digest of the parameters."""
     cfg = mesh_config(**{"train.batch_size": batch_size})
     variables = randomized_variables(cfg)
     trainer = Trainer(cfg, device="cuda:0", layout=layout)
@@ -2014,6 +2228,13 @@ def mesh_run(rank: int, batch_np: dict, batch_size: int, layout: str
             for k, v in batch_np.items()}
     ref = f32_step(cfg, variables, mine, trainer.layout)
     torch.cuda.empty_cache()
+    ref_no_cudnn = None
+    if gap_probe:
+        # PyTorch's own convolutions unfold their inputs: 8 ranks on one
+        # card hold room for them only with nothing else cached.
+        ref_no_cudnn = f32_step(cfg, variables, mine, trainer.layout,
+                                cudnn=False)
+        torch.cuda.empty_cache()
 
     state = trainer.init_state(variables)
     state, loss, _ = trainer.train_step(state, mine)         # warm-up
@@ -2039,7 +2260,8 @@ def mesh_run(rank: int, batch_np: dict, batch_size: int, layout: str
     rmse = float(sums.rmse / sums.n_images)
     eval_ms = 1e3 * (time.perf_counter() - t0)
     eval_launches = counts()
-    return dict(ref=ref, losses=losses, step_ms=step_ms,
+    return dict(ref=ref, ref_no_cudnn=ref_no_cudnn, losses=losses,
+                step_ms=step_ms,
                 launches=train_launches, exchanges=train_exchanges,
                 comm_per_step=per_step, layout=trainer.layout,
                 eval_launches=eval_launches, eval_ms=eval_ms,
@@ -2050,28 +2272,36 @@ def mesh_run(rank: int, batch_np: dict, batch_size: int, layout: str
                 trainer_mesh=[trainer.mesh.data, trainer.mesh.spatial])
 
 
-def mesh_rank(rank: int, batch_np: dict) -> dict:
+def mesh_rank(rank: int, batch_np: dict, gap_probe: bool = False) -> dict:
     """One rank's MESH_RUNS, in order."""
     torch.cuda.set_device(0)
     out = {}
     for name, batch_size, layout in MESH_RUNS:
-        out[name] = mesh_run(rank, batch_np, batch_size, layout)
+        out[name] = mesh_run(rank, batch_np, batch_size, layout,
+                             gap_probe=gap_probe and name == GAP_RUN)
         torch.cuda.empty_cache()
     return out
 
 
-def mesh_vs_single(runs: list[dict], single: dict) -> dict:
+def step_gap(got: dict, want: dict) -> dict:
+    """One f32 step's loss and head gradients against another's."""
+    return dict(
+        loss_rel=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        head_grad_max_rel={n: float(np.abs(got[n] - want[n]).max()
+                                    / np.abs(want[n]).max())
+                           for n in ("weight", "bias")})
+
+
+def mesh_vs_single(runs: list[dict], single: dict, key: str = "ref"
+                   ) -> dict:
     """A mesh run's f32 step (rank 0's loss and head gradients, every
     data group's samples once) against the 1x1 step at the same batch."""
-    ref = runs[0]["ref"]
-    once = [r["ref"] for r in runs
+    ref = runs[0][key]
+    once = [r[key] for r in runs
             if r["layout"] == "images" or r["spatial_index"] == 0]
     return dict(
         loss_mesh=ref["loss"], loss_1x1=single["loss"],
-        loss_rel=abs(ref["loss"] - single["loss"]) / abs(single["loss"]),
-        head_grad_max_rel={n: float(np.abs(ref[n] - single[n]).max()
-                                    / np.abs(single[n]).max())
-                           for n in ("weight", "bias")},
+        **step_gap(ref, single),
         sparse_samples_equal=(
             sum(r["sparse_count"] for r in once) == single["sparse_count"]
             and abs(sum(r["sparse_sum"] for r in once)
@@ -2081,14 +2311,19 @@ def mesh_vs_single(runs: list[dict], single: dict) -> dict:
 
 def mesh_run_ok(runs: list[dict], vs: dict, batch_size: int,
                 rounds: int) -> bool:
-    """Within MESH_STEP_TOL of the 1x1 step; K8 and K9 once a round in
-    each timed step and K7 once a round in the eval step, nothing else;
-    every rank's parameters bit for bit the same; finite outputs."""
+    """Within MESH_STEP_TOL of the 1x1 step; K8 and K9 once a round and
+    cspn_gates9 and cspn_gates9_bwd once in each timed step, K7 once a
+    round and cspn_gates9 once in the eval step, nothing else (no plain
+    normalization or anchor); every rank's parameters bit for bit the same;
+    finite outputs."""
     want_train = {k: (SPATIAL_STEPS * rounds
                       if k in ("cspn_prenorm_fwd_stash", "cspn_prenorm_bwd")
                       else 0) for k in runs[0]["launches"]}
+    want_train.update(cspn_gates9=SPATIAL_STEPS,
+                      cspn_gates9_bwd=SPATIAL_STEPS)
     want_eval = {k: rounds if k == "cspn_prenorm_fwd" else 0
                  for k in runs[0]["eval_launches"]}
+    want_eval.update(cspn_gates9=1)
     return (vs["loss_rel"] <= MESH_STEP_TOL
             and max(vs["head_grad_max_rel"].values()) <= MESH_STEP_TOL
             and vs["sparse_samples_equal"]
@@ -2100,10 +2335,60 @@ def mesh_run_ok(runs: list[dict], vs: dict, batch_size: int,
             and all(np.isfinite(r["losses"]).all() for r in runs))
 
 
-def phase_spatial(gpu: str) -> dict:
+def gap_singles(cfg, variables, batch_np: dict) -> dict:
+    """The 1x1 f32 step of GAP_RUN's batch with cuDNN off, with BatchNorm
+    on the mesh's sums, and with both."""
+    gap_cfg = cfg.override(**{"mesh.data": 1, "mesh.spatial": 1,
+                              "train.batch_size": KITTI_BATCH})
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    return {"no_cudnn": f32_step(gap_cfg, variables, batch, cudnn=False),
+            "bn_sums": f32_step(gap_cfg, variables, batch, bn_sums=True),
+            "no_cudnn_bn_sums": f32_step(gap_cfg, variables, batch,
+                                         cudnn=False, bn_sums=True)}
+
+
+def emit_mesh_gap(gap: list[dict], one: dict, singles: dict, vs: dict,
+                  config: str, gpu: str):
+    """The `mesh_gap` line: GAP_RUN's f32 step on the mesh against the 1x1
+    step, with cuDNN off on both sides, with the 1x1 BatchNorm on the
+    mesh's sums, and each change alone on one side."""
+    emit("mesh_gap", run=GAP_RUN, config=config, batch=KITTI_BATCH,
+         mesh_vs_1x1=vs,
+         no_cudnn_mesh_vs_1x1=mesh_vs_single(gap, singles["no_cudnn"],
+                                             "ref_no_cudnn"),
+         no_cudnn_mesh_vs_1x1_bn_sums=mesh_vs_single(
+             gap, singles["no_cudnn_bn_sums"], "ref_no_cudnn"),
+         mesh_vs_1x1_bn_sums=mesh_vs_single(gap, singles["bn_sums"]),
+         one_x_one_cudnn_vs_no_cudnn=step_gap(one, singles["no_cudnn"]),
+         one_x_one_bn_vs_bn_sums=step_gap(one, singles["bn_sums"]),
+         mesh_cudnn_vs_no_cudnn=step_gap(gap[0]["ref"],
+                                         gap[0]["ref_no_cudnn"]),
+         gpu=gpu)
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Processes started inside take the allocator's segments that grow in
+    place (their f32 steps with cuDNN off unfold the convolutions' inputs,
+    and 8 ranks on one card have room for them only so)."""
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+
+
+def phase_spatial(gpu: str, gap_probe: bool = False) -> dict:
     """(a) the sharded CSPN op on 4 ranks against K4-K6; (b) the kitti_1216
     2x4 Trainer on 8 ranks against the 1x1 Trainer. Every rank is a
-    process on cuda:0 over gloo."""
+    process on cuda:0 over gloo. With `gap_probe`, the f32 step of
+    GAP_RUN is also taken apart (`mesh_gap` line, ROADMAP.md section 3):
+    `python3 -c "import chip_smoke as c; g = c.phase_toolchain();
+    c.phase_build(); c.phase_spatial(g, gap_probe=True)"`."""
     t0 = time.perf_counter()
     op = spawn_ranks(spatial_op_rank, 4, timeout=RANK_DEADLINE_S)
     rounds = -(-24 // HALO_K)
@@ -2120,6 +2405,7 @@ def phase_spatial(gpu: str) -> dict:
          seconds=time.perf_counter() - t0, gpu=gpu)
     want = {k: rounds if k.startswith("cspn_prenorm") else 0
             for k in op[0]["launches"]}
+    want.update(cspn_gates9=2, cspn_gates9_bwd=1)
     if not (max(errs[:2]) <= KERNEL_TOL and max(errs[2:]) <= GRAD_TOL
             and all(r["launches"] == want for r in op)
             and all(r["exchanges"] == 2 * (rounds + 2) for r in op)):
@@ -2138,16 +2424,22 @@ def phase_spatial(gpu: str) -> dict:
                                       for k, v in batch_np.items()})
               for n, bs, _ in MESH_RUNS if n != "rows_b8"}
     single["rows_b8"] = single["images_b8"]
+    singles = gap_singles(cfg, variables, batch_np) if gap_probe else None
     del variables
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = spawn_ranks(mesh_rank, 8, batch_np, timeout=RANK_DEADLINE_S)
+    with expandable_segments() if gap_probe else contextlib.nullcontext():
+        ranks = spawn_ranks(mesh_rank, 8, batch_np, gap_probe,
+                            timeout=RANK_DEADLINE_S)
     seconds = time.perf_counter() - t0
     runs = {n: [r[n] for r in ranks] for n, _, _ in MESH_RUNS}
     vs = {n: mesh_vs_single(runs[n], single[n]) for n in runs}
     images = runs["images_b8"]
     r0 = images[0]
+    if gap_probe:
+        emit_mesh_gap(runs[GAP_RUN], single[GAP_RUN], singles, vs[GAP_RUN],
+                      cfg.name, gpu)
     emit("spatial_train", config=cfg.name, mesh=r0["trainer_mesh"], ranks=8,
          arch=cfg.model.arch, dtype=cfg.model.dtype, batch=KITTI_BATCH,
          h=KITTI_H, w=KITTI_W, num_iters=cfg.model.num_iters,
@@ -2167,7 +2459,8 @@ def phase_spatial(gpu: str) -> dict:
          timing="one card time-shared by 8 processes, collectives through "
                 "the host over gloo: not a multi-GPU figure", gpu=gpu)
     kernels = ("cspn_prenorm_fwd", "cspn_prenorm_fwd_stash",
-               "cspn_prenorm_bwd")
+               "cspn_prenorm_bwd", "cspn_gates9", "cspn_gates9_bwd",
+               "prenorm_gates9", "anchor")
     for name, batch_size, layout in MESH_RUNS:
         rs = runs[name]
         emit("spatial_rows", run=name, layout=rs[0]["layout"],
@@ -2183,9 +2476,9 @@ def phase_spatial(gpu: str) -> dict:
              step_ms_gloo_on_one_card_median_all=float(np.median(
                  [ms for r in rs for ms in r["step_ms"]])),
              eval_ms_rank0=rs[0]["eval_ms"],
-             k7_k9_launches_train_per_rank=[
+             slab_route_launches_train_per_rank=[
                  {k: r["launches"][k] for k in kernels} for r in rs],
-             k7_k9_launches_eval_per_rank=[
+             slab_route_launches_eval_per_rank=[
                  {k: r["eval_launches"][k] for k in kernels} for r in rs],
              params_identical=len({r["digest"] for r in rs}) == 1,
              timing="gloo on one card: 8 processes time-share one H100, "
@@ -2882,14 +3175,59 @@ def host_call_ms(fn, calls: int) -> list[float]:
     return ms
 
 
+class Gates9ContractCSPN(torch.nn.Module):
+    """The CSPN step of a kitti_1216 serving program as export_program
+    captured it before K4 took raw guidance: the plain normalization and
+    anchor as graph ops, then the operator cspn_tiled_fwd on gates9.
+    x (B, 10, H, W) = guidance, blur, sparse -> (B, H, W, 1)."""
+
+    def forward(self, x):
+        sp = x[:, 9]
+        gates9 = prenorm_gates9(x[:, :8], "8sum_clamp")
+        d0 = anchor(x[:, 8], sp)
+        return torch.ops.cspn_monodepth_tpu_torch.cspn_tiled_fwd(
+            gates9, d0, sp, 24)[..., None]
+
+
+def gates9_contract_job(tmp: Path) -> tuple[list, dict]:
+    """A program of Gates9ContractCSPN at KITTI B=1, exported here, and the
+    loader's job and cell for it: its output is held to K4's on the same
+    raw inputs within KERNEL_TOL (the graph's normalization sums in torch's
+    order), and it must launch K7's entry, the gates9 contract's function,
+    once a call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    guid, blur, sp = cspn_problem(gen, 1, KITTI_H, KITTI_W)
+    x = torch.cat([guid, blur[:, None], sp[:, None]], 1)
+    path = tmp / "kitti_1216_gates9_contract_b1.pt2"
+    module = Gates9ContractCSPN()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        torch.export.save(torch.export.export(module, (x,)), str(path))
+        export_s = time.perf_counter() - t0
+        want = cspn_cuda.cspn_tiled_fwd(guid, blur, sp, num_iters=24,
+                                        norm_type="8sum_clamp")
+        module(x).cpu()
+        eager_ms = host_call_ms(lambda: module(x).cpu(), SINGLE_REQUESTS)
+    np.save(tmp / f"{path.stem}_x.npy", x.cpu().numpy())
+    job = [str(path), str(tmp / f"{path.stem}_x.npy"),
+           str(tmp / f"{path.stem}_y.npy"), SINGLE_REQUESTS]
+    cell = dict(config="kitti_1216_gates9_contract", batch=1, h=KITTI_H,
+                w=KITTI_W, export_s=export_s, want=want.cpu().numpy(),
+                sparse=sp.cpu().numpy(), eager_ms=eager_ms,
+                calls=SINGLE_REQUESTS, artifact_mb=path.stat().st_size / 1e6,
+                kernel="cspn_prenorm_fwd", tol=KERNEL_TOL)
+    return job, cell
+
+
 def tools_export(tmp: Path, gpu: str) -> dict:
     """export_program of each EXPORT_CELLS shape on the card, every program
     loaded in one fresh process (LOADER), its output against predict_batch
     on the same requests, its CSPN launches (K1 for NYU, K4 for KITTI, one
     a call, nothing else) and its host ms per call beside the eager
     model's (input on the card, output copied back). An `export` line per
-    cell. Returns the NYU B=32 predictor, its requests and the loader's
-    launches by cell."""
+    cell; one more for a program with the gates9 operator contract of K4
+    before it took raw guidance (gates9_contract_job). Returns the NYU B=32
+    predictor, its requests and the loader's launches by cell."""
     jobs, cells = [], []
     nyu = None
     for config in dict.fromkeys(c for c, _ in EXPORT_CELLS):
@@ -2927,6 +3265,9 @@ def tools_export(tmp: Path, gpu: str) -> dict:
             if config == "nyu_completion_500" and batch == TRAIN_BATCH:
                 nyu = (predictor, rgb, sparse)
         del predictor
+    job, cell = gates9_contract_job(tmp)
+    jobs.append(job)
+    cells.append(cell)
     out = subprocess.run([sys.executable, "-c", LOADER, json.dumps(jobs)],
                          capture_output=True, text=True, timeout=600,
                          cwd=ROOT)
@@ -2938,11 +3279,12 @@ def tools_export(tmp: Path, gpu: str) -> dict:
         got = np.load(job[2])[..., 0]
         check_depth(got, c["sparse"], c["want"].shape)
         err = float(np.abs(got - c["want"]).max() / np.abs(c["want"]).max())
+        tol = c.get("tol", EXPORT_TOL)
         want_launches = {n: 0 for n in res["launches"]}
         want_launches[c["kernel"]] = c["calls"]
         line = dict(config=c["config"], batch=c["batch"], h=c["h"], w=c["w"],
                     artifact_mb=c["artifact_mb"], export_s=c["export_s"],
-                    load_s=res["load_s"], max_rel=err, tol=EXPORT_TOL,
+                    load_s=res["load_s"], max_rel=err, tol=tol,
                     calls=c["calls"], launches=res["launches"],
                     jax_imported=res["jax_imported"],
                     program_ms_p50=float(np.median(res["ms"])),
@@ -2951,11 +3293,19 @@ def tools_export(tmp: Path, gpu: str) -> dict:
                     eager_ms_p75=float(np.percentile(c["eager_ms"], 75)),
                     gpu=gpu)
         emit("export", **line)
-        if not (err <= EXPORT_TOL and res["launches"] == want_launches
+        if not (err <= tol and res["launches"] == want_launches
                 and not res["jax_imported"]):
             raise AssertionError(f"exported program: {line}")
         launches[f"{c['config']}_b{c['batch']}"] = res["launches"]
     return dict(nyu=nyu, launches=launches)
+
+
+# The kernels ops/parity.py holds to the plain loop (JAX's parity gate
+# covers the nine Pallas kernels; the normalization's pair is checked in
+# phase 9).
+PARITY_KERNELS = ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd", "cspn_tiled_fwd",
+                  "cspn_tiled_fwd_stash", "cspn_tiled_bwd", "cspn_prenorm_fwd",
+                  "cspn_prenorm_fwd_stash", "cspn_prenorm_bwd")
 
 
 def tools_parity(gpu: str) -> dict:
@@ -2982,7 +3332,7 @@ def tools_parity(gpu: str) -> dict:
     emit("parity", **result, fwd_tol=parity.FWD_TOL,
          grad_tol=parity.GRAD_TOL, launches=launches,
          seconds=time.perf_counter() - t0, gpu=gpu)
-    if not all(launches.values()):
+    if not all(launches[k] for k in PARITY_KERNELS):
         raise AssertionError(f"the parity checks left a kernel unlaunched: "
                              f"{launches}")
     return dict(result, launches=launches)
@@ -3166,6 +3516,17 @@ def main():
         row("cspn_prenorm_bwd", "cspn_bwd.cu", 1496,
             spatial["train_launches"]["cspn_prenorm_bwd"],
             k789["max_abs"]["k9_max_abs"], k789["timing"]["cspn_prenorm_bwd"]),
+        # Not pallas_calls: the normalization _prenorm_gates9 and its
+        # jax.vjp (the tiled adjoint's chain rule; the slab route's
+        # normalization is the same XLA fusion, parallel/halo.py).
+        row("cspn_gates9", "cspn_bwd.cu", 720,
+            spatial["train_launches"]["cspn_gates9"],
+            k789["gates9"]["max_abs"]["gates9_max_abs"],
+            k789["gates9"]["timing"]["cspn_gates9"]),
+        row("cspn_gates9_bwd", "cspn_bwd.cu", 1195,
+            spatial["train_launches"]["cspn_gates9_bwd"],
+            k789["gates9"]["max_abs"]["gates9_bwd_max_abs"],
+            k789["gates9"]["timing"]["cspn_gates9_bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

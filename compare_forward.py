@@ -10,7 +10,9 @@ planes made on the card, the same for every checkout.
 ROOT is a checkout of the repository; its own package is imported and
 builds its kernels into its own _build/. To compare two commits on one
 card, run both on that card, in turns: parent, change, change, parent.
-Prints one line "AB {json}".
+Prints one line "AB {json}". K4 and K5 take raw guidance (the wrappers'
+contract since the H-tiled route took JAX's); a checkout from before that
+has other K4/K5 wrappers and cannot be timed by this script.
 """
 import json
 import os
@@ -74,14 +76,11 @@ calls["k1_nyu1"] = lambda: cspn_cuda.cspn_fwd(guid[:1], blur[:1], sp[:1],
                                               **raw)
 calls["k2_nyu32"] = lambda: cspn_cuda.cspn_fwd_stash(guid, blur, sp, **raw)
 kg, kb, ks = problem(gen, *KITTI)
-g9, d0 = prenorm_gates9(kg, "8sum_clamp"), anchor(kb, ks)
-del kg, kb
-calls["k4_kitti8"] = lambda: cspn_cuda.cspn_tiled_fwd(g9, d0, ks,
-                                                      num_iters=24)
-calls["k4_kitti1"] = lambda: cspn_cuda.cspn_tiled_fwd(g9[:1], d0[:1], ks[:1],
-                                                      num_iters=24)
-calls["k5_kitti8"] = lambda: cspn_cuda.cspn_tiled_fwd_stash(g9, d0, ks,
-                                                            num_iters=24)
+calls["k4_kitti8"] = lambda: cspn_cuda.cspn_tiled_fwd(kg, kb, ks, **raw)
+calls["k4_kitti1"] = lambda: cspn_cuda.cspn_tiled_fwd(kg[:1], kb[:1], ks[:1],
+                                                      **raw)
+calls["k5_kitti8"] = lambda: cspn_cuda.cspn_tiled_fwd_stash(kg, kb, ks,
+                                                            **raw)
 for name, shape in SLABS.items():
     sg, sb, ss = problem(gen, *shape)
     s9, s0 = prenorm_gates9(sg, "8sum_clamp"), anchor(sb, ss)

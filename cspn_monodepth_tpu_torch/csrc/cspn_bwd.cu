@@ -1,30 +1,42 @@
 // CSPN adjoint on Hopper (sm_90a): the gradients of the propagation of
 // csrc/cspn_fwd.cu, from the output's cotangent and the stash of every
-// pre-iteration plane d^t that the stash forward wrote. Three C entries:
-//   cspn_bwd        (K3) with respect to the raw guidance, the blur depth
-//                   and the sparse depth, the chain rule of the affinity
-//                   normalization included (stash of K2);
-//   cspn_tiled_bwd  (K6) the prenormalized contract of the H-tiled route
-//                   (stash of K5): with respect to the nine gate planes
-//                   (B, 9, H, W), [G_0, G_1..8], and to d^0 (lam^0, no anchor
-//                   mask), and the sparse sum sum_t m lam^{t+1} of the
-//                   per-iteration anchors. No chain rule: the caller's
-//                   autograd of the normalization and of d^0's anchoring
-//                   supplies it;
-//   cspn_prenorm_bwd (K9) K6's contract on one rank's halo'd slab of the
-//                   spatially sharded CSPN (stash of K8, one round of r <= k
-//                   iterations): the slab's halo rows are image rows to it.
-// and one C entry per stage (cspn_bwd_gates9, cspn_bwd_sweep,
-// cspn_bwd_sums), through which the stages are checked and timed alone.
+// pre-iteration plane d^t that the stash forward wrote, and the affinity
+// normalization's own pair. C entries:
+//   cspn_bwd        with respect to the raw guidance, the blur depth and
+//                   the sparse depth, the chain rule of the normalization
+//                   and d^0's anchor included: K3 (stash of K2) and K6 (stash
+//                   of K5), which compute the same function (K6's wrapper in
+//                   ops/cspn_cuda.py launches this entry);
+//   cspn_prenorm_bwd (K9) the prenormalized contract of the spatially
+//                   sharded CSPN (stash of K8, one round of r <= k
+//                   iterations on one rank's halo'd slab, whose halo rows
+//                   are image rows to it): with respect to the nine gate
+//                   planes (B, 9, H, W), [G_0, G_1..8], and to d^0 (lam^0),
+//                   and the sparse sum sum_t m lam^{t+1} of the
+//                   per-iteration anchors; where K8 anchored d^0 on load,
+//                   also that anchor's gradients, as K3's;
+//   cspn_gates9     the normalization, raw guidance (B, 8, H, W) to gates9
+//                   (B, 9, H, W) = [1 - sum_k gate_k, gate_1..8]: K3's stage
+//                   0, and the slab route's normalization;
+//   cspn_gates9_bwd its adjoint, the guidance and d_gates9 to d_guidance by
+//                   the chain rule that K3's sums stage applies, through the
+//                   same device function;
+// and one C entry per further stage (cspn_bwd_sweep, cspn_bwd_sums), through
+// which the stages are checked and timed alone.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_bwd_kernel
 // (launched by _cspn_pallas_bwd_impl), the whole-plane TPU adjoint of the
 // training step (K3), and _cspn_tiled_bwd_kernel (launched by
-// _tiled_bwd_launch), the H-tiled one (K6), and _cspn_prenorm_bwd_kernel
+// _tiled_bwd_launch) with the normalization's chain rule and the anchor's
+// gradients that _cspn_tiled_adjoint_bwd_impl applies after it (jax.vjp of
+// _prenorm_gates9), the H-tiled one (K6), and _cspn_prenorm_bwd_kernel
 // (launched by _cspn_prenorm_bwd_impl), the spatial path's slab adjoint
-// (K9). They compute the same functions; they do not copy the TPU layout,
-// which keeps ~28 planes of one image (K3) or of one row tile (K6) resident
-// in VMEM and carries the gate sums there from one iteration to the next.
+// (K9); cspn_gates9 and cspn_gates9_bwd replace _prenorm_gates9 and its
+// jax.vjp, the XLA fusions of the normalization
+// (cspn_monodepth_tpu/parallel/halo.py normalizes each shard with it). They
+// compute the same functions; they do not copy the TPU layout, which keeps
+// ~28 planes of one image (K3) or of one row tile (K6) resident in VMEM
+// and carries the gate sums there from one iteration to the next.
 //
 // The function, with lam^{t+1} = dL/dd^{t+1} (unmasked), m = [sparse > 0]
 // and lam_u = (1 - m) lam, for t = T-1 .. 0:
@@ -34,13 +46,14 @@
 //   sums:  G_k(j) = sum_t lam_u^{t+1}(j) d^t(j + off_k),
 //          G_0(j) = sum_t lam_u^{t+1}(j) d^t(j),
 //          d_sparse = sum_t m lam^{t+1};
-// then, K3 only, d_blur = (1 - m) lam^0, d_sparse += m lam^0, and the chain
-// rule of the normalization (ops/cspn_ref.py:cspn_bwd_sums_plain).
+// then, K3/K6 (and K9 where d^0 was anchored on load), d_blur =
+// (1 - m) lam^0 and d_sparse += m lam^0, and, K3/K6 only, the chain rule
+// of the normalization (ops/cspn_ref.py:cspn_bwd_sums_plain).
 // The sums need nothing of the recursion but the lam planes, so the fused
 // adjoint splits into lean kernels, each run over the whole batch:
-//   stage 0 (K3 only) adjoint_gates9: the raw guidance (B, 8, H, W) to
+//   stage 0 (K3/K6) adjoint_gates9: the raw guidance (B, 8, H, W) to
 //          gates9 (B, 9, H, W) in scratch, the forward's expression; after
-//          it K3's sweep is K6's;
+//          it the sweep is K9's;
 //   stage 1 adjoint_sweep_round: the lam recursion, the forward kernel's
 //          structure on the transposed stencil; writes every lam^{t+1}
 //          into a (B, T, H, W) adjoint stash, as K2 writes d^t, and lam^0;
@@ -51,21 +64,24 @@
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), each input read once
 // and each output written once; every stage does a few flop per byte, far
 // below the f32 rate: all are bound by bytes. Per pixel, T = 24:
-//   the function: K3 (22 + T) * 4 = 184 B (390.4 MB at NYU's B=32 x
-//          228x304, 117 us); K6 (23 + T) * 4 = 188 B (630.1 MB at KITTI's
-//          B=8 x 352x1216, 188 us); K9 (22 + r) planes, 48.6 MB on KITTI's
-//          2x4 slab (B=4 x 96x1216, r=4), 14.5 us;
-//   stage 0: 8 planes in, 9 out, 68 B (150.8 MB at NYU B=32, 45 us);
+//   the function: K3 and K6 (22 + T) * 4 = 184 B (390.4 MB at NYU's B=32
+//          x 228x304, 117 us; 630.1 MB at KITTI's B=8 x 352x1216, 188 us);
+//          K9 (22 + r) planes, 48.6 MB on KITTI's 2x4 slab (B=4 x 96x1216,
+//          r=4), 14.5 us;
+//   stage 0: 8 planes in, 9 out, 68 B (150.8 MB at NYU B=32, 45 us; 232.9 MB
+//          at KITTI B=8, 70 us);
+//   cspn_gates9_bwd: 8 guidance and 9 gate-gradient planes in, 8 out, 100 B
+//          (342.4 MB at KITTI B=8, 102 us);
 //   stage 1: 9 gate planes, sparse and the cotangent in, T lam planes and
 //          lam^0 out, (12 + T) * 4 = 144 B (319.4 MB at NYU B=32, 95 us;
 //          493.1 MB at KITTI B=8, 147 us);
 //   stage 2: the T stash and T lam planes and sparse in, 10 planes out
-//          (K6/K9: 9 gate sums, the sparse sum), (2T + 11) * 4 = 236 B
-//          (808.1 MB at KITTI B=8, 241 us); K3 also reads the 8 raw planes
-//          and lam^0 and writes d_blur, (2T + 20) * 4 = 272 B (603.3 MB at
-//          NYU B=32, 180 us).
-// The split moves more bytes than the function (K3 121 planes against 46,
-// K6 95 against 57) in exchange for kernels that keep the card busy; the
+//          (K9: 9 gate sums, the sparse sum), (2T + 11) * 4 = 236 B; K3/K6
+//          read the 8 raw planes and lam^0 and write the 8 guidance
+//          gradients, d_blur and d_sparse, (2T + 20) * 4 = 272 B (603.3 MB
+//          at NYU B=32, 180 us; 931.4 MB at KITTI B=8, 278 us).
+// The split moves more bytes than the function (K3/K6 121 planes against
+// 46) in exchange for kernels that keep the card busy; the
 // fused kernel it replaces carried 36 gate sums per thread (253 registers,
 // one block per SM) and re-read them from device memory every round.
 //
@@ -114,7 +130,7 @@ constexpr int SUM_THREADS = SUM_W * SUM_H;
 constexpr int WIN_W = SUM_W + 2;
 constexpr int WIN = WIN_W * (SUM_H + 2);
 
-// Stage 0: one pixel per thread.
+// Stage 0 and cspn_gates9_bwd: one pixel per thread.
 constexpr int EW_THREADS = 256;
 
 enum Norm { kSum = 0, kSumAbs = 1, kSumClamp = 2 };
@@ -140,6 +156,46 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// d^0's anchor, d^0 = (1 - m) blur + m sparse, in reverse: lam0 into d_blur
+// = (1 - m) lam0, and d_sparse = ssum (the per-iteration anchors' sum) plus
+// m lam0.
+__device__ __forceinline__ void anchor_grad(bool m, float ssum, float lam0,
+                                            float* d_blur, float* d_sparse) {
+  *d_blur = m ? 0.0f : lam0;
+  *d_sparse = m ? ssum + lam0 : ssum;
+}
+
+// The chain rule of gate_k = a_k / max(s, floor), s = sum |g_k| (a = g, or
+// |g| for 8sum_abs), gate_0 = 1 - sum_k gate_k: from G (G[k] = dL/dgate_{k+1}
+// for k < 8, G[8] = dL/dgate_0) and the raw guidance of one pixel (g, its 8
+// planes `plane` apart) to dL/dg (dg, 8 planes apart). Ghat_k = G_k - G_0,
+// c1 = sum_k Ghat_k gate_k; sign(0) = 0.
+__device__ __forceinline__ void norm_chain_rule(const float* g, int64_t plane,
+                                                const float G[9], float* dg,
+                                                int norm) {
+  const float floor_ = norm == kSumClamp ? 1.0f : 1e-8f;
+  float raw[8], a[8];
+  float abs_sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    raw[k] = g[k * plane];
+    a[k] = norm == kSumAbs ? fabsf(raw[k]) : raw[k];
+    abs_sum += fabsf(a[k]);
+  }
+  const float den = fmaxf(abs_sum, floor_);
+  const float active = abs_sum > floor_ ? 1.0f : 0.0f;
+  float c1 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c1 = fmaf(G[k] - G[8], a[k] / den, c1);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float ghat = G[k] - G[8];
+    const float sgn = raw[k] > 0.0f ? 1.0f : (raw[k] < 0.0f ? -1.0f : 0.0f);
+    dg[k * plane] = norm == kSumAbs ? sgn * (ghat - active * c1) / den
+                                    : (ghat - sgn * (active * c1)) / den;
+  }
 }
 
 // Stage 0: gates9 = [1 - sum_k gate_k, gate_1..8], gate_k = a_k / max(s,
@@ -170,6 +226,23 @@ adjoint_gates9(const float* __restrict__ guid, int64_t guid_bstride,
     gsum += gk;
   }
   out[0] = 1.0f - gsum;
+}
+
+// cspn_gates9_bwd: d_gates9 (B, 9, H, W) = [dL/dgate_0, dL/dgate_1..8] and
+// the raw guidance -> d_guid (B, 8, H, W), contiguous.
+__global__ void __launch_bounds__(EW_THREADS)
+gates9_bwd(const float* __restrict__ guid, int64_t guid_bstride,
+           const float* __restrict__ d_gates9, int64_t dg9_bstride,
+           float* __restrict__ d_guid, int64_t plane, int norm) {
+  const int64_t idx = (int64_t)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (idx >= plane) return;
+  const float* d9 = d_gates9 + blockIdx.y * dg9_bstride + idx;
+  float G[9];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) G[k] = d9[(k + 1) * plane];
+  G[8] = d9[0];
+  norm_chain_rule(guid + blockIdx.y * guid_bstride + idx, plane, G,
+                  d_guid + (int64_t)blockIdx.y * 8 * plane + idx, norm);
 }
 
 // Stage 1, one round: `iters` reverse iterations t = t_lo + iters - 1 ..
@@ -263,11 +336,13 @@ adjoint_sweep_round(const float* __restrict__ gates9, int64_t g_bstride,
     if (interior[i]) lout[gidx[i]] = lam[i];
 }
 
-// Stage 2. RAW false (K6, K9): d_guid = d_gates9 (B, 9, H, W) = [G_0,
-// G_1..8], d_sparse = sum_t m lam^{t+1}; guid and d_blur unused. RAW true
-// (K3): guid the raw guidance (B, 8, H, W); d_blur holds lam^0 on entry and
-// (1 - m) lam^0 on return; d_sparse also takes m lam^0; d_guid (B, 8, H, W)
-// the guidance gradient by the normalization's chain rule.
+// Stage 2. RAW false (K9): d_guid = d_gates9 (B, 9, H, W) = [G_0,
+// G_1..8], d_sparse = sum_t m lam^{t+1}; guid unused; d_blur null, or
+// (d^0 anchored on load) lam^0 on entry, (1 - m) lam^0 on return with
+// d_sparse taking m lam^0. RAW true (K3, K6): guid the raw guidance
+// (B, 8, H, W); d_blur holds lam^0 on entry and (1 - m) lam^0 on return;
+// d_sparse also takes m lam^0; d_guid (B, 8, H, W) the guidance gradient by
+// the normalization's chain rule.
 template <bool RAW>
 __global__ void __launch_bounds__(SUM_THREADS)
 adjoint_sums(const float* __restrict__ guid, int64_t guid_bstride,
@@ -330,41 +405,18 @@ adjoint_sums(const float* __restrict__ guid, int64_t guid_bstride,
 
   if (!inside) return;
   const int64_t px = (int64_t)b * plane + pix;
+  if (RAW || d_blur)
+    anchor_grad(m, ssum, d_blur[px], d_blur + px, d_sparse + px);
+  else
+    d_sparse[px] = ssum;
   if constexpr (!RAW) {
     float* dg = d_guid + (int64_t)b * 9 * plane + pix;
     dg[0] = acc[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) dg[(k + 1) * plane] = acc[k];
-    d_sparse[px] = ssum;
   } else {
-    const float lam0 = d_blur[px];
-    d_blur[px] = m ? 0.0f : lam0;
-    d_sparse[px] = m ? ssum + lam0 : ssum;
-    // Chain rule of gate_k = a_k / max(s, floor), s = sum |g_k| (a = g,
-    // or |g| for 8sum_abs): Ghat_k = G_k - G_0, c1 = sum_k Ghat_k gate_k.
-    const float* g = guid + b * guid_bstride + pix;
-    float* dg = d_guid + (int64_t)b * 8 * plane + pix;
-    const float floor_ = norm == kSumClamp ? 1.0f : 1e-8f;
-    float raw[8], a[8];
-    float abs_sum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      raw[k] = g[k * plane];
-      a[k] = norm == kSumAbs ? fabsf(raw[k]) : raw[k];
-      abs_sum += fabsf(a[k]);
-    }
-    const float den = fmaxf(abs_sum, floor_);
-    const float active = abs_sum > floor_ ? 1.0f : 0.0f;
-    float c1 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) c1 = fmaf(acc[k] - acc[8], a[k] / den, c1);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float ghat = acc[k] - acc[8];
-      const float sgn = raw[k] > 0.0f ? 1.0f : (raw[k] < 0.0f ? -1.0f : 0.0f);
-      dg[k * plane] = norm == kSumAbs ? sgn * (ghat - active * c1) / den
-                                      : (ghat - sgn * (active * c1)) / den;
-    }
+    norm_chain_rule(guid + b * guid_bstride + pix, plane, acc,
+                    d_guid + (int64_t)b * 8 * plane + pix, norm);
   }
 }
 
@@ -416,26 +468,11 @@ int launch_sums(const float* guid, int64_t guid_bstride,
   return (int)cudaGetLastError();
 }
 
-int prenorm_adjoint(const float* gates9, int64_t g_bstride,
-                    const float* sparse, int64_t sp_bstride,
-                    const float* grad_out, int64_t go_bstride,
-                    const float* stash, float* d_gates9, float* lam0,
-                    float* d_sparse, float* lstash, float* lam_scratch,
-                    int B, int H, int W, int T, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_sweep(gates9, g_bstride, sparse, sp_bstride, grad_out,
-                         go_bstride, lstash, lam0, lam_scratch, B, H, W, T,
-                         s);
-  if (err != cudaSuccess) return err;
-  return launch_sums<false>(nullptr, 0, sparse, sp_bstride, stash, lstash,
-                            d_gates9, nullptr, d_sparse, B, H, W, T, 0, s);
-}
-
 }  // namespace
 
 extern "C" {
 
-// K3. guid: (B, 8, H, W) raw guidance, batch stride guid_bstride
+// K3 and K6. guid: (B, 8, H, W) raw guidance, batch stride guid_bstride
 // (elements); sparse: (B, H, W), batch stride sp_bstride, or null (no
 // anchors); grad_out: (B, H, W) cotangent of the output, batch stride
 // go_bstride; stash: contiguous (B, T, H, W) from cspn_fwd_stash.
@@ -463,47 +500,53 @@ int cspn_bwd(const float* guid, int64_t guid_bstride,
                            s);
 }
 
-// K6. gates9: (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
+// K9. gates9: (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
 // g_bstride; sparse, grad_out as in cspn_bwd; stash: contiguous
-// (B, T, H, W) from cspn_tiled_fwd_stash. Outputs, contiguous: d_gates9
-// (B, 9, H, W) = [G_0, G_1..8], lam0 (B, H, W) = dL/dd^0, d_sparse
-// (B, H, W) = sum_t m lam^{t+1} (0 without a sparse map). Scratch,
+// (B, T, H, W) from cspn_prenorm_fwd_stash, T = the round's r <= k
+// iterations. Outputs, contiguous: d_gates9 (B, 9, H, W) = [G_0, G_1..8],
+// lam0 (B, H, W) = dL/dd^0, d_sparse (B, H, W) = sum_t m lam^{t+1} (0
+// without a sparse map); with anchor0 non-zero (K8 anchored d^0 on load)
+// lam0 = (1 - m) dL/dd^0 and d_sparse also takes m dL/dd^0. Scratch,
 // contiguous: lstash (B, T, H, W), lam_scratch (B, H, W).
-int cspn_tiled_bwd(const float* gates9, int64_t g_bstride,
-                   const float* sparse, int64_t sp_bstride,
-                   const float* grad_out, int64_t go_bstride,
-                   const float* stash,
-                   float* d_gates9, float* lam0, float* d_sparse,
-                   float* lstash, float* lam_scratch,
-                   int B, int H, int W, int T, void* stream) {
-  return prenorm_adjoint(gates9, g_bstride, sparse, sp_bstride, grad_out,
-                         go_bstride, stash, d_gates9, lam0, d_sparse, lstash,
-                         lam_scratch, B, H, W, T, stream);
-}
-
-// K9: cspn_tiled_bwd's contract on one rank's halo'd slab, the stash of
-// cspn_prenorm_fwd_stash; T = the round's r <= k iterations.
 int cspn_prenorm_bwd(const float* gates9, int64_t g_bstride,
                      const float* sparse, int64_t sp_bstride,
                      const float* grad_out, int64_t go_bstride,
                      const float* stash,
                      float* d_gates9, float* lam0, float* d_sparse,
                      float* lstash, float* lam_scratch,
-                     int B, int H, int W, int T, void* stream) {
-  return prenorm_adjoint(gates9, g_bstride, sparse, sp_bstride, grad_out,
-                         go_bstride, stash, d_gates9, lam0, d_sparse, lstash,
-                         lam_scratch, B, H, W, T, stream);
+                     int B, int H, int W, int T, int anchor0, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_sweep(gates9, g_bstride, sparse, sp_bstride, grad_out,
+                         go_bstride, lstash, lam0, lam_scratch, B, H, W, T,
+                         s);
+  if (err != cudaSuccess) return err;
+  return launch_sums<false>(nullptr, 0, sparse, sp_bstride, stash, lstash,
+                            d_gates9, anchor0 ? lam0 : nullptr, d_sparse, B,
+                            H, W, T, 0, s);
 }
 
-// Stage 0 alone: guid (B, 8, H, W), batch stride guid_bstride -> gates9,
-// contiguous (B, 9, H, W).
-int cspn_bwd_gates9(const float* guid, int64_t guid_bstride, float* gates9,
-                    int B, int H, int W, int norm, void* stream) {
+// The normalization (stage 0 alone): guid (B, 8, H, W), batch stride
+// guid_bstride -> gates9, contiguous (B, 9, H, W).
+int cspn_gates9(const float* guid, int64_t guid_bstride, float* gates9,
+                int B, int H, int W, int norm, void* stream) {
   return launch_gates9(guid, guid_bstride, gates9, B, H, W, norm,
                        (cudaStream_t)stream);
 }
 
-// Stage 1 alone: gates9, sparse, grad_out as in cspn_tiled_bwd -> lstash,
+// Its adjoint: guid (B, 8, H, W) and d_gates9 (B, 9, H, W), batch strides
+// guid_bstride and dg9_bstride -> d_guid, contiguous (B, 8, H, W).
+int cspn_gates9_bwd(const float* guid, int64_t guid_bstride,
+                    const float* d_gates9, int64_t dg9_bstride,
+                    float* d_guid, int B, int H, int W, int norm,
+                    void* stream) {
+  const int64_t plane = (int64_t)H * W;
+  const dim3 grid((unsigned)((plane + EW_THREADS - 1) / EW_THREADS), B);
+  gates9_bwd<<<grid, EW_THREADS, 0, (cudaStream_t)stream>>>(
+      guid, guid_bstride, d_gates9, dg9_bstride, d_guid, plane, norm);
+  return (int)cudaGetLastError();
+}
+
+// Stage 1 alone: gates9, sparse, grad_out as in cspn_prenorm_bwd -> lstash,
 // contiguous (B, T, H, W), lstash[b, t] = lam^{t+1} unmasked, and lam0
 // (B, H, W). Scratch lam_scratch (B, H, W).
 int cspn_bwd_sweep(const float* gates9, int64_t g_bstride,
@@ -517,7 +560,7 @@ int cspn_bwd_sweep(const float* gates9, int64_t g_bstride,
 }
 
 // Stage 2 alone, from the stash and stage 1's lstash (both contiguous
-// (B, T, H, W)). guid null: K6's sums, d_guid = d_gates9 (B, 9, H, W),
+// (B, T, H, W)). guid null: K9's sums, d_guid = d_gates9 (B, 9, H, W),
 // d_sparse; d_blur unused. guid the raw guidance (B, 8, H, W): K3's, with
 // d_blur holding lam^0 on entry (see adjoint_sums).
 int cspn_bwd_sums(const float* guid, int64_t guid_bstride,

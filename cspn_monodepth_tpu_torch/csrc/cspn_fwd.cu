@@ -1,32 +1,41 @@
 // CSPN forward propagation on Hopper (sm_90a): affinity normalization,
 // d^0 anchoring and T iterations of the 8-neighbour gather stencil with
-// per-iteration sparse re-anchoring. Six C entries share one round kernel,
+// per-iteration sparse re-anchoring. Four C entries share one round kernel,
 // templated on the contract, the stash and the tile geometry:
-//   cspn_fwd        (K1) the eval and serving forward of raw guidance;
-//   cspn_fwd_stash  (K2) the training forward, which also writes every
+//   cspn_fwd        the forward of raw guidance: K1, the eval and serving
+//                   forward of the whole-plane route, and K4, the H-tiled
+//                   route's, which computes the same function (its wrapper
+//                   in ops/cspn_cuda.py launches this entry);
+//   cspn_fwd_stash  the training forward, which also writes every
 //                   pre-iteration plane d^t to a (B, T, H, W) stash that the
-//                   adjoint (csrc/cspn_bwd.cu) reads back in reverse;
-//   cspn_tiled_fwd, cspn_tiled_fwd_stash  (K4, K5) the same two on the
-//                   prenormalized contract of the H-tiled route: nine gate
-//                   planes (B, 9, H, W), centre first, read as they are (no
-//                   normalization), and d^0 taken as given (the caller
-//                   anchors it); the anchor still follows every iteration;
-//   cspn_prenorm_fwd, cspn_prenorm_fwd_stash  (K7, K8) the same two on one
-//                   rank's halo'd slab of the spatially sharded CSPN
-//                   (parallel/halo.py): the prenormalized contract again, on
-//                   an (H/S + 2k)-row slab for one round of r <= k
+//                   adjoint (csrc/cspn_bwd.cu) reads back in reverse: K2 and
+//                   K5, one function again;
+//   cspn_prenorm_fwd, cspn_prenorm_fwd_stash  (K7, K8) the same two on the
+//                   prenormalized contract of the spatially sharded CSPN
+//                   (parallel/halo.py): nine gate planes (B, 9, H, W),
+//                   centre first, read as they are (no normalization), and
+//                   d^0 taken as given unless the caller asks for the
+//                   anchor on load (the first round of the slab route); the
+//                   anchor still follows every iteration. They run on one
+//                   rank's (H/S + 2k)-row slab for one round of r <= k
 //                   iterations. The slab's halo rows are its neighbours'
 //                   rows, copied in by the caller (zero rows on the first
 //                   and last shard); to the kernel they are image rows like
 //                   any other, and the zero border lies outside the slab, as
-//                   in the TPU kernel's padded plane.
+//                   in the TPU kernel's padded plane. K7 is also the
+//                   function of the serving operator `cspn_tiled_fwd`
+//                   (ops/library.py), which keeps the gates9 contract of
+//                   programs exported before the H-tiled route took raw
+//                   guidance.
 //
 // Replaces: cspn_monodepth_tpu/ops/cspn_pallas.py:_cspn_kernel (launched by
 // _cspn_pallas_fwd_impl) and _cspn_kernel_stash (launched by
 // _cspn_pallas_stash_fwd), the whole-plane TPU kernels, and
 // _cspn_tiled_kernel (launched by _tiled_launch) and
 // _cspn_tiled_stash_kernel (launched by _tiled_stash_launch), the H-tiled
-// ones, and _cspn_prenorm_kernel (launched by _cspn_prenorm_fwd_impl) and
+// ones, with the normalization and d^0's anchor that
+// _cspn_pallas_tiled_fwd_impl and _cspn_tiled_stash_fwd_impl run around
+// them (_tiled_pad_inputs, _prenorm_gates9), and _cspn_prenorm_kernel (launched by _cspn_prenorm_fwd_impl) and
 // _cspn_prenorm_stash_kernel (launched by _cspn_prenorm_stash_fwd), the
 // spatial path's slab kernels. They compute the same functions; they do not
 // copy the TPU layout (the TPU tiles H only, pads W to 128 lanes and
@@ -42,9 +51,10 @@
 // 0.9 us, so a single image is launch-bound. The arithmetic, 19 flop/px per
 // iteration plus the normalization, is far below the f32 rate: the kernel
 // is bound by bytes. K2 writes T more planes: (11 + T) * 4 B/px, 310.5 MB
-// at B=32, T=24, about 93 us. K4 reads nine gate planes instead of eight:
-// 48 B/px, 164.4 MB at KITTI's B=8 x 352x1216, about 49 us; K5 adds the
-// T stash planes, 493.1 MB, about 147 us. K7 on KITTI's 2x4 slab (B=4 images
+// at B=32, T=24, about 93 us. K4 and K5 are the same functions at KITTI's
+// B=8 x 352x1216: 150.7 MB, about 45 us, and 479.4 MB, about 143 us. The
+// gates9 contract reads nine gate planes instead of eight and d^0 for the
+// blur: 48 B/px without the stash. K7 on KITTI's 2x4 slab (B=4 images
 // of 96x1216, one round of 4 iterations) moves 12 planes, 22.4 MB, about
 // 6.7 us; K8 16 planes, about 8.9 us: a few microseconds of launch latency
 // are a large part of such a call.
@@ -62,20 +72,24 @@
 //   2.56 at 40/12) through L2. One round reads what the whole call must
 //   read, so the round count multiplies the bound. On an H100 (NVIDIA
 //   H100 80GB HBM3, 700 W; PERF.md section 6) one round's load phase alone
-//   (T=0) takes K4 at KITTI B=8 0.077 ms and K1 at NYU B=32 0.082, so
+//   (T=0) takes the gates9 round at KITTI B=8 (K4 before it took raw
+//   guidance) 0.077 ms and K1 at NYU B=32 0.082, so
 //   fewer, larger rounds win.
 // * One launch per round holds the whole batch (grid.z = B). Running
 //   every round of an L2-sized chunk of images before the next chunk was
 //   swept on the H100 and lost at every batch shape (PERF.md section 6): a
 //   chunk's launch ends in a ragged last wave, and the rounds are bound by
 //   the blocks' serial load-iterate-store phases, not by device memory
-//   (K4 at B=8 in three 48/8 rounds reads 493 MB in 0.34 ms, 1.45 of the
+//   (the gates9 round at KITTI B=8 in three 48/8 rounds reads 493 MB in
+//   0.34 ms, 1.45 of the
 //   card's 3.35 TB/s).
-// * K1/K2 normalize once. Their first round normalizes the raw guidance of
-//   its slab, as before, and, where more rounds follow, writes its
-//   interior's gates9 to a (B, 9, H, W) scratch that the wrapper allocates;
-//   later rounds read those gates as K4 does. The stored gates are the
-//   computed ones, so the output is bit for bit the same.
+// * A raw call normalizes once. Its first round normalizes the raw guidance
+//   of its slab and, where more rounds follow, writes its interior's gates9
+//   to a (B, 9, H, W) scratch that the wrapper allocates; later rounds read
+//   those gates as K7 does. The stored gates are the computed ones, with
+//   csrc/cspn_bwd.cu's stage 0 expression, so the output is bit for bit
+//   that of the gates9 contract on cspn_gates9's planes with d^0 anchored
+//   on load.
 // * Strips. A thread owns a run of RUN consecutive slab rows in one slab
 //   column; neighbouring lanes own neighbouring columns (no bank conflicts;
 //   coalesced rows in device memory). It keeps its pixels' 9 gates, their
@@ -110,10 +124,11 @@
 // * Zero border at the image edge only: slab pixels outside the image
 //   get d = 0, all nine gates 0 and an anchor of 0, so they stay exactly
 //   0. A tile edge inside the image is covered by the halo, never zeroed.
-// * K1/K2: d^0 is anchored before the first iteration. Their first round
-//   anchors d on load; K4/K5 never anchor on load: d^0 comes anchored by the
-//   caller, and every later round (K1/K2's included) loads planes that the
-//   previous round's last iteration anchored. The mask is sparse > 0.
+// * d^0 is anchored before the first iteration: the first round of a raw
+//   call anchors d on load, and so does K7/K8's when the caller asks
+//   (`anchor0`); otherwise K7/K8 take d^0 as given. Every later round loads
+//   planes that the previous round's last iteration anchored. The mask is
+//   sparse > 0.
 // * Stash (K2, K5, K8): at the start of each iteration every block writes
 //   its tile's interior of d^t. The interior is exact at every iteration of
 //   a round, and the interiors tile the image, so the stash is exact.
@@ -123,7 +138,8 @@
 //   at the 1024-thread geometries. The stores are issued and
 //   not waited for, so the memory system overlaps them with the stencil:
 //   on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6) K2 at
-//   NYU B=32 takes 0.345 ms and K5 at KITTI B=8 0.439 (0.409 and 0.548
+//   NYU B=32 takes 0.345 ms and the gates9 stash entry at KITTI B=8 (K5
+//   before it took raw guidance) 0.439 (0.409 and 0.548
 //   before), the stash's bytes at the card's memory rate taking 0.064 and
 //   0.098. Two designs that copied the stash from shared memory with
 //   Hopper's bulk asynchronous copies lost there and are gone: one
@@ -153,7 +169,7 @@ enum Norm { kSum = 0, kSumAbs = 1, kSumClamp = 2 };
 
 // Where a round's gates come from: K1/K2's raw guidance (kRaw), the same
 // while also writing the interior's gates9 for later rounds (kRawToGates),
-// or gates9 planes (kGates: K4/K5/K7/K8, and K1/K2 after their first round).
+// or gates9 planes (kGates: K7/K8, and a raw call after its first round).
 enum Src { kRaw = 0, kRawToGates = 1, kGates = 2 };
 
 // A block owns a TILE x TILE interior of a SLAB x SLAB slab; each of its
@@ -176,7 +192,8 @@ struct Geometry {
 // and kRawToGates, else gates9 (B, 9, H, W) = [g0, g_1..8]. kRawToGates
 // writes the interior's gates9 to gates_out (contiguous (B, 9, H, W));
 // STASH writes d^(t0 + t) of the interior to stash[b, t0 + t] of a
-// contiguous (B, T, H, W) array.
+// contiguous (B, T, H, W) array. anchor_load puts the sparse points into d
+// as it is loaded (d^0's anchor).
 template <int SRC, bool STASH, class G>
 __global__ void __launch_bounds__(G::THREADS, G::MINB)
 cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
@@ -184,7 +201,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
                const float* __restrict__ sparse, int64_t sp_bstride,
                float* __restrict__ d_out, float* __restrict__ gates_out,
                float* __restrict__ stash, int T, int t0,
-               int H, int W, int iters, int norm) {
+               int H, int W, int iters, int norm, bool anchor_load) {
   constexpr int TILE = G::TILE, HALO = G::HALO, RUN = G::RUN;
   constexpr int SLAB = G::SLAB, PITCH = G::PITCH;
   __shared__ float buf[2][PITCH * PITCH];
@@ -259,7 +276,7 @@ cspn_fwd_round(const float* __restrict__ guid, int64_t guid_bstride,
       d = din[idx];
       const float s = sp ? sp[idx] : 0.0f;
       anc[j] = s > 0.0f ? s : __int_as_float(0x7fc00000);   // NaN
-      if (SRC != kGates && s > 0.0f) d = s;
+      if (anchor_load && s > 0.0f) d = s;
     } else {
       // Outside the image: all gates 0 and held to 0, so d stays exactly 0
       // even next to a non-finite neighbour (0 * inf is NaN).
@@ -334,10 +351,11 @@ struct Call {
   int64_t sp_bstride;
   float* out;
   float* scratch;      // d's ping-pong partner; used when rounds > 1
-  float* gates9;       // K1/K2's gates9 scratch; used when rounds > 1
-  float* stash;        // K2/K5/K8, else null
+  float* gates9;       // a raw call's gates9 scratch; used when rounds > 1
+  float* stash;        // the stash entries', else null
   int B, H, W, T, norm;
-  bool prenorm;        // K4/K5/K7/K8
+  bool prenorm;        // K7/K8
+  bool anchor0;        // K7/K8: anchor d^0 on load
   cudaStream_t stream;
 };
 
@@ -347,14 +365,16 @@ cudaError_t launch_round(const Call& c, const float* g, int64_t g_bstride,
                          float* gates_out, int t0, int iters) {
   const dim3 grid((c.W + G::TILE - 1) / G::TILE,
                   (c.H + G::TILE - 1) / G::TILE, c.B);
+  // d^0's anchor: the first round of a raw call, or of K7/K8 on request.
+  const bool anchor_load = t0 == 0 && (SRC != kGates || c.anchor0);
   if (c.stash)
     cspn_fwd_round<SRC, true, G><<<grid, G::THREADS, 0, c.stream>>>(
         g, g_bstride, src, src_bstride, c.sparse, c.sp_bstride, dst,
-        gates_out, c.stash, c.T, t0, c.H, c.W, iters, c.norm);
+        gates_out, c.stash, c.T, t0, c.H, c.W, iters, c.norm, anchor_load);
   else
     cspn_fwd_round<SRC, false, G><<<grid, G::THREADS, 0, c.stream>>>(
         g, g_bstride, src, src_bstride, c.sparse, c.sp_bstride, dst,
-        gates_out, nullptr, c.T, t0, c.H, c.W, iters, c.norm);
+        gates_out, nullptr, c.T, t0, c.H, c.W, iters, c.norm, anchor_load);
   return cudaGetLastError();
 }
 
@@ -408,14 +428,15 @@ int launch(const Call& c, int geometry) {
 
 extern "C" {
 
-// guid: (B, 8, H, W) planes, batch stride guid_bstride (elements);
-// blur, sparse: (B, H, W), batch strides blur_bstride, sp_bstride; sparse
-// may be null (no anchors). out, scratch: contiguous (B, H, W); gates9:
-// contiguous (B, 9, H, W). scratch and gates9 are used only when T exceeds
-// the geometry's HALO (either may otherwise be null). Launches ceil(T /
-// HALO) rounds (one for T = 0), each over the whole batch, with tile
-// geometry `geometry` (an index of CSPN_FWD_GEOMETRIES), on `stream`, and
-// returns cudaGetLastError() of the first failing launch.
+// The raw contract (K1, and K4 through its own wrapper). guid: (B, 8, H, W)
+// planes, batch stride guid_bstride (elements); blur, sparse: (B, H, W),
+// batch strides blur_bstride, sp_bstride; sparse may be null (no anchors).
+// out, scratch: contiguous (B, H, W); gates9: contiguous (B, 9, H, W).
+// scratch and gates9 are used only when T exceeds the geometry's HALO
+// (either may otherwise be null). Launches ceil(T / HALO) rounds (one for
+// T = 0), each over the whole batch, with tile geometry `geometry` (an
+// index of CSPN_FWD_GEOMETRIES), on `stream`, and returns
+// cudaGetLastError() of the first failing launch.
 int cspn_fwd(const float* guid, int64_t guid_bstride,
              const float* blur, int64_t blur_bstride,
              const float* sparse, int64_t sp_bstride,
@@ -424,11 +445,11 @@ int cspn_fwd(const float* guid, int64_t guid_bstride,
              void* stream) {
   return launch({guid, guid_bstride, blur, blur_bstride, sparse, sp_bstride,
                  out, scratch, gates9, nullptr, B, H, W, T, norm, false,
-                 (cudaStream_t)stream}, geometry);
+                 false, (cudaStream_t)stream}, geometry);
 }
 
 // As cspn_fwd, and also writes d^t, the plane iteration t starts from, to
-// stash[b, t] of a contiguous (B, T, H, W) array (K2).
+// stash[b, t] of a contiguous (B, T, H, W) array (K2, K5).
 int cspn_fwd_stash(const float* guid, int64_t guid_bstride,
                    const float* blur, int64_t blur_bstride,
                    const float* sparse, int64_t sp_bstride,
@@ -436,50 +457,26 @@ int cspn_fwd_stash(const float* guid, int64_t guid_bstride,
                    int B, int H, int W, int T, int norm, int geometry,
                    void* stream) {
   return launch({guid, guid_bstride, blur, blur_bstride, sparse, sp_bstride,
-                 out, scratch, gates9, stash, B, H, W, T, norm, false,
+                 out, scratch, gates9, stash, B, H, W, T, norm, false, false,
                  (cudaStream_t)stream}, geometry);
 }
 
-// K4: gates9 (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
-// g_bstride; d0 (B, H, W), already anchored by the caller, batch stride
-// d0_bstride; sparse and the rest as in cspn_fwd. The gates are 0 outside
-// the image, so the zero border stays exactly 0.
-int cspn_tiled_fwd(const float* gates9, int64_t g_bstride,
-                   const float* d0, int64_t d0_bstride,
-                   const float* sparse, int64_t sp_bstride,
-                   float* out, float* scratch,
-                   int B, int H, int W, int T, int geometry,
-                   void* stream) {
-  return launch({gates9, g_bstride, d0, d0_bstride, sparse, sp_bstride, out,
-                 scratch, nullptr, nullptr, B, H, W, T, 0, true,
-                 (cudaStream_t)stream}, geometry);
-}
-
-// K5: as cspn_tiled_fwd, and also writes d^t to stash[b, t] of a
-// contiguous (B, T, H, W) array; its output is K4's bit for bit.
-int cspn_tiled_fwd_stash(const float* gates9, int64_t g_bstride,
-                         const float* d0, int64_t d0_bstride,
-                         const float* sparse, int64_t sp_bstride,
-                         float* out, float* scratch, float* stash,
-                         int B, int H, int W, int T, int geometry,
-                         void* stream) {
-  return launch({gates9, g_bstride, d0, d0_bstride, sparse, sp_bstride, out,
-                 scratch, nullptr, stash, B, H, W, T, 0, true,
-                 (cudaStream_t)stream}, geometry);
-}
-
-// K7: cspn_tiled_fwd's contract on one rank's halo'd slab (gates9, d0 and
-// sparse of the slab's H rows, halo rows included), T = the round's r <= k
-// iterations: one launch for r <= HALO, which is at least 4.
+// K7: gates9 (B, 9, H, W) prenormalized planes [g0, g_1..8], batch stride
+// g_bstride; d0 (B, H, W), batch stride d0_bstride, taken as given, or
+// anchored on load where anchor0 is non-zero; sparse and the rest as in
+// cspn_fwd. The gates are 0 outside the image, so the zero border stays
+// exactly 0. On one rank's halo'd slab (its H rows, halo rows included)
+// T is the round's r <= k iterations: one launch for r <= HALO, which is
+// at least 4.
 int cspn_prenorm_fwd(const float* gates9, int64_t g_bstride,
                      const float* d0, int64_t d0_bstride,
                      const float* sparse, int64_t sp_bstride,
                      float* out, float* scratch,
-                     int B, int H, int W, int T, int geometry,
+                     int B, int H, int W, int T, int anchor0, int geometry,
                      void* stream) {
-  return cspn_tiled_fwd(gates9, g_bstride, d0, d0_bstride, sparse,
-                        sp_bstride, out, scratch, B, H, W, T, geometry,
-                        stream);
+  return launch({gates9, g_bstride, d0, d0_bstride, sparse, sp_bstride, out,
+                 scratch, nullptr, nullptr, B, H, W, T, 0, true,
+                 anchor0 != 0, (cudaStream_t)stream}, geometry);
 }
 
 // K8: K7 that also writes d^t to stash[b, t] of a contiguous (B, T, H, W)
@@ -488,11 +485,11 @@ int cspn_prenorm_fwd_stash(const float* gates9, int64_t g_bstride,
                            const float* d0, int64_t d0_bstride,
                            const float* sparse, int64_t sp_bstride,
                            float* out, float* scratch, float* stash,
-                           int B, int H, int W, int T, int geometry,
-                           void* stream) {
-  return cspn_tiled_fwd_stash(gates9, g_bstride, d0, d0_bstride, sparse,
-                              sp_bstride, out, scratch, stash, B, H, W, T,
-                              geometry, stream);
+                           int B, int H, int W, int T, int anchor0,
+                           int geometry, void* stream) {
+  return launch({gates9, g_bstride, d0, d0_bstride, sparse, sp_bstride, out,
+                 scratch, nullptr, stash, B, H, W, T, 0, true, anchor0 != 0,
+                 (cudaStream_t)stream}, geometry);
 }
 
 const char* cspn_fwd_error_string(int err) {

@@ -80,7 +80,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def lib() -> ctypes.CDLL | None:
     """The loaded native library, building it if needed; None where it
-    cannot be built (no compiler) or is disabled (CSPN_NATIVE=0)."""
+    cannot be built (no compiler) or is disabled (CSPN_NATIVE=0). A caller
+    that arrives while another thread builds or loads it waits for that
+    attempt: `_tried` is set only once `_lib` holds its result, so no
+    worker thread takes the numpy executor (whose rgb differs in the last
+    bits) for a record while the library is on its way."""
     global _lib, _tried
     if os.environ.get("CSPN_NATIVE", "1") == "0":
         return None
@@ -89,14 +93,13 @@ def lib() -> ctypes.CDLL | None:
     with _lock:
         if _lib is not None or _tried:
             return _lib
-        _tried = True
         so = library_path()
-        if not so.exists() and not _build(so):
-            return None
-        try:
-            _lib = _bind(ctypes.CDLL(str(so)))
-        except OSError:
-            _lib = None
+        if so.exists() or _build(so):
+            try:
+                _lib = _bind(ctypes.CDLL(str(so)))
+            except OSError:
+                _lib = None
+        _tried = True
     return _lib
 
 

@@ -5,26 +5,31 @@ to the hand-written Hopper kernels (ops/cspn_cuda.py) and a CPU tensor to
 their plain PyTorch versions (ops/cspn_ref.py). There is no fallback: a
 CUDA tensor whose kernel fails to build or launch raises.
 
-Two routes, as in the JAX package (its ops/cspn.py routes by image size):
-* whole-plane, `impl="cuda"` (counterpart of JAX's "pallas"): the kernels
-  normalize the raw guidance themselves. When an input needs a gradient,
-  `CSPNFunction` runs the stash forward (K2) and its backward the
-  hand-written adjoint with the chain rule (K3); with no gradient wanted,
-  the forward is K1 alone, as the operator `cspn_fwd` (ops/library.py).
-* H-tiled, `impl="cuda_tiled"` (JAX's "pallas_tiled", `_cspn_pallas_tiled`):
-  `prenorm_gates9` and the anchoring of d^0 run in plain torch, then
-  `TiledCSPNFunction` runs K5 forward and K6 backward (K4 alone without a
-  gradient, as the operator `cspn_tiled_fwd`) on the prenormalized gates.
-  The normalization's chain rule and the anchor's gradient, d_blur =
-  (1 - m) lam^0 and d_sparse += m lam^0, are torch autograd of those plain
-  ops, as JAX takes `jax.vjp` of them.
+Two routes, as in the JAX package (its ops/cspn.py routes by image size),
+both on JAX's contract: raw guidance, blur and sparse in, the affinity
+normalization and the anchoring of d^0 inside the kernels, their chain rule
+inside the hand-written adjoint.
+* whole-plane, `impl="cuda"` (counterpart of JAX's "pallas"): when an
+  input needs a gradient, `CSPNFunction` runs the stash forward (K2) and
+  its backward the adjoint (K3); with no gradient wanted, the forward is
+  K1 alone, as the operator `cspn_fwd` (ops/library.py).
+* H-tiled, `impl="cuda_tiled"` (JAX's "pallas_tiled", `_cspn_pallas_tiled`,
+  a custom VJP over the raw inputs whose residuals are the guidance, the
+  inputs and the stash): `TiledCSPNFunction` runs K5 forward and K6
+  backward, which return d_guidance, d_blur = (1 - m) lam^0 and d_sparse
+  = sum_t m lam^{t+1} + m lam^0 as `_cspn_tiled_adjoint_bwd_impl` does;
+  K4 alone without a gradient, as the operator `cspn_tiled_fwd_raw`. On
+  the card K4-K6 compute K1-K3's functions with K1-K3's C entries.
 `impl="auto"` picks the route the JAX package picks on a TPU (`route`);
 `impl="torch"` is the independent plain loop under torch autograd.
 
 `cspn_propagate_prenorm` is the slab body of the spatially sharded CSPN
 (parallel/halo.py; JAX's `cspn_propagate_prenorm_pallas`): prenormalized
-gates9 and d^0 as given, `PrenormCSPNFunction` with K8 forward and K9
-backward, or K7 alone without a gradient.
+gates9 and d^0 as given (or anchored on load, the slab route's first
+round), `PrenormCSPNFunction` with K8 forward and K9 backward, or K7 alone
+without a gradient. `cspn_normalize` is that route's normalization on the
+card: `Gates9Function` (`cspn_gates9` forward, `cspn_gates9_bwd` backward),
+or the operator `cspn_gates9` without a gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 import cspn_monodepth_tpu_torch.ops.library  # noqa: F401 (the operators)
+from cspn_monodepth_tpu_torch.ops import cspn_cuda
 from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
     cspn_bwd,
     cspn_fwd_stash,
@@ -53,12 +59,13 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
 
 IMPLS = ("auto", "torch", "cuda", "cuda_tiled")
 
-# K1 and K4 without a gradient: the registered operators (ops/library.py),
-# whose CUDA implementations are the wrappers of the same names in
-# ops/cspn_cuda.py, so that eager serving and an exported program launch
+# K1, K4 and the normalization without a gradient: the registered
+# operators (ops/library.py), whose CUDA implementations are the wrappers
+# in ops/cspn_cuda.py, so that eager serving and an exported program launch
 # the same operator.
 cspn_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_fwd
-cspn_tiled_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_tiled_fwd
+cspn_tiled_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_tiled_fwd_raw
+cspn_gates9 = torch.ops.cspn_monodepth_tpu_torch.cspn_gates9
 
 # The JAX package's routing rule, kept as the port's own copy
 # (cspn_monodepth_tpu/ops/cspn.py:_fits_vmem): an image whose ~13 f32
@@ -83,77 +90,107 @@ def _planes(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride()[1:] == inner else t.contiguous()
 
 
+def _raw_stash_forward(ctx, fwd_stash, guidance, blur, sparse,
+                       num_iters: int, norm_type: str):
+    out, stash = fwd_stash(guidance, blur, sparse, num_iters=num_iters,
+                           norm_type=norm_type)
+    ctx.save_for_backward(guidance, sparse, stash)
+    ctx.num_iters, ctx.norm_type = num_iters, norm_type
+    return out
+
+
+def _raw_adjoint(ctx, bwd, grad_out):
+    guidance, sparse, stash = ctx.saved_tensors
+    d_guid, d_blur, d_sparse = bwd(guidance, sparse, stash,
+                                   _planes(grad_out),
+                                   num_iters=ctx.num_iters,
+                                   norm_type=ctx.norm_type)
+    return (d_guid, d_blur, None if sparse is None else d_sparse,
+            None, None)
+
+
 class CSPNFunction(torch.autograd.Function):
     """CSPN propagation with the hand-written adjoint: guidance
     (B, 8, H, W), blur and sparse (B, H, W) float32 with contiguous planes
     (sparse may be None) -> (B, H, W). Gradients reach all three inputs;
-    sparse gets none when it is None."""
+    sparse gets none when it is None. K2 forward, K3 backward; saved: the
+    guidance, sparse and the stash."""
 
     @staticmethod
     def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
-        out, stash = cspn_fwd_stash(guidance, blur, sparse,
-                                    num_iters=num_iters, norm_type=norm_type)
-        ctx.save_for_backward(guidance, sparse, stash)
-        ctx.num_iters, ctx.norm_type = num_iters, norm_type
+        return _raw_stash_forward(ctx, cspn_fwd_stash, guidance, blur,
+                                  sparse, num_iters, norm_type)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return _raw_adjoint(ctx, cspn_bwd, grad_out)
+
+
+class TiledCSPNFunction(torch.autograd.Function):
+    """The H-tiled route's kernels on JAX's contract (`_cspn_pallas_tiled`):
+    raw guidance (B, 8, H, W), blur and sparse (B, H, W) or None, float32
+    with contiguous planes -> (B, H, W). K5 forward (the normalization and
+    d^0's anchor in its first round), K6 backward (the normalization
+    recomputed, the chain rule and the anchor's gradients in its sums).
+    Saved: JAX's residuals, the guidance, sparse and the stash; no gates9."""
+
+    @staticmethod
+    def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
+        return _raw_stash_forward(ctx, cspn_tiled_fwd_stash, guidance, blur,
+                                  sparse, num_iters, norm_type)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return _raw_adjoint(ctx, cspn_tiled_bwd, grad_out)
+
+
+class PrenormCSPNFunction(torch.autograd.Function):
+    """The spatial path's slab kernels with the hand-written adjoint (JAX's
+    `_cspn_prenorm` custom VJP): gates9 (B, 9, H, W), d0 (B, H, W) as given
+    or, with anchor_d0, anchored on load, and sparse (B, H, W) or None, on
+    one rank's halo'd slab -> (B, H, W). K8 forward, K9 backward: d_gates9,
+    d0's gradient (through its anchor with anchor_d0) and sparse's."""
+
+    @staticmethod
+    def forward(ctx, gates9, d0, sparse, num_iters: int, anchor_d0: bool):
+        out, stash = cspn_prenorm_fwd_stash(gates9, d0, sparse,
+                                            num_iters=num_iters,
+                                            anchor_d0=anchor_d0)
+        ctx.save_for_backward(gates9, sparse, stash)
+        ctx.num_iters, ctx.anchor_d0 = num_iters, anchor_d0
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        guidance, sparse, stash = ctx.saved_tensors
-        d_guid, d_blur, d_sparse = cspn_bwd(
-            guidance, sparse, stash, _planes(grad_out),
-            num_iters=ctx.num_iters, norm_type=ctx.norm_type)
-        return (d_guid, d_blur, None if sparse is None else d_sparse,
-                None, None)
+        gates9, sparse, stash = ctx.saved_tensors
+        d_gates9, d_d0, d_sparse = cspn_prenorm_bwd(
+            gates9, sparse, stash, _planes(grad_out),
+            num_iters=ctx.num_iters, anchor_d0=ctx.anchor_d0)
+        return (d_gates9, d_d0, None if sparse is None else d_sparse, None,
+                None)
 
 
-class TiledCSPNFunction(torch.autograd.Function):
-    """The H-tiled route's kernels with the hand-written adjoint: gates9
-    (B, 9, H, W) from `prenorm_gates9`, d0 (B, H, W) already anchored and
-    sparse (B, H, W) or None, float32 with contiguous planes -> (B, H, W).
-    K5 forward, K6 backward; the gradients are d_gates9, lam^0 for d0, and
-    the per-iteration anchors' sum for sparse."""
-
-    @staticmethod
-    def forward(ctx, gates9, d0, sparse, num_iters: int):
-        return _stash_forward(ctx, cspn_tiled_fwd_stash, gates9, d0, sparse,
-                              num_iters)
+class Gates9Function(torch.autograd.Function):
+    """The normalization on the card: raw guidance (B, 8, H, W), float32
+    with contiguous planes -> gates9 (B, 9, H, W) = [1 - sum_k gate_k,
+    gate_1..8] (`cspn_gates9`); its backward is `cspn_gates9_bwd`, the
+    chain rule of K3's sums stage. Saved: the guidance."""
 
     @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return _adjoint(ctx, cspn_tiled_bwd, grad_out)
-
-
-class PrenormCSPNFunction(torch.autograd.Function):
-    """The spatial path's slab kernels with the hand-written adjoint (JAX's
-    `_cspn_prenorm` custom VJP): TiledCSPNFunction's contract on one rank's
-    halo'd slab. K8 forward, K9 backward."""
-
-    @staticmethod
-    def forward(ctx, gates9, d0, sparse, num_iters: int):
-        return _stash_forward(ctx, cspn_prenorm_fwd_stash, gates9, d0, sparse,
-                              num_iters)
+    def forward(ctx, guidance, norm_type: str):
+        ctx.save_for_backward(guidance)
+        ctx.norm_type = norm_type
+        return cspn_cuda.cspn_gates9(guidance, norm_type=norm_type)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, grad_out):
-        return _adjoint(ctx, cspn_prenorm_bwd, grad_out)
-
-
-def _stash_forward(ctx, fwd_stash, gates9, d0, sparse, num_iters: int):
-    out, stash = fwd_stash(gates9, d0, sparse, num_iters=num_iters)
-    ctx.save_for_backward(gates9, sparse, stash)
-    ctx.num_iters = num_iters
-    return out
-
-
-def _adjoint(ctx, bwd, grad_out):
-    gates9, sparse, stash = ctx.saved_tensors
-    d_gates9, lam0, d_sparse = bwd(gates9, sparse, stash, _planes(grad_out),
-                                   num_iters=ctx.num_iters)
-    return d_gates9, lam0, None if sparse is None else d_sparse, None
+    def backward(ctx, d_gates9):
+        (guidance,) = ctx.saved_tensors
+        return cspn_cuda.cspn_gates9_bwd(guidance, _planes(d_gates9),
+                                         norm_type=ctx.norm_type), None
 
 
 def _wants_grad(*tensors) -> bool:
@@ -161,15 +198,24 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _propagate_tiled(guidance, blur, sparse, num_iters: int,
-                     norm_type: str) -> torch.Tensor:
-    """The H-tiled route: gates and the anchored d^0 in plain torch, then
-    K5/K6 under TiledCSPNFunction, or K4 alone without a gradient."""
-    gates9 = prenorm_gates9(guidance, norm_type)
-    d0 = anchor(blur, sparse)
-    if _wants_grad(gates9, d0, sparse):
-        return TiledCSPNFunction.apply(gates9, d0, sparse, num_iters)
-    return cspn_tiled_fwd(gates9, d0, sparse, num_iters=num_iters)
+def cspn_normalize(guidance: torch.Tensor, *, norm_type: str,
+                   impl: str = "auto") -> torch.Tensor:
+    """The affinity normalization alone, raw guidance (B, 8, H, W) ->
+    gates9 (B, 9, H, W), the slab route's (JAX's parallel/halo.py
+    normalizes each shard).
+
+    impl: "auto" (`Gates9Function` when the guidance needs a gradient, the
+    operator `cspn_gates9` otherwise; on a CPU tensor their plain
+    versions) or "torch" (`prenorm_gates9` under torch autograd).
+    """
+    if impl == "torch":
+        return prenorm_gates9(guidance, norm_type)
+    if impl != "auto":
+        raise ValueError(f"unknown impl: {impl!r}")
+    guidance = _planes(guidance)
+    if _wants_grad(guidance):
+        return Gates9Function.apply(guidance, norm_type)
+    return cspn_gates9(guidance, norm_type)
 
 
 def cspn_propagate(
@@ -215,34 +261,38 @@ def cspn_propagate(
     sp = _squeeze_depth(sparse_depth)
     args = (_planes(guidance), _planes(_squeeze_depth(blur_depth)),
             None if sp is None else _planes(sp))
-    if impl == "cuda_tiled":
-        out = _propagate_tiled(*args, num_iters, norm_type)
-    elif _wants_grad(*args):
-        out = CSPNFunction.apply(*args, num_iters, norm_type)
+    tiled = impl == "cuda_tiled"
+    if _wants_grad(*args):
+        out = (TiledCSPNFunction if tiled else CSPNFunction).apply(
+            *args, num_iters, norm_type)
     else:
-        out = cspn_fwd(*args, num_iters=num_iters, norm_type=norm_type)
+        out = (cspn_tiled_fwd if tiled else cspn_fwd)(
+            *args, num_iters=num_iters, norm_type=norm_type)
     out = out.to(blur_depth.dtype)
     return out[..., None] if squeeze else out
 
 
 def cspn_propagate_prenorm(gates9: torch.Tensor, d0: torch.Tensor,
                            sparse: torch.Tensor | None = None, *,
-                           num_iters: int, impl: str = "auto") -> torch.Tensor:
+                           num_iters: int, impl: str = "auto",
+                           anchor_d0: bool = False) -> torch.Tensor:
     """Propagation on prenormalized gates9 (B, 9, H, W) from d0 (B, H, W)
     as given (no anchor on entry), the anchor after every iteration (JAX's
-    `cspn_propagate_prenorm_pallas`, the spatial path's slab body).
+    `cspn_propagate_prenorm_pallas`, the spatial path's slab body). With
+    anchor_d0, d0 is anchored first (the slab route's first round).
 
     impl: "auto" (K8/K9 under PrenormCSPNFunction when an input needs a
     gradient, K7 otherwise; on a CPU tensor their plain versions) or
     "torch" (the plain loop under torch autograd, JAX's "jnp").
     """
     if impl == "torch":
-        return cspn_propagate_prenorm_ref(gates9, d0, sparse,
-                                          num_iters=num_iters)
+        return cspn_propagate_prenorm_ref(
+            gates9, anchor(d0, sparse) if anchor_d0 else d0, sparse,
+            num_iters=num_iters)
     if impl != "auto":
         raise ValueError(f"unknown impl: {impl!r}")
     args = (_planes(gates9), _planes(d0),
             None if sparse is None else _planes(sparse))
     if _wants_grad(*args):
-        return PrenormCSPNFunction.apply(*args, num_iters)
-    return cspn_prenorm_fwd(*args, num_iters=num_iters)
+        return PrenormCSPNFunction.apply(*args, num_iters, anchor_d0)
+    return cspn_prenorm_fwd(*args, num_iters=num_iters, anchor_d0=anchor_d0)

@@ -11,19 +11,24 @@ that launched its kernel. The whole-plane route, on raw guidance:
   cspn_fwd        K1, the forward (csrc/cspn_fwd.cu);
   cspn_fwd_stash  K2, the forward that also stashes every d^t (same file);
   cspn_bwd        K3, the adjoint over that stash (csrc/cspn_bwd.cu).
-The H-tiled route, on prenormalized gates9 and an anchored d^0:
-  cspn_tiled_fwd        K4, the forward (csrc/cspn_fwd.cu);
-  cspn_tiled_fwd_stash  K5, K4 that also stashes every d^t (same file);
-  cspn_tiled_bwd        K6, the adjoint over that stash (csrc/cspn_bwd.cu).
-The spatial path's slab kernels, the same contract on one rank's halo'd
-slab of H/S + 2k rows for the r <= k iterations of one round
-(parallel/halo.py):
+The H-tiled route, on raw guidance as JAX's `_cspn_pallas_tiled`: the same
+three functions, so each launches the C entry of its whole-plane
+counterpart with the geometry `fwd_plan` gives for the shape:
+  cspn_tiled_fwd        K4 (C entry cspn_fwd);
+  cspn_tiled_fwd_stash  K5 (C entry cspn_fwd_stash);
+  cspn_tiled_bwd        K6 (C entry cspn_bwd).
+The spatial path's slab kernels, on prenormalized gates9 and d^0 as given
+(or anchored on load), on one rank's halo'd slab of H/S + 2k rows for the
+r <= k iterations of one round (parallel/halo.py):
   cspn_prenorm_fwd        K7, the forward (csrc/cspn_fwd.cu);
   cspn_prenorm_fwd_stash  K8, K7 that also stashes every d^t (same file);
   cspn_prenorm_bwd        K9, the adjoint over that stash (csrc/cspn_bwd.cu).
-The three adjoints are composed of stage kernels (csrc/cspn_bwd.cu), which
-have wrappers of their own, for checking and timing them alone:
-  cspn_bwd_gates9  stage 0 of K3, the raw guidance to gates9;
+The normalization, the slab route's (csrc/cspn_bwd.cu):
+  cspn_gates9      raw guidance to gates9, also K3's and K6's stage 0;
+  cspn_gates9_bwd  its adjoint, the chain rule of K3's sums stage.
+The adjoints are composed of stage kernels (csrc/cspn_bwd.cu); stage 0 is
+cspn_gates9, and the other two have wrappers of their own, for checking and
+timing them alone:
   cspn_bwd_sweep   stage 1, the lam recursion with its adjoint stash;
   cspn_bwd_sums    stage 2, the gate sums (K3's with the chain rule).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
@@ -63,6 +68,7 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_tiled_fwd_plain,
     cspn_tiled_fwd_stash_plain,
     prenorm_gates9,
+    prenorm_gates9_bwd_plain,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -165,28 +171,23 @@ def _load(name: str):
                              i32, i32, i32, i32, i32, i32, p],
                 "cspn_fwd_stash": [p, i64, p, i64, p, i64, p, p, p, p,
                                    i32, i32, i32, i32, i32, i32, p],
-                "cspn_tiled_fwd": [p, i64, p, i64, p, i64, p, p,
-                                   i32, i32, i32, i32, i32, p],
-                "cspn_tiled_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
-                                         i32, i32, i32, i32, i32, p]},
+                "cspn_prenorm_fwd": [p, i64, p, i64, p, i64, p, p,
+                                     i32, i32, i32, i32, i32, i32, p],
+                "cspn_prenorm_fwd_stash": [p, i64, p, i64, p, i64, p, p, p,
+                                           i32, i32, i32, i32, i32, i32, p]},
             "cspn_bwd": {
                 "cspn_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p, p, p,
                              i32, i32, i32, i32, i32, p],
-                "cspn_tiled_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p,
-                                   p, i32, i32, i32, i32, p],
-                "cspn_bwd_gates9": [p, i64, p, i32, i32, i32, i32, p],
+                "cspn_prenorm_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p,
+                                     p, i32, i32, i32, i32, i32, p],
+                "cspn_gates9": [p, i64, p, i32, i32, i32, i32, p],
+                "cspn_gates9_bwd": [p, i64, p, i64, p, i32, i32, i32, i32,
+                                    p],
                 "cspn_bwd_sweep": [p, i64, p, i64, p, i64, p, p, p,
                                    i32, i32, i32, i32, p],
                 "cspn_bwd_sums": [p, i64, p, i64, p, p, p, p, p,
                                   i32, i32, i32, i32, i32, p]},
         }
-        # K7-K9 take the C signatures of K4-K6.
-        signatures["cspn_fwd"]["cspn_prenorm_fwd"] = \
-            signatures["cspn_fwd"]["cspn_tiled_fwd"]
-        signatures["cspn_fwd"]["cspn_prenorm_fwd_stash"] = \
-            signatures["cspn_fwd"]["cspn_tiled_fwd_stash"]
-        signatures["cspn_bwd"]["cspn_prenorm_bwd"] = \
-            signatures["cspn_bwd"]["cspn_tiled_bwd"]
         for lib_name, path in build().items():
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures[lib_name].items():
@@ -226,7 +227,7 @@ def _check_call(guidance: torch.Tensor, num_iters: int,
                 norm_type: str | None) -> bool:
     """True for a CPU tensor (the plain version runs); checks what every
     kernel needs of a CUDA one and raises on anything else. norm_type is
-    None for the prenormalized kernels (K4-K6)."""
+    None for the prenormalized kernels (K7-K9)."""
     if guidance.device.type == "cpu":
         return True
     if guidance.device.type != "cuda":
@@ -306,10 +307,12 @@ def _launch_plan(b, h, w, num_iters, geometry):
 
 
 def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash,
-             geometry=None):
-    """Launch the forward C entry `entry` of csrc/cspn_fwd.cu: K1/K2 on raw
-    guidance (B, 8, H, W) with norm_type, K4/K5 on gates9 (B, 9, H, W)
-    with norm_type None; K2/K5 write into `stash`. Returns the output."""
+             geometry=None, anchor_d0=False):
+    """Launch the forward C entry `entry` of csrc/cspn_fwd.cu: cspn_fwd or
+    cspn_fwd_stash on raw guidance (B, 8, H, W) with norm_type, the
+    cspn_prenorm entries on gates9 (B, 9, H, W) with norm_type None and
+    d^0 anchored on load with anchor_d0; the stash entries write into
+    `stash`. Returns the output."""
     b, _, h, w = guidance.shape
     dev = guidance.device
     _check_planes("guidance" if norm_type else "gates9", guidance,
@@ -321,7 +324,7 @@ def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash,
     geometry, more = _launch_plan(b, h, w, num_iters, geometry)
     out = torch.empty((b, h, w), device=dev, dtype=torch.float32)
     # One scratch buffer, freed on return: d's ping-pong partner between
-    # rounds and, for K1/K2, the gates9 (B, 9, H, W) that their first
+    # rounds and, on raw guidance, the gates9 (B, 9, H, W) that the first
     # round writes for the later ones.
     scratch = gates9 = None
     if more:
@@ -337,8 +340,7 @@ def _forward(entry, guidance, blur, sparse, num_iters, norm_type, stash,
     if stash is not None:
         args += (stash.data_ptr(),)
     size = (b, h, w, num_iters)
-    if norm_type:
-        size += (NORM_TYPES.index(norm_type),)
+    size += (NORM_TYPES.index(norm_type),) if norm_type else (int(anchor_d0),)
     size += (geometry,)
     with torch.cuda.device(dev):
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -401,6 +403,15 @@ def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
     if _check_call(guidance, num_iters, norm_type):
         return cspn_bwd_plain(guidance, sparse, stash, grad_out,
                               num_iters=num_iters, norm_type=norm_type)
+    out = _raw_adjoint(guidance, sparse, stash, grad_out, num_iters,
+                       norm_type)
+    cspn_bwd.launches += 1
+    return out
+
+
+def _raw_adjoint(guidance, sparse, stash, grad_out, num_iters, norm_type):
+    """Launch the C entry cspn_bwd of csrc/cspn_bwd.cu (K3, K6); returns
+    (d_guidance, d_blur, d_sparse)."""
     b, _, h, w = guidance.shape
     dev = guidance.device
     _check_adjoint(dev, b, h, w, num_iters, planes=(
@@ -419,67 +430,67 @@ def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
             d_blur.data_ptr(), d_sparse.data_ptr(), gates9.data_ptr(),
             lam_stash.data_ptr(), lam_scratch.data_ptr(), b, h, w, num_iters,
             NORM_TYPES.index(norm_type))
-    cspn_bwd.launches += 1
     return d_guid, d_blur, d_sparse
 
 
-def cspn_tiled_fwd(gates9: torch.Tensor, d0: torch.Tensor,
+def cspn_tiled_fwd(guidance: torch.Tensor, blur: torch.Tensor,
                    sparse: torch.Tensor | None, *, num_iters: int,
+                   norm_type: str,
                    geometry: int | None = None) -> torch.Tensor:
-    """The H-tiled route's forward (K4): prenormalized gates9
-    (B, 9, H, W) [centre, 8 gates], d0 (B, H, W) taken as given (already
-    anchored), sparse (B, H, W) or None, all float32 with contiguous planes
-    and any batch stride -> (B, H, W); the anchor follows every iteration.
+    """The H-tiled route's forward (K4, JAX's `_cspn_pallas_tiled` without
+    a gradient): cspn_fwd's contract and function, raw guidance normalized
+    and d^0 anchored in the kernel, so it launches cspn_fwd's C entry.
 
     A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
     """
-    if _check_call(gates9, num_iters, None):
-        return cspn_tiled_fwd_plain(gates9, d0, sparse, num_iters=num_iters)
-    out = _forward("cspn_tiled_fwd", gates9, d0, sparse, num_iters, None,
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_tiled_fwd_plain(guidance, blur, sparse,
+                                    num_iters=num_iters, norm_type=norm_type)
+    out = _forward("cspn_fwd", guidance, blur, sparse, num_iters, norm_type,
                    None, geometry)
     cspn_tiled_fwd.launches += 1
     return out
 
 
-def cspn_tiled_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
+def cspn_tiled_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
                          sparse: torch.Tensor | None, *, num_iters: int,
-                         geometry: int | None = None
+                         norm_type: str, geometry: int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The H-tiled route's training forward (K5): as cspn_tiled_fwd, and
-    also returns the stash (B, T, H, W) of every d^t. Its output equals
+    """The H-tiled route's training forward (K5): cspn_fwd_stash's
+    contract and function (its C entry); its output equals
     cspn_tiled_fwd's."""
-    if _check_call(gates9, num_iters, None):
-        return cspn_tiled_fwd_stash_plain(gates9, d0, sparse,
-                                          num_iters=num_iters)
-    stash = _stash_like(d0, num_iters)
-    out = _forward("cspn_tiled_fwd_stash", gates9, d0, sparse, num_iters,
-                   None, stash, geometry)
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_tiled_fwd_stash_plain(guidance, blur, sparse,
+                                          num_iters=num_iters,
+                                          norm_type=norm_type)
+    stash = _stash_like(blur, num_iters)
+    out = _forward("cspn_fwd_stash", guidance, blur, sparse, num_iters,
+                   norm_type, stash, geometry)
     cspn_tiled_fwd_stash.launches += 1
     return out, stash
 
 
-def cspn_tiled_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
+def cspn_tiled_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
                    stash: torch.Tensor, grad_out: torch.Tensor, *,
-                   num_iters: int
+                   num_iters: int, norm_type: str
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The H-tiled route's adjoint (K6): gates9 (B, 9, H, W), sparse
-    (B, H, W) or None, the stash of cspn_tiled_fwd_stash and the output's
-    cotangent grad_out (B, H, W) -> (d_gates9 (B, 9, H, W) = [G_0,
-    G_1..8], lam0 = dL/dd^0 (B, H, W), d_sparse = sum_t m lam^{t+1}
-    (B, H, W), zero without a sparse map). No chain rule and no mask on
-    lam0 (ops/cspn_ref.py:cspn_tiled_bwd_plain)."""
-    if _check_call(gates9, num_iters, None):
-        return cspn_tiled_bwd_plain(gates9, sparse, stash, grad_out,
-                                    num_iters=num_iters)
-    out = _prenorm_adjoint("cspn_tiled_bwd", gates9, sparse, stash, grad_out,
-                           num_iters)
+    """The H-tiled route's adjoint (K6, JAX's `_cspn_tiled_adjoint_bwd_impl`):
+    cspn_bwd's contract and function (its C entry) on the stash of
+    cspn_tiled_fwd_stash -> (d_guidance (B, 8, H, W), d_blur = (1 - m)
+    lam^0, d_sparse = sum_t m lam^{t+1} + m lam^0), the normalization's
+    chain rule and the anchor's gradients included."""
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_tiled_bwd_plain(guidance, sparse, stash, grad_out,
+                                    num_iters=num_iters, norm_type=norm_type)
+    out = _raw_adjoint(guidance, sparse, stash, grad_out, num_iters,
+                       norm_type)
     cspn_tiled_bwd.launches += 1
     return out
 
 
-def _prenorm_adjoint(entry, gates9, sparse, stash, grad_out, num_iters):
-    """Launch the prenormalized adjoint `entry` of csrc/cspn_bwd.cu (K6 or
-    K9); returns (d_gates9, lam0, d_sparse)."""
+def _prenorm_adjoint(gates9, sparse, stash, grad_out, num_iters, anchor_d0):
+    """Launch the C entry cspn_prenorm_bwd of csrc/cspn_bwd.cu (K9);
+    returns (d_gates9, lam0, d_sparse)."""
     b, _, h, w = gates9.shape
     dev = gates9.device
     _check_adjoint(dev, b, h, w, num_iters, planes=(
@@ -491,11 +502,11 @@ def _prenorm_adjoint(entry, gates9, sparse, stash, grad_out, num_iters):
     # between rounds; freed on return.
     lam_stash, lam_scratch = _stash_like(lam0, num_iters), torch.empty_like(
         lam0)
-    _launch(entry, dev, gates9.data_ptr(), gates9.stride(0), _ptr(sparse),
-            _bstride(sparse), grad_out.data_ptr(), grad_out.stride(0),
-            stash.data_ptr(), d_gates9.data_ptr(), lam0.data_ptr(),
-            d_sparse.data_ptr(), lam_stash.data_ptr(), lam_scratch.data_ptr(),
-            b, h, w, num_iters)
+    _launch("cspn_prenorm_bwd", dev, gates9.data_ptr(), gates9.stride(0),
+            _ptr(sparse), _bstride(sparse), grad_out.data_ptr(),
+            grad_out.stride(0), stash.data_ptr(), d_gates9.data_ptr(),
+            lam0.data_ptr(), d_sparse.data_ptr(), lam_stash.data_ptr(),
+            lam_scratch.data_ptr(), b, h, w, num_iters, int(anchor_d0))
     return d_gates9, lam0, d_sparse
 
 
@@ -530,21 +541,42 @@ def _launch(entry: str, dev, *args) -> None:
     _raise_on(err, "cspn_bwd", entry)
 
 
-def cspn_bwd_gates9(guidance: torch.Tensor, *,
-                    norm_type: str) -> torch.Tensor:
-    """Stage 0 of K3: the raw guidance (B, 8, H, W), contiguous planes and
-    any batch stride -> gates9 (B, 9, H, W) = [1 - sum_k gate_k,
-    gate_1..8], prenorm_gates9's function."""
+def cspn_gates9(guidance: torch.Tensor, *, norm_type: str) -> torch.Tensor:
+    """The normalization (K3's and K6's stage 0, the slab route's): the raw
+    guidance (B, 8, H, W), contiguous planes and any batch stride ->
+    gates9 (B, 9, H, W) = [1 - sum_k gate_k, gate_1..8], prenorm_gates9's
+    function."""
     if _check_call(guidance, 0, norm_type):
         return prenorm_gates9(guidance, norm_type)
     b, _, h, w = guidance.shape
     dev = guidance.device
     _check_adjoint(dev, b, h, w, 0, planes=(("guidance", guidance, 8),))
     gates9 = _empty((b, 9, h, w), dev)
-    _launch("cspn_bwd_gates9", dev, guidance.data_ptr(), guidance.stride(0),
+    _launch("cspn_gates9", dev, guidance.data_ptr(), guidance.stride(0),
             gates9.data_ptr(), b, h, w, NORM_TYPES.index(norm_type))
-    cspn_bwd_gates9.launches += 1
+    cspn_gates9.launches += 1
     return gates9
+
+
+def cspn_gates9_bwd(guidance: torch.Tensor, d_gates9: torch.Tensor, *,
+                    norm_type: str) -> torch.Tensor:
+    """The normalization's adjoint: the raw guidance (B, 8, H, W) and the
+    cotangent d_gates9 (B, 9, H, W) of cspn_gates9's output, contiguous
+    planes and any batch stride -> d_guidance (B, 8, H, W), by the chain
+    rule K3's sums stage applies (sign(0) = 0 under 8sum_abs). Its plain
+    version is torch autograd of prenorm_gates9."""
+    if _check_call(guidance, 0, norm_type):
+        return prenorm_gates9_bwd_plain(guidance, d_gates9, norm_type)
+    b, _, h, w = guidance.shape
+    dev = guidance.device
+    _check_adjoint(dev, b, h, w, 0, planes=(("guidance", guidance, 8),
+                                            ("d_gates9", d_gates9, 9)))
+    d_guid = _empty((b, 8, h, w), dev)
+    _launch("cspn_gates9_bwd", dev, guidance.data_ptr(), guidance.stride(0),
+            d_gates9.data_ptr(), d_gates9.stride(0), d_guid.data_ptr(), b, h,
+            w, NORM_TYPES.index(norm_type))
+    cspn_gates9_bwd.launches += 1
+    return d_guid
 
 
 def cspn_bwd_sweep(gates9: torch.Tensor, sparse: torch.Tensor | None,
@@ -580,10 +612,10 @@ def cspn_bwd_sums(sparse: torch.Tensor | None, stash: torch.Tensor,
                   lam0: torch.Tensor | None = None,
                   norm_type: str | None = None) -> tuple[torch.Tensor, ...]:
     """Stage 2, the gate sums over the forward's stash and stage 1's
-    adjoint stash (both contiguous (B, T, H, W)). Without guidance (K6,
-    K9): (d_gates9 (B, 9, H, W) = [G_0, G_1..8], d_sparse = sum_t m
+    adjoint stash (both contiguous (B, T, H, W)). Without guidance (K9):
+    (d_gates9 (B, 9, H, W) = [G_0, G_1..8], d_sparse = sum_t m
     lam^{t+1}). With the raw guidance (B, 8, H, W), lam^0 and norm_type
-    (K3): (d_guidance, d_blur, d_sparse), the chain rule included;
+    (K3, K6): (d_guidance, d_blur, d_sparse), the chain rule included;
     ops/cspn_ref.py:cspn_bwd_sums_plain."""
     if not (guidance is None) == (lam0 is None) == (norm_type is None):
         raise ValueError("guidance, lam0 and norm_type go together")
@@ -612,23 +644,29 @@ def cspn_bwd_sums(sparse: torch.Tensor | None, stash: torch.Tensor,
 
 def cspn_prenorm_fwd(gates9: torch.Tensor, d0: torch.Tensor,
                      sparse: torch.Tensor | None, *, num_iters: int,
+                     anchor_d0: bool = False,
                      geometry: int | None = None) -> torch.Tensor:
-    """The spatial path's slab forward (K7): cspn_tiled_fwd's contract on
-    one rank's halo'd slab, gates9 (B, 9, Hs, W), d0 and sparse (B, Hs, W),
-    for the r = num_iters <= k iterations of one round -> (B, Hs, W).
+    """The spatial path's slab forward (K7): prenormalized gates9
+    (B, 9, Hs, W) [centre, 8 gates], d0 (B, Hs, W) taken as given, or
+    anchored on load with anchor_d0 (the slab route's first round), sparse
+    (B, Hs, W) or None, all float32 with contiguous planes and any batch
+    stride, on one rank's halo'd slab for the r = num_iters <= k iterations
+    of one round -> (B, Hs, W); the anchor follows every iteration.
 
     A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
     """
     if _check_call(gates9, num_iters, None):
-        return cspn_prenorm_fwd_plain(gates9, d0, sparse, num_iters=num_iters)
+        return cspn_prenorm_fwd_plain(gates9, d0, sparse, num_iters=num_iters,
+                                      anchor_d0=anchor_d0)
     out = _forward("cspn_prenorm_fwd", gates9, d0, sparse, num_iters, None,
-                   None, geometry)
+                   None, geometry, anchor_d0)
     cspn_prenorm_fwd.launches += 1
     return out
 
 
 def cspn_prenorm_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
                            sparse: torch.Tensor | None, *, num_iters: int,
+                           anchor_d0: bool = False,
                            geometry: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The slab's training forward (K8): as cspn_prenorm_fwd, and also
@@ -636,34 +674,40 @@ def cspn_prenorm_fwd_stash(gates9: torch.Tensor, d0: torch.Tensor,
     cspn_prenorm_fwd's."""
     if _check_call(gates9, num_iters, None):
         return cspn_prenorm_fwd_stash_plain(gates9, d0, sparse,
-                                            num_iters=num_iters)
+                                            num_iters=num_iters,
+                                            anchor_d0=anchor_d0)
     stash = _stash_like(d0, num_iters)
     out = _forward("cspn_prenorm_fwd_stash", gates9, d0, sparse, num_iters,
-                   None, stash, geometry)
+                   None, stash, geometry, anchor_d0)
     cspn_prenorm_fwd_stash.launches += 1
     return out, stash
 
 
 def cspn_prenorm_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
                      stash: torch.Tensor, grad_out: torch.Tensor, *,
-                     num_iters: int
+                     num_iters: int, anchor_d0: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The slab's adjoint (K9), cspn_tiled_bwd's contract on the stash of
-    cspn_prenorm_fwd_stash: (d_gates9 (B, 9, Hs, W), lam0 = dL/dd^0 unmasked,
-    d_sparse = sum_t m lam^{t+1}, zero without a sparse map)."""
+    """The slab's adjoint (K9) on the stash of cspn_prenorm_fwd_stash:
+    (d_gates9 (B, 9, Hs, W) = [G_0, G_1..8], lam0 = dL/dd^0 unmasked,
+    d_sparse = sum_t m lam^{t+1}, zero without a sparse map). With
+    anchor_d0 (d0 anchored on load), lam0 = (1 - m) dL/dd^0 and d_sparse
+    also takes m dL/dd^0 (ops/cspn_ref.py:cspn_prenorm_bwd_plain)."""
     if _check_call(gates9, num_iters, None):
         return cspn_prenorm_bwd_plain(gates9, sparse, stash, grad_out,
-                                      num_iters=num_iters)
-    out = _prenorm_adjoint("cspn_prenorm_bwd", gates9, sparse, stash,
-                           grad_out, num_iters)
+                                      num_iters=num_iters,
+                                      anchor_d0=anchor_d0)
+    out = _prenorm_adjoint(gates9, sparse, stash, grad_out, num_iters,
+                           anchor_d0)
     cspn_prenorm_bwd.launches += 1
     return out
 
 
 WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
             cspn_tiled_fwd_stash, cspn_tiled_bwd, cspn_prenorm_fwd,
-            cspn_prenorm_fwd_stash, cspn_prenorm_bwd)
-# The adjoint's stages alone; the adjoints launch them from C, not these.
-STAGE_WRAPPERS = (cspn_bwd_gates9, cspn_bwd_sweep, cspn_bwd_sums)
+            cspn_prenorm_fwd_stash, cspn_prenorm_bwd, cspn_gates9,
+            cspn_gates9_bwd)
+# The adjoint's further stages alone; the adjoints launch them from C, not
+# these.
+STAGE_WRAPPERS = (cspn_bwd_sweep, cspn_bwd_sums)
 for _wrapper in WRAPPERS + STAGE_WRAPPERS:
     _wrapper.launches = 0

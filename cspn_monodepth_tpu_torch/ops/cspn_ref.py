@@ -15,17 +15,23 @@ one iteration per step, the same arithmetic in the same order.
   `adjoint_sweep_plain` (stage 1, the lam recursion on the
   `transposed_gates`, which writes every lam^{t+1} to an adjoint stash),
   `adjoint_sums_plain` (stage 2, the gate sums over both stashes) and
-  `cspn_bwd_sums_plain` (stage 2's outputs in K3's and K6's forms);
-* `prenorm_gates9` and `cspn_propagate_prenorm_ref`: the prenormalized
-  contract of the H-tiled route (gates9 (B, 9, H, W) with the centre in
-  channel 0, d^0 taken as given, an anchor after every iteration), and the
-  plain versions of its kernels: `cspn_tiled_fwd_plain` (K4),
-  `cspn_tiled_fwd_stash_plain` (K5) and `cspn_tiled_bwd_plain` (K6,
-  stages 1 and 2);
-* the plain versions of the spatial path's slab kernels K7-K9
-  (`cspn_prenorm_fwd_plain`, `cspn_prenorm_fwd_stash_plain`,
-  `cspn_prenorm_bwd_plain`): the same three functions on one rank's halo'd
-  slab.
+  `cspn_bwd_sums_plain` (stage 2's outputs in K3's and K9's forms);
+* the H-tiled route's K4, K5 and K6 compute the same three functions
+  (JAX's `_cspn_pallas_tiled` takes the raw guidance too), so their plain
+  versions are these (`cspn_tiled_fwd_plain`, `cspn_tiled_fwd_stash_plain`,
+  `cspn_tiled_bwd_plain`);
+* `prenorm_gates9` (the normalization, `cspn_gates9`'s plain version) and
+  `prenorm_gates9_bwd_plain` (its adjoint, torch autograd of it);
+* `cspn_propagate_prenorm_ref`: the prenormalized contract of the
+  spatially sharded CSPN (gates9 (B, 9, H, W) with the centre in channel 0,
+  d^0 taken as given, an anchor after every iteration), and the plain
+  versions of its slab kernels K7-K9 (`cspn_prenorm_fwd_plain`,
+  `cspn_prenorm_fwd_stash_plain`, `cspn_prenorm_bwd_plain`), which anchor
+  d^0 on request (the slab route's first round).
+
+`prenorm_gates9` and `anchor` count their calls on a CUDA tensor
+(`.cuda_calls`): on the card every route normalizes and anchors in its
+kernels, so only a comparison with a plain version calls them there.
 
 Layouts: the public entry `cspn_propagate_ref` takes channels-last guidance
 (B, H, W, 8) like the JAX package; `cspn_propagate_ref_nchw` takes the
@@ -105,10 +111,15 @@ def cspn_propagate_ref_nchw(
 
 def anchor(d: torch.Tensor, sp: torch.Tensor | None) -> torch.Tensor:
     """d with the sparse points put in: (1 - m) d + m sp, m = [sp > 0]."""
+    if d.is_cuda:
+        anchor.cuda_calls += 1
     if sp is None:
         return d
     mask = (sp > 0).to(d.dtype)
     return (1.0 - mask) * d + mask * sp
+
+
+anchor.cuda_calls = 0
 
 
 def _propagate(guidance, d, sp, num_iters: int, norm_type: str,
@@ -211,9 +222,9 @@ def cspn_bwd_sums_plain(
     eps: float = 1e-8,
 ) -> tuple[torch.Tensor, ...]:
     """The plain version of the sums stage kernel, in its two forms.
-    Without guidance (K6, K9): (d_gates9 (B, 9, H, W) = [G_0, G_1..8],
+    Without guidance (K9): (d_gates9 (B, 9, H, W) = [G_0, G_1..8],
     sum_t m lam^{t+1}), from `adjoint_sums_plain`. With the raw guidance,
-    lam^0 and norm_type (K3): (d_guidance, d_blur = (1 - m) lam^0,
+    lam^0 and norm_type (K3, K6): (d_guidance, d_blur = (1 - m) lam^0,
     d_sparse + m lam^0), the chain rule of the normalization with
     Ghat_k = G_k - G_0, c1 = sum_k Ghat_k gate_k, den = max(s, floor),
     s = sum_k |g_k| and active = [s > floor]:
@@ -229,11 +240,7 @@ def cspn_bwd_sums_plain(
     den = s.clamp_min(floor)
     gates = raw / den[:, None]
     active = (s > floor).to(lam0.dtype)
-    d_blur = lam0
-    if sparse is not None:
-        masked, zero = sparse > 0, torch.zeros_like(lam0)
-        d_blur = torch.where(masked, zero, lam0)
-        d_sparse = d_sparse + torch.where(masked, lam0, zero)
+    d_blur, d_sparse = anchor_grad_plain(sparse, lam0, d_sparse)
     ghat = g_acc - g0_acc[:, None]
     c1 = (ghat * gates).sum(1)
     sgn = torch.sign(guidance)
@@ -242,6 +249,19 @@ def cspn_bwd_sums_plain(
     else:
         d_guid = (ghat - sgn * (active * c1)[:, None]) / den[:, None]
     return d_guid, d_blur, d_sparse
+
+
+def anchor_grad_plain(sparse: torch.Tensor | None, lam0: torch.Tensor,
+                      d_sparse: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`anchor` in reverse: from lam0 = dL/dd^0 of an anchored d^0 and the
+    per-iteration anchors' sum d_sparse, (d_blur = (1 - m) lam0, d_sparse
+    + m lam0)."""
+    if sparse is None:
+        return lam0, d_sparse
+    masked, zero = sparse > 0, torch.zeros_like(lam0)
+    return (torch.where(masked, zero, lam0),
+            d_sparse + torch.where(masked, lam0, zero))
 
 
 def transposed_gates(gates9: torch.Tensor) -> torch.Tensor:
@@ -315,12 +335,20 @@ def adjoint_sums_plain(
     return g_acc, g0_acc, d_sparse
 
 
+# The H-tiled route's kernels K4-K6 take JAX's contract of
+# `_cspn_pallas_tiled` (raw guidance, blur and sparse; the normalization and
+# d^0's anchor inside the op, their gradients inside the adjoint): the
+# functions of K1-K3.
+cspn_tiled_fwd_plain = cspn_propagate_ref_nchw      # K4
+cspn_tiled_fwd_stash_plain = cspn_fwd_stash_plain   # K5
+cspn_tiled_bwd_plain = cspn_bwd_plain               # K6
+
+
 # ---------------------------------------------------------------------------
-# The prenormalized contract of the H-tiled route (the JAX package's
-# ops/cspn_pallas.py:_cspn_pallas_tiled): the normalization runs once in
-# plain torch as `prenorm_gates9`, the caller anchors d^0, and the kernels
-# K4-K6 see only gates9, d^0 and the sparse map. The normalization's chain
-# rule is torch autograd of `prenorm_gates9`, outside any kernel.
+# The normalization alone (`cspn_gates9`, the slab route's) and the
+# prenormalized contract of the spatially sharded CSPN (the JAX package's
+# parallel/halo.py normalizes each shard, then runs its slab kernels on
+# gates9): the slab kernels K7-K9 see only gates9, d^0 and the sparse map.
 
 
 def prenorm_gates9(guidance: torch.Tensor, norm_type: str,
@@ -329,10 +357,27 @@ def prenorm_gates9(guidance: torch.Tensor, norm_type: str,
     the centre gate 1 - sum_k gate_k, channels 1..8 the normalized gates
     in NEIGHBOR_OFFSETS order (the JAX package's `_prenorm_gates9`,
     channels first). Differentiable by torch autograd, which takes
-    d|g|/dg = sign(g) = 0 at g = 0, as the adjoint kernel K3 does."""
+    d|g|/dg = sign(g) = 0 at g = 0, as the adjoint kernels do."""
+    if guidance.is_cuda:
+        prenorm_gates9.cuda_calls += 1
     gates, center = normalize_affinity(guidance.float(), norm_type, eps,
                                        dim=1)
     return torch.cat([center, gates], dim=1)
+
+
+prenorm_gates9.cuda_calls = 0
+
+
+def prenorm_gates9_bwd_plain(guidance: torch.Tensor, d_gates9: torch.Tensor,
+                             norm_type: str) -> torch.Tensor:
+    """The normalization's adjoint, `cspn_gates9_bwd`'s plain version:
+    torch autograd of `prenorm_gates9` at guidance (B, 8, H, W) for the
+    cotangent d_gates9 (B, 9, H, W) -> d_guidance (B, 8, H, W)."""
+    with torch.enable_grad():
+        g = guidance.detach().requires_grad_()
+        (d_guid,) = torch.autograd.grad(prenorm_gates9(g, norm_type), g,
+                                        d_gates9)
+    return d_guid
 
 
 def cspn_propagate_prenorm_ref(
@@ -349,53 +394,66 @@ def cspn_propagate_prenorm_ref(
                     num_iters)
 
 
-cspn_tiled_fwd_plain = cspn_propagate_prenorm_ref   # K4's plain version
+# The slab kernels of the spatially sharded CSPN (parallel/halo.py; the JAX
+# package's `_cspn_prenorm_fwd_impl`, `_cspn_prenorm_stash_fwd` and
+# `_cspn_prenorm_bwd_impl`: gates9 with the centre first, no anchor on
+# entry, an anchor after every iteration; the adjoint returns d_gates9,
+# lam^0 unmasked and sum_t m lam^{t+1}), applied to a slab of H/S + 2k rows
+# for the r <= k iterations of one round. With anchor_d0, d^0 is anchored
+# first (the slab route's first round), and the adjoint takes that anchor's
+# gradients too: lam^0 masked and m lam^0 added to the sparse sum.
 
 
-def cspn_tiled_fwd_stash_plain(
+def cspn_prenorm_fwd_plain(gates9: torch.Tensor, d0: torch.Tensor,
+                           sparse: torch.Tensor | None, *, num_iters: int,
+                           anchor_d0: bool = False) -> torch.Tensor:
+    """K7's plain version: `cspn_propagate_prenorm_ref`, from d^0 anchored
+    first with anchor_d0."""
+    if anchor_d0:
+        d0 = anchor(d0, sparse)
+    return cspn_propagate_prenorm_ref(gates9, d0, sparse,
+                                      num_iters=num_iters)
+
+
+def cspn_prenorm_fwd_stash_plain(
     gates9: torch.Tensor,
     d0: torch.Tensor,
     sparse: torch.Tensor | None,
     *,
     num_iters: int,
+    anchor_d0: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5's plain version: cspn_tiled_fwd_plain's output and the stash
+    """K8's plain version: cspn_prenorm_fwd_plain's output and the stash
     (B, T, H, W), stash[:, t] = d^t, the plane iteration t starts from."""
+    if anchor_d0:
+        d0 = anchor(d0, sparse)
     stash: list[torch.Tensor] = []
     out = _iterate(gates9[:, 0], gates9[:, 1:], d0, sparse, num_iters, stash)
     return out, _stacked(stash, d0)
 
 
-def cspn_tiled_bwd_plain(
+def cspn_prenorm_bwd_plain(
     gates9: torch.Tensor,
     sparse: torch.Tensor | None,
     stash: torch.Tensor,
     grad_out: torch.Tensor,
     *,
     num_iters: int,
+    anchor_d0: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K6's plain version, the adjoint of cspn_tiled_fwd_plain from the
-    stash of cspn_tiled_fwd_stash_plain: (d_gates9 (B, 9, H, W) = [G_0,
+    """K9's plain version, the adjoint of cspn_prenorm_fwd_plain from the
+    stash of cspn_prenorm_fwd_stash_plain: (d_gates9 (B, 9, H, W) = [G_0,
     G_1..8], lam0 = dL/dd^0 (B, H, W), d_sparse_acc = sum_t m lam^{t+1}
-    (B, H, W), zero without a sparse map). No chain rule, and no mask on
-    lam0: the anchoring of d^0 and the normalization are the caller's."""
+    (B, H, W), zero without a sparse map). No chain rule. With anchor_d0,
+    lam0 is d^0's own gradient through its anchor, (1 - m) dL/dd^0, and the
+    sparse sum takes m dL/dd^0."""
     lam_stash, lam0 = adjoint_sweep_plain(gates9, sparse, grad_out,
                                           num_iters=num_iters)
     d_gates9, d_sparse = cspn_bwd_sums_plain(sparse, stash, lam_stash,
                                              num_iters=num_iters)
+    if anchor_d0:
+        lam0, d_sparse = anchor_grad_plain(sparse, lam0, d_sparse)
     return d_gates9, lam0, d_sparse
-
-
-# The slab kernels of the spatially sharded CSPN (parallel/halo.py) take
-# the same contract as K4-K6 (the JAX package's `_cspn_prenorm_fwd_impl`,
-# `_cspn_prenorm_stash_fwd` and `_cspn_prenorm_bwd_impl`: gates9 with the
-# centre first, no anchor on entry, an anchor after every iteration; the
-# adjoint returns d_gates9, lam^0 unmasked and sum_t m lam^{t+1}), so their
-# plain versions are the same functions, applied to a slab of H/S + 2k rows
-# for the r <= k iterations of one round.
-cspn_prenorm_fwd_plain = cspn_propagate_prenorm_ref           # K7
-cspn_prenorm_fwd_stash_plain = cspn_tiled_fwd_stash_plain     # K8
-cspn_prenorm_bwd_plain = cspn_tiled_bwd_plain                 # K9
 
 
 def cspn_propagate_ref(

@@ -11,10 +11,13 @@ and the sparse anchors do not change across iterations: their halos are
 exchanged once. The first and last shard receive zero rows, which is the
 op's zero border.
 
-The slab body of each round is the slab forward K7, or K8/K9 under
-`PrenormCSPNFunction` when a gradient is wanted (ops/cspn.py
-`cspn_propagate_prenorm`); `impl="torch"` runs the plain loop under torch
-autograd instead (JAX's "jnp"). The exchanges are collectives of the
+The normalization runs on each shard (it is pointwise) as the kernel pair
+`cspn_gates9`/`cspn_gates9_bwd` (ops/cspn.py `cspn_normalize`), and d^0's
+anchor in the first round's slab kernel, on load. The slab body of each
+round is the slab forward K7, or K8/K9 under `PrenormCSPNFunction` when a
+gradient is wanted (ops/cspn.py `cspn_propagate_prenorm`); `impl="torch"`
+runs the plain normalization, anchor and loop under torch autograd instead
+(JAX's "jnp"). The exchanges are collectives of the
 spatial group (parallel/comm.py), differentiable: the backward sends each
 halo's cotangent back and adds it into the sender's edge rows, as XLA
 transposes ppermute.
@@ -31,8 +34,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate_prenorm
-from cspn_monodepth_tpu_torch.ops.cspn_ref import anchor, prenorm_gates9
+from cspn_monodepth_tpu_torch.ops.cspn import (
+    cspn_normalize,
+    cspn_propagate_prenorm,
+)
 from cspn_monodepth_tpu_torch.parallel.comm import all_to_all
 
 
@@ -75,14 +80,16 @@ def cspn_propagate_spatial(
     group's images -> the refined depth of those rows (B, h, W). Equals the
     unsharded op's rows (`cspn_propagate_ref`).
 
-    impl: "auto" (the slab kernels K7-K9, their plain versions on a CPU
-    tensor) or "torch" (the plain loop under autograd).
+    impl: "auto" (the normalization's kernels and the slab kernels K7-K9,
+    their plain versions on a CPU tensor) or "torch" (the plain loop under
+    autograd).
     """
     # Normalization is pointwise, so it is the same on a shard.
-    gates9 = prenorm_gates9(guidance, norm_type)
-    d = anchor(blur_depth, sparse_depth)
+    gates9 = cspn_normalize(guidance, norm_type=norm_type, impl=impl)
     if num_iters == 0:
-        return d
+        return cspn_propagate_prenorm(gates9, blur_depth, sparse_depth,
+                                      num_iters=0, impl=impl, anchor_d0=True)
+    d = blur_depth
     h_loc = d.shape[-2]
     k = min(halo_k, num_iters)
     if h_loc < k:
@@ -97,9 +104,12 @@ def cspn_propagate_spatial(
     gates_slab = _with_halo(gates9, k, mesh)
     sp_slab = (None if sparse_depth is None
                else _with_halo(sparse_depth, k, mesh))
-    for r in rounds:
+    for i, r in enumerate(rounds):
+        # The first round anchors d^0 on load: the anchor is pointwise, so
+        # anchoring the slab anchors the shard and its halos.
         slab = cspn_propagate_prenorm(gates_slab, _with_halo(d, k, mesh),
-                                      sp_slab, num_iters=r, impl=impl)
+                                      sp_slab, num_iters=r, impl=impl,
+                                      anchor_d0=i == 0)
         d = slab[:, k:k + h_loc]
     return d
 

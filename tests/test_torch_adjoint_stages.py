@@ -54,8 +54,9 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_bwd_plain,
     cspn_bwd_sums_plain,
     cspn_fwd_stash_plain,
+    cspn_prenorm_bwd_plain,
+    cspn_prenorm_fwd_stash_plain,
     cspn_tiled_bwd_plain,
-    cspn_tiled_fwd_stash_plain,
     prenorm_gates9,
     transposed_gates,
 )
@@ -230,27 +231,30 @@ def test_transposed_stencil_is_the_adjoint_of_the_forward_step(b, h, w):
 @pytest.mark.parametrize("norm", NORMS)
 def test_stage_wrappers_compose_to_the_adjoints_on_cpu(norm, with_sparse):
     """On CPU tensors each stage wrapper runs its plain stage: gates9,
-    sweep and sums compose to K3's plain version, sweep and sums to K6's,
-    bit for bit, as the C entries compose the stage kernels."""
+    sweep and sums compose to K3's (and K6's) plain version, sweep and sums
+    to K9's, bit for bit, as the C entries compose the stage kernels."""
     guid, _, d0, sp, cot = problem(5, 2, 13, 17, norm, with_sparse)
     guid, d0, cot = t(guid), t(d0), t(cot)
     sparse = t(sp) if with_sparse else None
     kw = dict(num_iters=5)
     _, stash = cspn_fwd_stash_plain(guid, d0, sparse, norm_type=norm, **kw)
-    gates9 = cspn_cuda.cspn_bwd_gates9(guid, norm_type=norm)
+    gates9 = cspn_cuda.cspn_gates9(guid, norm_type=norm)
     assert torch.equal(gates9, prenorm_gates9(guid, norm))
     lam_stash, lam0 = cspn_cuda.cspn_bwd_sweep(gates9, sparse, cot, **kw)
     got = cspn_cuda.cspn_bwd_sums(sparse, stash, lam_stash, guidance=guid,
                                   lam0=lam0, norm_type=norm, **kw)
     want = cspn_bwd_plain(guid, sparse, stash, cot, norm_type=norm, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    want6 = cspn_tiled_bwd_plain(guid, sparse, stash, cot, norm_type=norm,
+                                 **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want6))
 
-    _, tstash = cspn_tiled_fwd_stash_plain(gates9, anchor(d0, sparse),
-                                           sparse, **kw)
+    _, tstash = cspn_prenorm_fwd_stash_plain(gates9, anchor(d0, sparse),
+                                             sparse, **kw)
     d_gates9, d_sparse = cspn_cuda.cspn_bwd_sums(
         sparse, tstash, cspn_cuda.cspn_bwd_sweep(gates9, sparse, cot,
                                                  **kw)[0], **kw)
-    want = cspn_tiled_bwd_plain(gates9, sparse, tstash, cot, **kw)
+    want = cspn_prenorm_bwd_plain(gates9, sparse, tstash, cot, **kw)
     assert torch.equal(d_gates9, want[0]) and torch.equal(d_sparse, want[2])
     assert torch.equal(lam0, want[1])
 

@@ -1,5 +1,6 @@
-"""The port's H-tiled CSPN route (prenormalized gates, kernels K4-K6 and
-`TiledCSPNFunction`) against the JAX package's, on the CPU.
+"""The port's H-tiled CSPN route (kernels K4-K6 and `TiledCSPNFunction`,
+on JAX's contract: raw guidance, blur and sparse in, the normalization and
+d^0's anchor inside the op) against the JAX package's, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both sides. The JAX
 side runs its Pallas kernels in interpret mode, as tests/test_cspn_pallas.py
@@ -10,13 +11,19 @@ rounds; the port's CPU tensors take the kernels' plain versions.
 * `cspn_propagate_prenorm_ref` against JAX's: 1e-5;
 * `cspn_propagate(..., impl="cuda_tiled")` against
   `cspn_propagate_pallas_tiled(..., interpret=True)`: rtol 1e-5 relative to
-  max|want| (tests/test_cspn_pallas.py:_assert_close); its three gradients
-  for a random cotangent against JAX's tiled VJP (its stash forward and
-  tiled adjoint, K5 and K6) with `pick_tile_h_bwd` at 16 rows: rtol 1e-4;
+  max|want| (tests/test_cspn_pallas.py:_assert_close); with a gradient
+  wanted, `TiledCSPNFunction`'s value and its three gradients for a random
+  cotangent against JAX's tiled VJP (its stash forward and tiled adjoint,
+  K5 and K6, with `pick_tile_h_bwd` at 16 rows) under the three norms,
+  with and without sparse, at T = 1, 10 and 24: 1e-5 and rtol 1e-4;
+* the Function saves JAX's residuals (the guidance, sparse and the stash),
+  no gates9, and sits right on the inputs: no plain op runs around it;
 * zero guidance against the JAX whole-plane VJP (its K2 and K3): the JAX
   tiled VJP takes d|g|/dg = +1 at g = 0 under `8sum_abs` (`jax.vjp` of
   `_prenorm_gates9`), the JAX K3 and the port sign(0) = 0;
-* `cspn_tiled_bwd_plain` against `jax.vjp` of JAX's prenorm reference;
+* the gates9 contract's plain adjoint (`cspn_prenorm_bwd_plain`, K6's
+  before the route took raw guidance, K9's now) against `jax.vjp` of JAX's
+  prenorm reference;
 * the routing rule against JAX's `_fits_vmem`, as pure functions.
 The port's round count (4 iterations per round) is its own: T = 10 leaves
 a remainder round, and H = 50, 37, 13 are not tile multiples.
@@ -42,11 +49,11 @@ from cspn_monodepth_tpu_torch.ops import cspn as port_cspn
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     anchor,
+    cspn_prenorm_bwd_plain,
+    cspn_prenorm_fwd_plain,
+    cspn_prenorm_fwd_stash_plain,
     cspn_propagate_prenorm_ref,
     cspn_propagate_ref_nchw,
-    cspn_tiled_bwd_plain,
-    cspn_tiled_fwd_plain,
-    cspn_tiled_fwd_stash_plain,
     prenorm_gates9,
 )
 
@@ -187,41 +194,81 @@ def test_tiled_route_equals_whole_plane_route_on_the_cpu():
 
 
 # ------------------------------------------------------------ gradients
-def port_grads(guid, blur, sparse, cot, with_sparse, impl, **kw):
+def port_vjp(guid, blur, sparse, cot, with_sparse, impl, **kw):
+    """The route's output and the gradients of all its inputs."""
     g, b = t(guid).requires_grad_(), t(blur).requires_grad_()
     s = t(sparse).requires_grad_() if with_sparse else None
     out = cspn_propagate(g, b, s, impl=impl, guidance_layout="NCHW", **kw)
     inputs = [g, b] + ([s] if with_sparse else [])
-    return [x.numpy() for x in torch.autograd.grad((out * t(cot)).sum(),
-                                                   inputs)]
+    grads = torch.autograd.grad((out * t(cot)).sum(), inputs)
+    return out.detach().numpy(), [x.numpy() for x in grads]
 
 
-def jax_grads(fn, guid, blur, sparse, cot, with_sparse, **kw):
+def port_grads(*args, **kw):
+    return port_vjp(*args, **kw)[1]
+
+
+def jax_vjp(fn, guid, blur, sparse, cot, with_sparse, **kw):
     args = (jnp.asarray(guid), jnp.asarray(blur)) + (
         (jnp.asarray(sparse),) if with_sparse else ())
-    _, vjp = jax.vjp(lambda *a: fn(*a, guidance_layout="NCHW",
-                                   interpret=True, **kw), *args)
-    return [np.asarray(x) for x in vjp(jnp.asarray(cot))]
+    out, vjp = jax.vjp(lambda *a: fn(*a, guidance_layout="NCHW",
+                                     interpret=True, **kw), *args)
+    return np.asarray(out), [np.asarray(x) for x in vjp(jnp.asarray(cot))]
 
 
-@pytest.mark.parametrize("norm,with_sparse", [
-    ("8sum", True), ("8sum_abs", True), ("8sum_clamp", True),
-    ("8sum_clamp", False)])
-def test_tiled_gradients_match_jax_tiled_vjp(monkeypatch, norm,
+def jax_grads(*args, **kw):
+    return jax_vjp(*args, **kw)[1]
+
+
+# (T, norm, sparse): T = 1 one round everywhere; T = 10 JAX's rounds 4, 4,
+# 2 (halo 3 clamped up to 4) and the port's remainder round; T = 24 six
+# rounds on both sides.
+TILED_GRAD_CASES = [(num_iters, norm, with_sparse)
+                    for num_iters in (1, 10, 24) for norm in NORMS
+                    for with_sparse in (True, False)]
+
+
+@pytest.mark.parametrize("num_iters,norm,with_sparse", TILED_GRAD_CASES)
+def test_tiled_gradients_match_jax_tiled_vjp(monkeypatch, num_iters, norm,
                                              with_sparse):
-    """50x40, T=10: JAX in 16-row tiles (4 tiles, H padded to 64) with its
-    halo 4 (rounds 4, 4, 2); the port's remainder round too."""
+    """TiledCSPNFunction (K5, K6 on the raw inputs) against
+    `_cspn_pallas_tiled` and its jax.vjp on 50x40: JAX in 16-row tiles (4
+    tiles, H padded to 64); the value and the three gradients."""
     monkeypatch.setattr(jax_cp, "pick_tile_h_bwd", lambda h, w, k, **kw: 16)
     guid, blur, sparse, cot = problem(6, 2, 50, 40, with_sparse)
-    kw = dict(num_iters=10, norm_type=norm)
-    got = port_grads(guid, blur, sparse, cot, with_sparse, "cuda_tiled",
-                     **kw)
-    want = jax_grads(cspn_propagate_pallas_tiled, guid, blur, sparse, cot,
-                     with_sparse, halo_k=3, **kw)
+    kw = dict(num_iters=num_iters, norm_type=norm)
+    out, got = port_vjp(guid, blur, sparse, cot, with_sparse, "cuda_tiled",
+                        **kw)
+    want_out, want = jax_vjp(cspn_propagate_pallas_tiled, guid, blur, sparse,
+                             cot, with_sparse, halo_k=3, **kw)
+    assert_close(out, want_out, FWD_TOL)
     assert len(got) == len(want) == 2 + with_sparse
     for a, w in zip(got, want):
         assert a.shape == w.shape
         assert_close(a, w, GRAD_TOL)
+
+
+@pytest.mark.parametrize("with_sparse", [True, False])
+def test_tiled_function_saves_jax_residuals_and_no_gates9(with_sparse):
+    """JAX's `_tiled_fwd` keeps (guidance, blur, sparse, stash): the port's
+    Function keeps the guidance, sparse and the stash, no (B, 9, H, W)
+    gates9, and takes the inputs themselves (no plain normalization or
+    anchor between them and it)."""
+    guid, blur, sparse, _ = problem(11, 2, 13, 17, with_sparse)
+    g, b = t(guid).requires_grad_(), t(blur).requires_grad_()
+    s = t(sparse).requires_grad_() if with_sparse else None
+    out = cspn_propagate(g, b, s, num_iters=5, norm_type="8sum_clamp",
+                         impl="cuda_tiled", guidance_layout="NCHW")
+    assert type(out.grad_fn).__name__ == "TiledCSPNFunctionBackward"
+    saved = [tuple(x.shape) for x in out.grad_fn.saved_tensors
+             if x is not None]
+    want = [(2, 8, 13, 17), (2, 5, 13, 17)] + (
+        [(2, 13, 17)] if with_sparse else [])
+    assert sorted(saved) == sorted(want)
+    assert not any(len(x) == 4 and x[1] == 9 for x in saved)
+    leaves = [f for f, _ in out.grad_fn.next_functions if f is not None]
+    assert len(leaves) == 2 + with_sparse
+    assert all(type(f).__name__ == "AccumulateGrad" for f in leaves)
 
 
 @pytest.mark.parametrize("norm", NORMS)
@@ -259,12 +306,14 @@ def test_tiled_zero_iterations():
     np.testing.assert_array_equal(d_s.numpy(), np.where(sparse > 0, cot, 0))
 
 
-# ------------------------------------------------------------ plain K4-K6
+# ------------------------------------------------------------ gates9 contract
 @pytest.mark.parametrize("num_iters,with_sparse", [(5, True), (10, False)])
 def test_tiled_bwd_plain_matches_jax_vjp_of_prenorm_ref(num_iters,
                                                         with_sparse):
-    """d_gates9, lam0 (dL/dd^0, no mask) and the per-iteration anchors'
-    sum against jax.vjp of JAX's prenorm reference in gates9, d0, sparse."""
+    """The gates9 contract's plain adjoint (K6's before the tiled route took
+    raw guidance, K9's now): d_gates9, lam0 (dL/dd^0, no mask) and the
+    per-iteration anchors' sum against jax.vjp of JAX's prenorm reference
+    in gates9, d0, sparse."""
     guid, blur, sparse, cot = problem(9, 2, 13, 17, with_sparse)
     gates9 = np.array(_prenorm_gates9(jnp.asarray(guid), "8sum_clamp",
                                         True))
@@ -275,15 +324,15 @@ def test_tiled_bwd_plain_matches_jax_vjp_of_prenorm_ref(num_iters,
     _, vjp = jax.vjp(lambda *a: jax_prenorm_ref(*a, num_iters=num_iters),
                      *args)
     want = vjp(jnp.asarray(cot))
-    out, stash = cspn_tiled_fwd_stash_plain(
+    out, stash = cspn_prenorm_fwd_stash_plain(
         t(gates9), t(d0), None if sp is None else t(sp), num_iters=num_iters)
     assert stash.shape == (2, num_iters, 13, 17)
     np.testing.assert_array_equal(stash[:, 0].numpy(), d0)
-    torch.testing.assert_close(out, cspn_tiled_fwd_plain(
+    torch.testing.assert_close(out, cspn_prenorm_fwd_plain(
         t(gates9), t(d0), None if sp is None else t(sp),
         num_iters=num_iters), rtol=0, atol=0)
-    got = cspn_tiled_bwd_plain(t(gates9), None if sp is None else t(sp),
-                               stash, t(cot), num_iters=num_iters)
+    got = cspn_prenorm_bwd_plain(t(gates9), None if sp is None else t(sp),
+                                 stash, t(cot), num_iters=num_iters)
     assert got[0].shape == (2, 9, 13, 17)
     for a, w in zip(got, want):
         assert max_rel(a, w) <= GRAD_TOL

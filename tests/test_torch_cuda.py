@@ -8,12 +8,14 @@ tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
-(K1 forward, K2 stash forward, K3 adjoint; K4-K6, their counterparts on
-the prenormalized gates of the H-tiled route; K7-K9, the same on the
-spatial path's halo'd slabs; the adjoints' stage kernels against their
-plain stages) and each output; two runs of K3 and of K6 agree bit for
-bit, and so do the forward kernels under every tile geometry of their
-launch plan (ops/cspn_cuda.py:fwd_plan). The
+(K1 forward, K2 stash forward, K3 adjoint; K4-K6, the H-tiled route's,
+the same functions through the same C entries; K7-K9, the prenormalized
+gates9 contract on the spatial path's halo'd slabs, d^0 as given or
+anchored on load; the normalization's pair cspn_gates9 / cspn_gates9_bwd;
+the adjoints' stage kernels against their plain stages) and each output;
+two runs of K3, K6 and K9 agree bit for bit, and so do the forward
+kernels under every tile geometry of their launch plan
+(ops/cspn_cuda.py:fwd_plan). The
 kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
 meaningless and `8sum_abs` is the absolute-scale control. Gradients
@@ -318,31 +320,40 @@ def tiled_launches():
             cspn_cuda.cspn_tiled_bwd.launches)
 
 
+def plain_cuda_calls():
+    return prenorm_gates9.cuda_calls, anchor.cuda_calls
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_iters,hw,norm,with_sparse", TILED_CASES)
 def test_tiled_kernels_match_plain(cuda, num_iters, hw, norm, with_sparse):
-    """K4 (forward), K5 (out and every stash plane) and K6 (d_gates9, lam0,
-    the sparse sums) against their plain versions on prenormalized gates
-    and an anchored d^0; K5's out is K4's bit for bit, anchors exact."""
+    """K4 (forward), K5 (out and every stash plane) and K6 (d_guidance,
+    d_blur, d_sparse) on the raw inputs against their plain versions; K5's
+    out is K4's bit for bit, and so is the gates9 contract's on
+    cspn_gates9's planes with d^0 anchored on load (K7's entry); anchors
+    exact."""
     guid, blur, sparse = problem(21, 2, *hw, with_sparse)
-    gates9, d0 = prenorm_gates9(guid, norm), anchor(blur, sparse)
     cot = torch.from_numpy(np.random.default_rng(22).standard_normal(
         blur.shape).astype(np.float32))
-    kw = dict(num_iters=num_iters)
-    want = cspn_cuda.cspn_tiled_fwd_plain(gates9, d0, sparse, **kw)
+    kw = dict(num_iters=num_iters, norm_type=norm)
+    want = cspn_cuda.cspn_tiled_fwd_plain(guid, blur, sparse, **kw)
     want_out, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(
-        gates9, d0, sparse, **kw)
-    want_grads = cspn_cuda.cspn_tiled_bwd_plain(gates9, sparse, want_stash,
+        guid, blur, sparse, **kw)
+    want_grads = cspn_cuda.cspn_tiled_bwd_plain(guid, sparse, want_stash,
                                                 cot, **kw)
-    g, d, s, c = to((gates9, d0, sparse, cot), cuda)
+    g, d, s, c = to((guid, blur, sparse, cot), cuda)
     before = tiled_launches()
     got = cspn_cuda.cspn_tiled_fwd(g, d, s, **kw)
     out, stash = cspn_cuda.cspn_tiled_fwd_stash(g, d, s, **kw)
     grads = cspn_cuda.cspn_tiled_bwd(g, s, stash, c, **kw)
+    on_gates9 = cspn_cuda.cspn_prenorm_fwd(
+        cspn_cuda.cspn_gates9(g, norm_type=norm), d, s, num_iters=num_iters,
+        anchor_d0=True)
     torch.cuda.synchronize()
     assert tiled_launches() == tuple(n + 1 for n in before)
     assert max_rel(got, want) <= TOL
     torch.testing.assert_close(out, got, rtol=0, atol=0)
+    torch.testing.assert_close(on_gates9, got, rtol=0, atol=0)
     assert stash.shape == (2, num_iters, *hw)
     for t in range(num_iters):
         assert max_rel(stash[:, t], want_stash[:, t]) <= TOL, t
@@ -360,21 +371,23 @@ def test_tiled_kernels_match_plain(cuda, num_iters, hw, norm, with_sparse):
 @pytest.mark.cuda
 @pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
 def test_tiled_route_matches_whole_plane_route(cuda, norm):
-    """The same function by two routes on the card: K4 on prenormalized
-    gates against K1 on the raw guidance."""
+    """The same function by two routes on the card: K4 against K1 on the
+    raw guidance, one C entry, bit for bit."""
     guid, blur, sparse = to(problem(23, 2, 70, 90), cuda)
     kw = dict(num_iters=24, norm_type=norm, guidance_layout="NCHW")
     tiled = cspn_propagate(guid, blur, sparse, impl="cuda_tiled", **kw)
     whole = cspn_propagate(guid, blur, sparse, impl="cuda", **kw)
     assert max_rel(tiled, whole) <= TOL
+    torch.testing.assert_close(tiled, whole, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_sparse", [True, False])
 def test_tiled_function_matches_torch_autograd(cuda, with_sparse):
-    """Gradients of every input through TiledCSPNFunction (K5, K6) and
-    torch autograd of prenorm_gates9 and the anchor, against torch autograd
-    of the plain loop, guidance and blur as head slices."""
+    """Gradients of every input through TiledCSPNFunction (K5, K6; the
+    normalization, the anchor and their gradients inside), against torch
+    autograd of the plain loop, guidance and blur as head slices; no plain
+    normalization or anchor on the card."""
     gen = torch.Generator().manual_seed(7)
     heads = torch.randn(2, 9, 45, 70, generator=gen)
     heads[:, 0] = 0.5 + 9 * torch.rand(2, 45, 70, generator=gen)
@@ -389,9 +402,10 @@ def test_tiled_function_matches_torch_autograd(cuda, with_sparse):
         inputs = [h] + ([sp] if sp is not None else [])
         return torch.autograd.grad((out * cot.to(device)).sum(), inputs)
 
-    before = tiled_launches()
+    before, plain = tiled_launches(), plain_cuda_calls()
     got = grads(cuda, "cuda_tiled")
     assert tiled_launches() == (before[0], before[1] + 1, before[2] + 1)
+    assert plain_cuda_calls() == plain
     want = grads("cpu", "torch")
     for a, w in zip(got, want):
         assert max_rel(a, w) <= GRAD_TOL
@@ -414,19 +428,22 @@ def prenorm_launches():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,hw,num_iters,with_sparse", [
-    (4, (96, 1216), 4, True),       # KITTI 2x4: an 88-row shard + 2 x 4
-    (16, (122, 304), 4, True),      # NYU multihost 16x2: 114 rows + 2 x 4
-    (4, (96, 1216), 2, False),      # a remainder round
-    (1, (40, 70), 3, True),
+@pytest.mark.parametrize("b,hw,num_iters,with_sparse,anchor_d0", [
+    (4, (96, 1216), 4, True, False),  # KITTI 2x4: an 88-row shard + 2 x 4
+    (16, (122, 304), 4, True, False),  # NYU multihost 16x2: 114 + 2 x 4
+    (4, (96, 1216), 2, False, False),  # a remainder round
+    (1, (40, 70), 3, True, False),
+    (4, (96, 1216), 4, True, True),    # d^0 anchored on load
+    (1, (40, 70), 3, False, True),
 ])
-def test_slab_kernels_match_plain(cuda, b, hw, num_iters, with_sparse):
-    """K7, K8 and K9 against their plain versions on a halo'd slab; K8's
-    output is K7's bit for bit."""
+def test_slab_kernels_match_plain(cuda, b, hw, num_iters, with_sparse,
+                                  anchor_d0):
+    """K7, K8 and K9 against their plain versions on a halo'd slab, d^0 as
+    given or anchored on load; K8's output is K7's bit for bit."""
     guid, blur, sparse = problem(31, b, *hw, with_sparse)
     gates9 = prenorm_gates9(guid, "8sum_clamp")
     cot = torch.randn(b, *hw, generator=torch.Generator().manual_seed(3))
-    kw = dict(num_iters=num_iters)
+    kw = dict(num_iters=num_iters, anchor_d0=anchor_d0)
     want = cspn_cuda.cspn_prenorm_fwd_plain(gates9, blur, sparse, **kw)
     _, want_stash = cspn_cuda.cspn_prenorm_fwd_stash_plain(gates9, blur,
                                                            sparse, **kw)
@@ -450,9 +467,11 @@ def test_slab_kernels_match_plain(cuda, b, hw, num_iters, with_sparse):
 
 
 @pytest.mark.cuda
-def test_prenorm_function_matches_torch_autograd(cuda):
+@pytest.mark.parametrize("anchor_d0", [False, True])
+def test_prenorm_function_matches_torch_autograd(cuda, anchor_d0):
     """Gradients of gates9, d0 and sparse through PrenormCSPNFunction (K8,
-    K9) against torch autograd of the plain loop."""
+    K9), d^0 as given or anchored on load, against torch autograd of the
+    plain loop."""
     from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate_prenorm
 
     guid, blur, sparse = problem(32, 2, 40, 70)
@@ -462,7 +481,8 @@ def test_prenorm_function_matches_torch_autograd(cuda):
     def grads(device, impl):
         inputs = [x.to(device).requires_grad_() for x in (gates9, blur,
                                                           sparse)]
-        out = cspn_propagate_prenorm(*inputs, num_iters=4, impl=impl)
+        out = cspn_propagate_prenorm(*inputs, num_iters=4, impl=impl,
+                                     anchor_d0=anchor_d0)
         return torch.autograd.grad((out * cot.to(device)).sum(), inputs)
 
     before = prenorm_launches()
@@ -486,8 +506,8 @@ def stage_launches():
 def test_adjoint_stages_match_plain_stages(cuda, num_iters, hw, norm,
                                            with_sparse):
     """Each stage kernel of csrc/cspn_bwd.cu against its plain stage on
-    the same inputs: gates9 (K3's stage 0), the sweep (every plane of the
-    adjoint stash and lam^0), both forms of the sums (fed the plain
+    the same inputs: cspn_gates9 (K3's stage 0), the sweep (every plane of
+    the adjoint stash and lam^0), both forms of the sums (fed the plain
     sweep's lam stash)."""
     from cspn_monodepth_tpu_torch.ops.cspn_ref import (
         adjoint_sweep_plain,
@@ -507,13 +527,14 @@ def test_adjoint_stages_match_plain_stages(cuda, num_iters, hw, norm,
             cspn_bwd_sums_plain(sparse, stash, want_stash, **kw, **raw))
     g, g9, s, c, st, ls = to((guid, gates9, sparse, cot, stash, want_stash),
                              cuda)
-    before = stage_launches()
-    got_g9 = cspn_cuda.cspn_bwd_gates9(g, norm_type=norm)
+    before = stage_launches() + (cspn_cuda.cspn_gates9.launches,)
+    got_g9 = cspn_cuda.cspn_gates9(g, norm_type=norm)
     lam_stash, lam0 = cspn_cuda.cspn_bwd_sweep(g9, s, c, **kw)
     got = (cspn_cuda.cspn_bwd_sums(s, st, ls, **kw),
            cspn_cuda.cspn_bwd_sums(s, st, ls, **kw, **to_cuda(raw, cuda)))
     torch.cuda.synchronize()
-    assert stage_launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert stage_launches() + (cspn_cuda.cspn_gates9.launches,) == (
+        before[0] + 1, before[1] + 2, before[2] + 1)
     assert max_rel(got_g9, gates9) <= TOL
     assert lam_stash.shape == (2, num_iters, *hw)
     for t in range(num_iters):
@@ -534,26 +555,30 @@ def to_cuda(kw: dict, device) -> dict:
 
 @pytest.mark.cuda
 def test_adjoints_are_deterministic(cuda):
-    """No atomics: two runs of K3 and of K6 on the same inputs agree bit
-    for bit."""
+    """No atomics: two runs of K3, of K6 and of K9 on the same inputs agree
+    bit for bit."""
     guid, blur, sparse = to(problem(43, 2, 100, 150), cuda)
     cot = torch.randn(blur.shape, generator=torch.Generator().manual_seed(
         44)).to(cuda)
     kw = dict(num_iters=24)
     _, stash = cspn_cuda.cspn_fwd_stash(guid, blur, sparse,
                                         norm_type="8sum", **kw)
-    gates9, d0 = prenorm_gates9(guid, "8sum"), anchor(blur, sparse)
-    _, tstash = cspn_cuda.cspn_tiled_fwd_stash(gates9, d0, sparse, **kw)
+    gates9 = prenorm_gates9(guid, "8sum")
+    _, pstash = cspn_cuda.cspn_prenorm_fwd_stash(gates9, blur, sparse,
+                                                 anchor_d0=True, **kw)
     for run in (lambda: cspn_cuda.cspn_bwd(guid, sparse, stash, cot,
                                            norm_type="8sum", **kw),
-                lambda: cspn_cuda.cspn_tiled_bwd(gates9, sparse, tstash, cot,
-                                                 **kw)):
+                lambda: cspn_cuda.cspn_tiled_bwd(guid, sparse, stash, cot,
+                                                 norm_type="8sum", **kw),
+                lambda: cspn_cuda.cspn_prenorm_bwd(gates9, sparse, pstash,
+                                                   cot, anchor_d0=True,
+                                                   **kw)):
         first, second = run(), run()
         assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["raw", "prenorm"])
+@pytest.mark.parametrize("route", ["raw", "prenorm", "tiled"])
 @pytest.mark.parametrize("w", [53, 56])
 def test_every_geometry_gives_the_same_bits(cuda, route, w):
     """The forward round under every tile geometry of the launch plan
@@ -569,12 +594,19 @@ def test_every_geometry_gives_the_same_bits(cuda, route, w):
         args = (guid, blur, sparse)
         fwd, stash = cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash
         want, want_stash = cspn_cuda.cspn_fwd_stash_plain(*args, **kw)
+    elif route == "tiled":
+        kw = dict(num_iters=t, norm_type="8sum_clamp")
+        args = (guid, blur, sparse)
+        fwd, stash = cspn_cuda.cspn_tiled_fwd, cspn_cuda.cspn_tiled_fwd_stash
+        want, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(*args, **kw)
     else:
         kw = dict(num_iters=t)
         args = (prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sparse),
                 sparse)
-        fwd, stash = cspn_cuda.cspn_tiled_fwd, cspn_cuda.cspn_tiled_fwd_stash
-        want, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(*args, **kw)
+        fwd = cspn_cuda.cspn_prenorm_fwd
+        stash = cspn_cuda.cspn_prenorm_fwd_stash
+        want, want_stash = cspn_cuda.cspn_prenorm_fwd_stash_plain(*args,
+                                                                  **kw)
     first = first_stash = None
     for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
         got = fwd(*args, **kw, geometry=geometry)
@@ -607,8 +639,9 @@ def test_a_plan_the_kernel_cannot_run_raises(cuda, plan):
 @pytest.mark.parametrize("with_sparse", [True, False])
 def test_operators_launch_the_kernels_on_the_card(cuda, with_sparse):
     """The registered operators (ops/library.py) on CUDA tensors are the
-    wrappers: K1 and K4 launch once a call, bit for bit the wrapper's
-    output; torch.library.opcheck holds the fake and the real alike."""
+    wrappers: K1, K4, the normalization and the gates9 contract (K7's
+    entry) launch once a call, bit for bit the wrapper's output;
+    torch.library.opcheck holds the fake and the real alike."""
     ops = torch.ops.cspn_monodepth_tpu_torch
     guid, blur, sparse = to(problem(12, 2, 40, 56, with_sparse), cuda)
     before = cspn_cuda.cspn_fwd.launches
@@ -616,14 +649,27 @@ def test_operators_launch_the_kernels_on_the_card(cuda, with_sparse):
     assert cspn_cuda.cspn_fwd.launches == before + 1
     assert torch.equal(got, cspn_cuda.cspn_fwd(
         guid, blur, sparse, num_iters=7, norm_type="8sum_clamp"))
-    gates9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sparse)
     before = cspn_cuda.cspn_tiled_fwd.launches
-    got = ops.cspn_tiled_fwd(gates9, d0, sparse, 7)
+    got = ops.cspn_tiled_fwd_raw(guid, blur, sparse, 7, "8sum_clamp")
     assert cspn_cuda.cspn_tiled_fwd.launches == before + 1
-    assert torch.equal(got, cspn_cuda.cspn_tiled_fwd(gates9, d0, sparse,
-                                                     num_iters=7))
+    assert torch.equal(got, cspn_cuda.cspn_tiled_fwd(
+        guid, blur, sparse, num_iters=7, norm_type="8sum_clamp"))
+    before = cspn_cuda.cspn_gates9.launches
+    gates9 = ops.cspn_gates9(guid, "8sum_clamp")
+    assert cspn_cuda.cspn_gates9.launches == before + 1
+    assert torch.equal(gates9, cspn_cuda.cspn_gates9(guid,
+                                                     norm_type="8sum_clamp"))
+    d0 = anchor(blur, sparse)
+    before = cspn_cuda.cspn_prenorm_fwd.launches
+    got = ops.cspn_tiled_fwd(gates9, d0, sparse, 7)
+    assert cspn_cuda.cspn_prenorm_fwd.launches == before + 1
+    assert torch.equal(got, cspn_cuda.cspn_prenorm_fwd(gates9, d0, sparse,
+                                                       num_iters=7))
     torch.library.opcheck(ops.cspn_fwd.default,
                           (guid, blur, sparse, 3, "8sum"))
+    torch.library.opcheck(ops.cspn_tiled_fwd_raw.default,
+                          (guid, blur, sparse, 3, "8sum"))
+    torch.library.opcheck(ops.cspn_gates9.default, (guid, "8sum_abs"))
     torch.library.opcheck(ops.cspn_tiled_fwd.default, (gates9, d0, sparse, 3))
 
 
@@ -658,3 +704,60 @@ def test_program_exported_on_the_card_equals_predict_batch(cuda, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="exported on cuda"):
         load_program(str(path), device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
+@pytest.mark.parametrize("zero", [False, True])
+def test_gates9_pair_matches_plain(cuda, norm, zero):
+    """cspn_gates9 and cspn_gates9_bwd against prenorm_gates9 and torch
+    autograd of it, at 57x75 (W % 4 != 0) on head slices; at zero guidance
+    the gradient is finite (0 under 8sum_abs: sign(0) = 0)."""
+    gen = torch.Generator().manual_seed(51)
+    heads = torch.randn(2, 9, 57, 75, generator=gen)
+    if zero:
+        heads.zero_()
+    guid = heads[:, 1:]
+    d_gates9 = torch.randn(2, 9, 57, 75, generator=gen)
+    want = prenorm_gates9(guid, norm)
+    want_grad = cspn_cuda.prenorm_gates9_bwd_plain(guid, d_gates9, norm)
+    g, dg = heads.to(cuda)[:, 1:], d_gates9.to(cuda)
+    before = (cspn_cuda.cspn_gates9.launches,
+              cspn_cuda.cspn_gates9_bwd.launches)
+    got = cspn_cuda.cspn_gates9(g, norm_type=norm)
+    got_grad = cspn_cuda.cspn_gates9_bwd(g, dg, norm_type=norm)
+    torch.cuda.synchronize()
+    assert (cspn_cuda.cspn_gates9.launches,
+            cspn_cuda.cspn_gates9_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert max_rel(got, want) <= TOL
+    assert torch.isfinite(got_grad).all()
+    if want_grad.abs().max() == 0:
+        assert got_grad.abs().max() == 0
+    else:
+        assert max_rel(got_grad, want_grad) <= TOL
+    if zero and norm == "8sum_abs":
+        assert got_grad.abs().max() == 0
+
+
+@pytest.mark.cuda
+def test_gates9_function_matches_torch_autograd(cuda):
+    """cspn_normalize with a gradient wanted runs Gates9Function
+    (cspn_gates9, cspn_gates9_bwd) on the card, no plain normalization
+    there; its gradient against torch autograd of prenorm_gates9 on the
+    CPU."""
+    from cspn_monodepth_tpu_torch.ops.cspn import cspn_normalize
+
+    guid, _, _ = problem(52, 2, 40, 70)
+    cot = torch.randn(2, 9, 40, 70, generator=torch.Generator().manual_seed(
+        53))
+    g = guid.to(cuda).requires_grad_()
+    plain = plain_cuda_calls()
+    out = cspn_normalize(g, norm_type="8sum_clamp")
+    assert type(out.grad_fn).__name__ == "Gates9FunctionBackward"
+    (got,) = torch.autograd.grad((out * cot.to(cuda)).sum(), g)
+    assert plain_cuda_calls() == plain
+    c = guid.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        (prenorm_gates9(c, "8sum_clamp") * cot).sum(), c)
+    assert max_rel(got, want) <= TOL

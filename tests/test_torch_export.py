@@ -21,6 +21,7 @@ from cspn_monodepth_tpu.configs import get_config as jax_get_config
 from cspn_monodepth_tpu.serving import DepthPredictor as JaxDepthPredictor
 from cspn_monodepth_tpu_torch import DepthPredictor, get_config
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, library
+from cspn_monodepth_tpu_torch.ops.cspn_ref import anchor, prenorm_gates9
 from cspn_monodepth_tpu_torch.ops.library import load_program
 from tests.test_torch_model import assert_close, jax_model_variables
 from tests.test_torch_serving import H, W, model_kw, requests
@@ -138,7 +139,7 @@ def test_tiled_route_exports_one_k4_node(tmp_path):
         variables, device="cpu")
     path = tmp_path / "tiled.pt2"
     program = port.export_program(str(path), batch=1)
-    assert cspn_nodes(program) == [str(OPS.cspn_tiled_fwd.default)]
+    assert cspn_nodes(program) == [str(OPS.cspn_tiled_fwd_raw.default)]
     rgb, sparse = requests(3, 1, H, W)
     x = np.concatenate([rgb, sparse[..., None]], axis=-1)
     got = load_program(str(path), device="cpu")(torch.from_numpy(x))
@@ -181,18 +182,71 @@ def test_opcheck_cspn_fwd(sparse, num_iters):
 @pytest.mark.parametrize("sparse", [True, False])
 @pytest.mark.parametrize("num_iters", [0, 3])
 def test_opcheck_cspn_tiled_fwd(sparse, num_iters):
+    """The gates9 contract of K4 before it took raw guidance, kept for the
+    programs exported then: K7's function."""
     gates9, d0, sp = op_samples(9)
     args = (gates9, d0, sp if sparse else None, num_iters)
     torch.library.opcheck(OPS.cspn_tiled_fwd.default, args)
-    want = cspn_cuda.cspn_tiled_fwd_plain(*args[:3], num_iters=num_iters)
+    want = cspn_cuda.cspn_prenorm_fwd_plain(*args[:3], num_iters=num_iters)
     torch.testing.assert_close(OPS.cspn_tiled_fwd(*args), want, rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+@pytest.mark.parametrize("num_iters", [0, 3])
+def test_opcheck_cspn_tiled_fwd_raw(sparse, num_iters):
+    guid, blur, sp = op_samples(8)
+    args = (guid, blur, sp if sparse else None, num_iters, "8sum_abs")
+    torch.library.opcheck(OPS.cspn_tiled_fwd_raw.default, args)
+    want = cspn_cuda.cspn_tiled_fwd_plain(*args[:3], num_iters=num_iters,
+                                          norm_type="8sum_abs")
+    torch.testing.assert_close(OPS.cspn_tiled_fwd_raw(*args), want, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
+def test_opcheck_cspn_gates9(norm):
+    guid, _, _ = op_samples(8)
+    torch.library.opcheck(OPS.cspn_gates9.default, (guid, norm))
+    torch.testing.assert_close(OPS.cspn_gates9(guid, norm),
+                               prenorm_gates9(guid, norm), rtol=0, atol=0)
 
 
 def test_ops_take_float32_only():
     guid, blur, sp = op_samples(8)
     with pytest.raises(ValueError, match="float32"):
         OPS.cspn_fwd(guid.double(), blur, sp, 2, "8sum")
+    with pytest.raises(ValueError, match="float32"):
+        OPS.cspn_tiled_fwd_raw(guid, blur.double(), sp, 2, "8sum")
+    with pytest.raises(ValueError, match="float32"):
+        OPS.cspn_gates9(guid.double(), "8sum")
     gates9, d0, sp = op_samples(9)
     with pytest.raises(ValueError, match="float32"):
         OPS.cspn_tiled_fwd(gates9, d0.double(), sp, 2)
+
+
+class Gates9ContractCSPN(torch.nn.Module):
+    """The CSPN step as a program exported before K4 took raw guidance held
+    it: the plain normalization and anchor, then the operator
+    cspn_tiled_fwd on gates9."""
+
+    def forward(self, x):
+        sp = x[:, 9]
+        gates9 = prenorm_gates9(x[:, :8], "8sum_clamp")
+        return OPS.cspn_tiled_fwd(gates9, anchor(x[:, 8], sp), sp, 5)
+
+
+def test_a_program_on_the_gates9_contract_still_loads(tmp_path):
+    """A program whose graph holds cspn_tiled_fwd on gates9 loads and runs,
+    and equals the raw contract's K4 on the same inputs."""
+    guid, blur, sp = op_samples(8)
+    x = torch.cat([guid, blur[:, None], sp[:, None]], 1)
+    path = tmp_path / "gates9_contract.pt2"
+    with torch.no_grad():
+        torch.export.save(torch.export.export(Gates9ContractCSPN(), (x,)),
+                          str(path))
+    program = torch.export.load(str(path))
+    assert cspn_nodes(program) == [str(OPS.cspn_tiled_fwd.default)]
+    got = load_program(str(path), device="cpu")(x)
+    want = OPS.cspn_tiled_fwd_raw(guid, blur, sp, 5, "8sum_clamp")
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

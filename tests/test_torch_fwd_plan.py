@@ -128,10 +128,13 @@ def test_cpu_tensors_take_the_plain_version_under_any_geometry():
     before = cspn_cuda.cspn_fwd.launches
     got = cspn_cuda.cspn_fwd(guid, blur, sp, **kw, geometry=1)
     assert torch.equal(got, want) and cspn_cuda.cspn_fwd.launches == before
+    assert torch.equal(
+        cspn_cuda.cspn_tiled_fwd(guid, blur, sp, **kw, geometry=2),
+        cspn_cuda.cspn_tiled_fwd_plain(guid, blur, sp, **kw))
     g9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
     assert torch.equal(
-        cspn_cuda.cspn_tiled_fwd(g9, d0, sp, num_iters=9, geometry=2),
-        cspn_cuda.cspn_tiled_fwd_plain(g9, d0, sp, num_iters=9))
+        cspn_cuda.cspn_prenorm_fwd(g9, d0, sp, num_iters=9, geometry=2),
+        cspn_cuda.cspn_prenorm_fwd_plain(g9, d0, sp, num_iters=9))
 
 
 def pr6_geometry(b: int, h: int, w: int, num_iters: int) -> int:
@@ -174,15 +177,17 @@ def test_cpu_stash_calls_take_the_plain_version_under_any_geometry():
     kw = dict(num_iters=6, norm_type="8sum")
     want = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw)
     g9, d0 = prenorm_gates9(guid, "8sum"), anchor(blur, sp)
-    want9 = cspn_cuda.cspn_tiled_fwd_stash_plain(g9, d0, sp, num_iters=6)
-    before = (cspn_cuda.cspn_fwd_stash.launches,
-              cspn_cuda.cspn_tiled_fwd_stash.launches)
+    want9 = cspn_cuda.cspn_prenorm_fwd_stash_plain(g9, d0, sp, num_iters=6)
+    stashes = (cspn_cuda.cspn_fwd_stash, cspn_cuda.cspn_tiled_fwd_stash,
+               cspn_cuda.cspn_prenorm_fwd_stash)
+    before = [fn.launches for fn in stashes]
     for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
         for got, ref in ((cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw,
                                                    geometry=geometry), want),
                          (cspn_cuda.cspn_tiled_fwd_stash(
+                             guid, blur, sp, **kw, geometry=geometry), want),
+                         (cspn_cuda.cspn_prenorm_fwd_stash(
                              g9, d0, sp, num_iters=6, geometry=geometry),
                           want9)):
             assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert (cspn_cuda.cspn_fwd_stash.launches,
-            cspn_cuda.cspn_tiled_fwd_stash.launches) == before
+    assert [fn.launches for fn in stashes] == before

@@ -12,8 +12,17 @@ the CPU against the JAX package:
 * `SyntheticDataset(length=)` gives as many records as JAX's, the same
   ones;
 * `CSPN_NATIVE=0` selects the numpy augmentation executor, as in JAX;
-* a `model.dtype` other than bfloat16 or float32 is refused by name.
+* a `model.dtype` other than bfloat16 or float32 is refused by name;
+* `native.lib()` called from a second thread while the first loads the
+  library waits for it: it had returned None, so a worker thread took the
+  numpy executor for its record, and a process's first epoch differed from
+  its later ones in the last bits of some rgb (the JAX package's
+  native/__init__.py has the same pattern).
 """
+
+import threading
+import time
+
 
 import numpy as np
 import pytest
@@ -129,3 +138,29 @@ def test_unsupported_model_dtype_is_refused_by_name(dtype):
     assert CSPNDepthNet(arch=None, encoder_stages=(1, 1, 1, 1),
                         encoder_width=16, decoder_channels=(32, 24, 16, 16),
                         decoder_out=16, dtype="float32").dtype == torch.float32
+
+
+def test_a_second_caller_waits_for_the_native_library(monkeypatch):
+    """While one thread loads the native library (slowed here), a second
+    caller of `lib()` gets the library, not None."""
+    loaded = object()
+
+    def slow_bind(_):
+        time.sleep(0.5)
+        return loaded
+
+    monkeypatch.delenv("CSPN_NATIVE", raising=False)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "library_path", lambda: native.SOURCE)
+    monkeypatch.setattr(native.ctypes, "CDLL", lambda path: None)
+    monkeypatch.setattr(native, "_bind", slow_bind)
+    first = []
+    loader = threading.Thread(target=lambda: first.append(native.lib()))
+    loader.start()
+    time.sleep(0.1)
+    second = native.lib()
+    loader.join()
+    assert first == [loaded]
+    assert second is loaded
+    assert native.executor() == "native"
