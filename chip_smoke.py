@@ -119,7 +119,21 @@ exits non-zero:
      bench runs its parity gate; `profiling`: a trace of a serving batch,
      StepTimer, marginal_chain of K1 and kernel_roofline; `debug`:
      checkify_step on a train step, clean and with a NaN in rgb, and a step
-     under enable_debug().
+     under enable_debug();
+ 14. bench (run after phase 13): each tool of cspn_monodepth_tpu_torch/tools
+     once on the card (`tool` lines: the torch baseline, which writes
+     bench_baseline.json, then profile_step of the NYU train and eval steps
+     and the KITTI train step, profile_components, profile_step_parts,
+     profile_decoder, bench_pipeline, bench_cspn_vjp NYU and KITTI,
+     probe_bn_eval, bench_bw, parity_check); `python -m
+     cspn_monodepth_tpu_torch.bench` for nyu_completion_500 at batch 32 and
+     kitti_1216 at batch 8, each in a child process (`bench` lines: its
+     JSON line with the root bench's keys and parity block, every train
+     step launching K2 and K3 (K5 and K6) once and every eval step K1 (K4)
+     once and nothing else, the host syncs of one train and one eval
+     step, vs_baseline against the card's own torch baseline); entry()'s
+     forward with exact anchors against the plain CSPN loop (K1 once), and
+     dryrun_multichip(8) with 8 ranks on the card over gloo, both layouts.
 The kernel checks (3, 6, 9) run first. Every path's launch counts also
 count the plain normalization's and anchor's calls on a CUDA tensor
 ("prenorm_gates9", "anchor"), which must stay 0. Then a line with the
@@ -131,6 +145,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -180,6 +195,7 @@ from cspn_monodepth_tpu_torch.parallel import (
 from cspn_monodepth_tpu_torch.train import Trainer
 from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 from cspn_monodepth_tpu_torch.utils import debug, profiling
+from cspn_monodepth_tpu_torch.utils.profiling import device_profile
 
 # H100 SXM published peaks (NVIDIA data sheet, full 700 W power limit); the
 # memory rate is utils/profiling.py's, which kernel_roofline divides by.
@@ -293,6 +309,87 @@ EXPORT_BATCH_CALLS = 5
 TIMER_WARMUP = 3
 TIMER_STEPS = 6
 DEBUG_BATCH = 8
+# Phase 14, bench. The port's bench on each of its configurations (config,
+# batch, the train step's kernels, the eval step's kernel), each run as
+# `python -m cspn_monodepth_tpu_torch.bench` runs it, in a child process.
+BENCH_CELLS = (("nyu_completion_500", TRAIN_BATCH,
+                ("cspn_fwd_stash", "cspn_bwd"), "cspn_fwd"),
+               ("kitti_1216", KITTI_BATCH,
+                ("cspn_tiled_fwd_stash", "cspn_tiled_bwd"), "cspn_tiled_fwd"))
+BENCH_TIMEOUT_S = 600
+# bench.py:214-227, the root bench's keys, and the parity block's by config.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
+              "train_images_per_sec", "infer_images_per_sec", "batch",
+              "chain_len", "dispatch_overhead_ms", "backend", "device",
+              "parity"}
+BENCH_PARITY = {"nyu_completion_500": {"routing", "whole_plane_228x304",
+                                       "prenorm_96x304"},
+                "kitti_1216": {"routing", "tiled_352x1216",
+                               "prenorm_104x1216"}}
+# The child: the bench module run as __main__ (what `python -m` does), with
+# every Trainer step counted and the launch counts set to 0 at the first
+# step (after the parity block, whose launches compare kernels with their
+# plain versions); the third train and eval step run under the sync debug
+# mode. Prints one `bench_child` JSON line after the bench's own.
+BENCH_CHILD = r"""
+import json, runpy
+from cspn_monodepth_tpu_torch.ops import cspn_cuda
+from cspn_monodepth_tpu_torch.ops.cspn_ref import anchor, prenorm_gates9
+from cspn_monodepth_tpu_torch.train.loop import Trainer
+from cspn_monodepth_tpu_torch.utils.profiling import count_syncs
+
+steps, syncs = {"train": 0, "eval": 0}, {}
+
+def counted(kind, real):
+    def step(self, *args):
+        steps[kind] += 1
+        if steps["train"] + steps["eval"] == 1:
+            for fn in cspn_cuda.WRAPPERS:
+                fn.launches = 0
+            prenorm_gates9.cuda_calls = anchor.cuda_calls = 0
+        if steps[kind] != 3:
+            return real(self, *args)
+        out = []
+        syncs[kind] = count_syncs(lambda: out.append(real(self, *args)))
+        return out[0]
+    return step
+
+Trainer.train_step = counted("train", Trainer.train_step)
+Trainer.eval_step = counted("eval", Trainer.eval_step)
+runpy.run_module("cspn_monodepth_tpu_torch.bench", run_name="__main__")
+print(json.dumps({"bench_child": {
+    "steps": steps, "syncs": syncs,
+    "launches": {**{fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS},
+                 "prenorm_gates9": prenorm_gates9.cuda_calls,
+                 "anchor": anchor.cuda_calls}}}), flush=True)
+"""
+# The tools at small counts (name, argv; environment), on the card.
+TOOL_RUNS = (
+    ("torch_baseline", [], {"BENCH_BATCH": str(TRAIN_BATCH),
+                            "BENCH_ITERS": "3"}),
+    ("profile_step", ["--batch", str(TRAIN_BATCH), "--steps", "3",
+                      "--top", "25"], {}),
+    ("profile_step", ["--batch", str(TRAIN_BATCH), "--steps", "3", "--top",
+                      "15", "--eval"], {}),
+    ("profile_step", ["--batch", str(KITTI_BATCH), "--steps", "3", "--top",
+                      "25", "--config", "kitti_1216"], {}),
+    ("profile_components", ["--batch", str(TRAIN_BATCH), "--iters", "3",
+                            "--train"], {}),
+    ("profile_step_parts", ["--batch", str(TRAIN_BATCH), "--iters", "3"],
+     {}),
+    ("profile_decoder", ["--batch", str(TRAIN_BATCH), "--iters", "3",
+                         "--train"], {}),
+    ("bench_pipeline", ["--records", "96", "--batch", str(TRAIN_BATCH),
+                        "--steps", "2", "--workers", "1,4,8",
+                        "--train-steps", "4"], {}),
+    ("bench_cspn_vjp", ["--iters", "3"], {}),
+    ("bench_cspn_vjp", ["--iters", "3", "--kitti"], {}),
+    ("probe_bn_eval", [], {"BENCH_BATCH": str(TRAIN_BATCH),
+                           "BENCH_ITERS": "3"}),
+    ("bench_bw", ["--iters", "3"], {}),
+    ("parity_check", ["--kitti"], {}),
+)
+DRYRUN_RANKS = 8
 # K1's kernel as a trace names it (csrc/cspn_fwd.cu).
 K1_KERNEL = "cspn_fwd_round"
 # The process that loads the programs: torch and ops/library.py by name, no
@@ -549,11 +646,7 @@ def parse_ptxas(log: str) -> list[dict]:
 
 
 def phase_toolchain() -> str:
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    gpu = gpu.splitlines()[0]
+    gpu = profiling.card()
     print(gpu, flush=True)
     nvcc = subprocess.run([cspn_cuda.nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -681,55 +774,6 @@ def check_depth(out, sparse, shape):
     m = sparse > 0
     if not np.array_equal(out[m], sparse[m]):
         raise AssertionError("sparse anchors are not exact in the output")
-
-
-def device_profile(fn) -> dict:
-    """One call of fn under torch.profiler: the device time of each kernel
-    and their sum against the host wall time of the call. Device times are
-    None where the profiler recorded none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # Device-side events only (kernels, copies, memsets): a host operator's
-    # row would count the kernels it launched a second time.
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0),
-                     key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
-    if not kernels:
-        return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None,
-                    by_class=None, top=[])
-    by_class: dict[str, float] = {}
-    for k, ms in kernels:
-        by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) + ms
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms, by_class=by_class,
-                top=[[k[:80], ms] for k, ms in kernels[:12]])
-
-
-def kernel_class(name: str) -> str:
-    """Coarse class of a device event by its name."""
-    if "cspn_" in name or "adjoint_" in name:     # csrc/cspn_*.cu
-        return "cspn"
-    if "multi_tensor" in name or "foreach" in name:
-        return "optimizer"
-    if "Memcpy" in name or "Memset" in name:
-        return "memcpy"
-    if "nchwToNhwc" in name or "nhwcToNchw" in name:
-        return "layout"
-    if "batch_norm" in name or "bn_fw" in name:
-        return "batchnorm"
-    if any(s in name for s in ("xmma", "gemm", "conv", "cudnn", "cutlass")):
-        return "conv"
-    return "elementwise"
 
 
 def host_ms(fn, runs: int = 6) -> float:
@@ -3458,6 +3502,174 @@ def phase_tools(gpu: str) -> dict:
     return dict(export=export, parity=par, profiling=prof, debug=dbg)
 
 
+def bench_cell(config: str, batch: int, train_kernels: tuple,
+               eval_kernel: str, gpu: str) -> dict:
+    """The port's bench on `config` at `batch` in a child process: its JSON
+    line has the root bench's keys and finite positive rates on this card,
+    its parity block the config's checks; each train step launched each of
+    `train_kernels` once and each eval step `eval_kernel` once, and nothing
+    else launched or called the plain normalization or anchor on the card
+    (the parity block's comparisons before the first step are not
+    counted); the syncs of one train and one eval step."""
+    env = {**os.environ, "BENCH_CONFIG": config, "BENCH_BATCH": str(batch)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", BENCH_CHILD], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"bench {config}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    line = next(ln for ln in lines if "metric" in ln)
+    child = next(ln for ln in lines if "bench_child" in ln)["bench_child"]
+    steps, launches = child["steps"], child["launches"]
+    want = {k: 0 for k in launches}
+    want.update({k: steps["train"] for k in train_kernels})
+    want[eval_kernel] = steps["eval"]
+    rates = [line[k] for k in ("value", "train_images_per_sec",
+                               "infer_images_per_sec")]
+    sync_counts = {k: len(v) for k, v in child["syncs"].items()}
+    emit("bench", config=config, batch=batch, line=line, steps=steps,
+         launches=launches, syncs=sync_counts,
+         sync_messages=sorted({m[:160] for v in child["syncs"].values()
+                               for m in v}),
+         train_ms_per_step=1e3 * batch / line["train_images_per_sec"],
+         eval_ms_per_step=1e3 * batch / line["infer_images_per_sec"],
+         seconds=seconds, gpu=gpu)
+    if not (set(line) == BENCH_KEYS and line["backend"] == "cuda"
+            and line["device"] == gpu and line["batch"] == batch
+            and all(np.isfinite(r) and r > 0 for r in rates)
+            and set(line["parity"] or {}) == BENCH_PARITY[config]
+            and steps["train"] > 0 and steps["eval"] > 0
+            and launches == want):
+        raise AssertionError(f"bench {config}: {line} {child}, launches "
+                             f"expected {want}")
+    return dict(line=line, steps=steps, launches=launches,
+                syncs=sync_counts)
+
+
+def bench_entry(gpu: str) -> dict:
+    """entry(): the flagship forward on the card, its heads set to seeded
+    non-zero values, on a request with 500 anchors: K1 once and nothing
+    else, finite, exact anchors, against the same model with the plain
+    CSPN loop."""
+    from cspn_monodepth_tpu_torch.entry import entry
+
+    fn, (x0,) = entry()
+    model = fn.model
+    gen = torch.Generator().manual_seed(SEED + 31)
+    with torch.no_grad():
+        model.head.weight.copy_(
+            0.05 * torch.randn(model.head.weight.shape, generator=gen))
+        model.head.bias.copy_(torch.cat(
+            [torch.full((1,), 0.5), 0.1 * torch.randn(8, generator=gen)]))
+    rgb, sparse = requests(np.random.default_rng(SEED + 31), 1, NYU_H,
+                           NYU_W)
+    x = torch.from_numpy(np.concatenate([rgb, sparse[..., None]], -1)).cuda()
+    zero = fn(x0)
+    reset_counts()
+    out = fn(x)
+    torch.cuda.synchronize()
+    launches = counts()
+    model.cspn_impl = "torch"
+    plain = fn(x)
+    model.cspn_impl = "auto"
+    check_depth(out.cpu().numpy()[..., 0], sparse, (1, NYU_H, NYU_W))
+    err = max_rel(out, plain)
+    want = {k: int(k == "cspn_fwd") for k in launches}
+    line = dict(shape=list(out.shape), zero_input_finite=bool(
+        torch.isfinite(zero).all()), launches=launches, vs_plain=err,
+        tol=PATH_TOL, gpu=gpu)
+    emit("entry", **line)
+    if not (launches == want and err <= PATH_TOL
+            and line["zero_input_finite"]):
+        raise AssertionError(f"entry: {line}")
+    return line
+
+
+def bench_dryrun(gpu: str) -> list:
+    """dryrun_multichip(DRYRUN_RANKS): one train step on each layout of the
+    root dry run's rule, the ranks on this card over gloo: finite losses,
+    the data-major mesh on whole images, the spatial-major one on rows,
+    the slab route's kernels (K8, K9 and the normalization pair) launched
+    on rank 0 and no whole-image CSPN kernel."""
+    from cspn_monodepth_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    runs = dryrun_multichip(DRYRUN_RANKS)
+    emit("dryrun_multichip", runs=runs, seconds=time.perf_counter() - t0,
+         gpu=gpu)
+    slab = ("cspn_prenorm_fwd_stash", "cspn_prenorm_bwd", "cspn_gates9",
+            "cspn_gates9_bwd")
+    whole = ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd", "cspn_tiled_fwd",
+             "cspn_tiled_fwd_stash", "cspn_tiled_bwd")
+    meshes = [tuple(r["mesh"]) for r in runs]
+    if not (meshes == [(DRYRUN_RANKS // 2, 2), (2, DRYRUN_RANKS // 2)]
+            and [r["layout"] for r in runs] == ["images", "rows"]
+            and all(np.isfinite(r["loss"]) for r in runs)
+            and all(r["launches"][k] > 0 for r in runs for k in slab)
+            and not any(r["launches"][k] for r in runs for k in whole)):
+        raise AssertionError(f"dryrun_multichip: {runs}")
+    return runs
+
+
+def bench_tools(gpu: str) -> dict:
+    """Each tool of cspn_monodepth_tpu_torch/tools once (TOOL_RUNS) on this
+    card, in this process: a `tool` line with its JSON, which must name
+    this card. The torch baseline writes bench_baseline.json for the
+    bench's vs_baseline; the pipeline's shards go to a temporary
+    directory that is removed."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="bench_tools_") as tmp:
+        for name, argv, env in TOOL_RUNS:
+            if name == "bench_pipeline":
+                argv = argv + ["--root", str(Path(tmp) / "nyu_packed")]
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    res = importlib.import_module(
+                        f"cspn_monodepth_tpu_torch.tools.{name}").main(argv)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            torch.cuda.empty_cache()
+            emit("tool", name=name, argv=argv, env=env, result=res,
+                 seconds=time.perf_counter() - t0, gpu=gpu)
+            if res.get("device") != gpu:
+                raise AssertionError(f"tool {name}: {res}")
+            out[" ".join([name] + argv)] = res
+    return out
+
+
+def phase_bench(gpu: str) -> dict:
+    """Phase 14: the tools (the torch baseline first, for vs_baseline), the
+    bench on each cell, entry() and dryrun_multichip."""
+    t0 = time.perf_counter()
+    # The sync counter's control: a scalar read back is one sync.
+    control = len(profiling.count_syncs(
+        lambda: torch.ones(1, device="cuda").sum().item()))
+    if control < 1:
+        raise AssertionError("count_syncs saw no sync in .item()")
+    tools = bench_tools(gpu)
+    cells = {c[0]: bench_cell(*c, gpu) for c in BENCH_CELLS}
+    if cells["nyu_completion_500"]["line"]["vs_baseline"] is None:
+        raise AssertionError("bench: no vs_baseline with this card's "
+                             "torch baseline")
+    ent = bench_entry(gpu)
+    dry = bench_dryrun(gpu)
+    emit("bench_phase", sync_control=control,
+         seconds=time.perf_counter() - t0, gpu=gpu)
+    return dict(tools=tools, cells=cells, entry=ent, dryrun=dry)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -3473,6 +3685,7 @@ def main():
     forward_times(gpu)
     # Before the serving counts and before the KITTI epoch (the profiler).
     phase_tools(gpu)
+    phase_bench(gpu)
     reset_counts()
     launches, max_abs_err = phase_serving(gpu)
     train = phase_train(gpu)

@@ -8,6 +8,12 @@
   synchronizes the card at entry and exit, for steady-state step times.
 * `marginal_chain`: the marginal time of one step of a serially dependent
   chain, the method the bench tools share.
+* `device_profile` / `kernel_class`: one call under `torch.profiler`, its
+  device time by kernel and by coarse class (convolution, BatchNorm,
+  layout, CSPN, optimizer, copies, elementwise) against the host's wall
+  time; `count_syncs`: the host-device synchronizations a call makes.
+* `card`: the card's name and power limit as nvidia-smi reports them,
+  written beside every time measured on it.
 * `kernel_roofline`: the least time of the CSPN forward on this card (it is
   bound by its bytes: bytes over the device memory's rate), to set beside
   measured times.
@@ -16,7 +22,9 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
+import warnings
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -73,7 +81,8 @@ def _read_back(carry) -> float:
     return float(tree_leaves(carry)[0].reshape(-1)[:1].sum().item())
 
 
-def marginal_chain(fn, carry, params=None, n=10, reps=2, max_retries=3):
+def marginal_chain(fn, carry, params=None, n=10, reps=2, max_retries=3,
+                   reset=None):
     """Marginal per-step seconds of a `carry, params -> carry` function.
 
     Two chains of n and 5n serially dependent eager calls, each closed by
@@ -86,22 +95,27 @@ def marginal_chain(fn, carry, params=None, n=10, reps=2, max_retries=3):
     more repetitions, then raised, never clamped (a clamp would print an
     absurd rate).
 
+    Every chain starts from `carry`. Where fn also changes state in place
+    (a train step's weights), `reset()` puts it back before every chain,
+    outside the clock, as a JAX chain restarts from the same functional
+    state.
+
     Returns (step_seconds, dispatch_seconds).
     """
     def chain(length):
+        if reset is not None:
+            reset()
+            _sync()
+        t0 = time.perf_counter()
         c = carry
         for _ in range(length):
             c = fn(c, params)
         _read_back(c)
+        return time.perf_counter() - t0
 
     def run(length, r):
         chain(length)                       # warm
-        best = float("inf")
-        for _ in range(r):
-            t0 = time.perf_counter()
-            chain(length)
-            best = min(best, time.perf_counter() - t0)
-        return best
+        return min(chain(length) for _ in range(r))
 
     t_short = t_long = 0.0
     for _attempt in range(max_retries):
@@ -141,3 +155,91 @@ def kernel_roofline(batch: int, h: int, w: int, device_kind: str | None = None
         "hbm_gbps": rate / 1e9,
         "sol_seconds": bytes_total / rate,
     }
+
+
+def kernel_class(name: str) -> str:
+    """Coarse class of a profiler event by its name: a device kernel's, or
+    on the CPU an aten operator's."""
+    if "cspn_" in name or "adjoint_" in name:     # csrc/cspn_*.cu
+        return "cspn"
+    if "multi_tensor" in name or "foreach" in name:
+        return "optimizer"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy"
+    if "nchwToNhwc" in name or "nhwcToNchw" in name:
+        return "layout"
+    if "batch_norm" in name or "bn_fw" in name:
+        return "batchnorm"
+    if any(s in name for s in ("xmma", "gemm", "conv", "cudnn", "cutlass")):
+        return "conv"
+    return "elementwise"
+
+
+def device_profile(fn, top: int = 12, device: str = "cuda") -> dict:
+    """One call of fn under torch.profiler: the time of each kernel and
+    their sum (`busy_ms`) against the host wall time of the call, by class
+    (`kernel_class`) and the `top` kernels by time. On "cuda" the events
+    are the device's (kernels, copies, memsets), and the times None where
+    the profiler recorded none; on "cpu" they are the operators' self CPU
+    times, which is what the CPU spends, not a device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device != "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    if cuda:
+        # Device-side events only: a host operator's row would count the
+        # kernels it launched a second time.
+        rows = ((e.key, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    else:
+        rows = ((e.key, e.self_cpu_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = sorted(((k, ms) for k, ms in rows if ms > 0),
+                     key=lambda kv: -kv[1])
+    if not kernels:
+        return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None,
+                    by_class=None, top=[])
+    busy_ms = sum(ms for _, ms in kernels)
+    by_class: dict[str, float] = {}
+    for k, ms in kernels:
+        by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) + ms
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, by_class=by_class,
+                top=[[k[:80], ms] for k, ms in kernels[:top]])
+
+
+def count_syncs(fn) -> list[str]:
+    """The messages of the host-device synchronizations that fn() makes on
+    the card, as torch.cuda.set_sync_debug_mode("warn") reports them (one
+    warning each; not the mode's own notice that it is a prototype); the
+    mode is restored after."""
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def card() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (a card
+    may be set below its maximum power and then runs slower under load)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]

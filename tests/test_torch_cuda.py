@@ -761,3 +761,78 @@ def test_gates9_function_matches_torch_autograd(cuda):
     (want,) = torch.autograd.grad(
         (prenorm_gates9(c, "8sum_clamp") * cot).sum(), c)
     assert max_rel(got, want) <= TOL
+
+
+def bench_setup(cuda):
+    """The port bench's chain bodies on synthetic_tiny at the card: the
+    trainer, its state and the bench's device batch (with valid_image)."""
+    from cspn_monodepth_tpu_torch import bench
+    from cspn_monodepth_tpu_torch.train import Trainer
+
+    cfg = get_config("synthetic_tiny")
+    trainer = Trainer(cfg, device=cuda)
+    state = trainer.init_state()
+    batch = bench.synthetic_batch(cfg.train.batch_size, cfg.data.height,
+                                  cfg.data.width, cuda)
+    batch["valid_image"] = torch.ones(cfg.train.batch_size, device=cuda)
+    return bench, trainer, state, batch
+
+
+@pytest.mark.cuda
+def test_bench_chains_launch_each_kernel_once_a_step(cuda):
+    """The bench's train chain launches K2 and K3 once a step and its eval
+    chain K1 once a step; nothing else launches, and no plain CSPN,
+    normalization or anchor runs on the card; its inputs reach the step
+    without a copy."""
+    bench, trainer, state, batch = bench_setup(cuda)
+    train = {k: v for k, v in batch.items() if k != "valid_image"}
+    # The device batch passes _to_device/_unpack without a copy.
+    moved = trainer._unpack(trainer._to_device(train))
+    assert all(moved[k].data_ptr() == train[k].data_ptr() for k in train)
+    for fn in cspn_cuda.WRAPPERS:
+        fn.launches = 0
+    plain = plain_cuda_calls()
+    value = torch.zeros((), device=cuda)
+    for i in range(3):
+        value = bench.train_body(trainer, state, train, i)
+    acc = torch.zeros((), device=cuda)
+    for i in range(3):
+        acc = bench.eval_body(trainer, state, batch, acc, i)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS}
+    want = {k: 0 for k in launches}
+    want.update(cspn_fwd_stash=3, cspn_bwd=3, cspn_fwd=3)
+    assert launches == want
+    assert plain_cuda_calls() == plain
+    assert torch.isfinite(value) and torch.isfinite(acc)
+
+
+@pytest.mark.cuda
+def test_bench_steps_make_no_host_sync(cuda):
+    """A train step and an eval step of the bench's chains make no
+    host-device synchronization (torch.cuda.set_sync_debug_mode), so the
+    chain's steps queue behind each other until the one read-back, its
+    only sync."""
+    from cspn_monodepth_tpu_torch.utils.profiling import count_syncs
+
+    bench, trainer, state, batch = bench_setup(cuda)
+    train = {k: v for k, v in batch.items() if k != "valid_image"}
+    acc = torch.zeros((), device=cuda)
+    bench.train_body(trainer, state, train, 0)          # warm
+    bench.eval_body(trainer, state, batch, acc, 0)
+    torch.cuda.synchronize()
+    # The counter's control: a scalar read back is a sync.
+    assert count_syncs(lambda: torch.ones(1, device=cuda).sum().item())
+    assert count_syncs(lambda: bench.train_body(trainer, state, train,
+                                                1)) == []
+    assert count_syncs(lambda: bench.eval_body(trainer, state, batch, acc,
+                                               1)) == []
+
+    def chain():
+        value = acc
+        for i in range(3):
+            value = bench.train_body(trainer, state, train, i)
+        return float(value)
+
+    # A chain syncs once: its read-back.
+    assert len(count_syncs(chain)) == 1

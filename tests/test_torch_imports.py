@@ -73,7 +73,12 @@ def test_sources_are_found():
             "cspn_monodepth_tpu_torch/train/checkpoint.py",
             "cspn_monodepth_tpu_torch/utils/__init__.py",
             "cspn_monodepth_tpu_torch/utils/logging.py",
-            "cspn_monodepth_tpu_torch/utils/tensorboard.py"} <= rel
+            "cspn_monodepth_tpu_torch/utils/tensorboard.py",
+            "cspn_monodepth_tpu_torch/bench.py",
+            "cspn_monodepth_tpu_torch/entry.py",
+            "cspn_monodepth_tpu_torch/tools/__init__.py",
+            "cspn_monodepth_tpu_torch/tools/profile_step.py",
+            "cspn_monodepth_tpu_torch/tools/torch_baseline.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -105,6 +110,11 @@ def test_port_imports_without_jax():
         "import cspn_monodepth_tpu_torch.utils\n"
         "import cspn_monodepth_tpu_torch.utils.logging\n"
         "import cspn_monodepth_tpu_torch.utils.tensorboard\n"
+        "import cspn_monodepth_tpu_torch.bench\n"
+        "import cspn_monodepth_tpu_torch.entry\n"
+        + "".join(f"import cspn_monodepth_tpu_torch.tools.{p.stem}\n"
+                  for p in (ROOT / "cspn_monodepth_tpu_torch" / "tools"
+                            ).glob("*.py")) +
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(sorted(bad))\n"
