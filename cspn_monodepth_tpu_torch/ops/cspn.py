@@ -56,6 +56,7 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_propagate_ref_nchw,
     prenorm_gates9,
 )
+from cspn_monodepth_tpu_torch.utils import profiling
 
 IMPLS = ("auto", "torch", "cuda", "cuda_tiled")
 
@@ -101,10 +102,11 @@ def _raw_stash_forward(ctx, fwd_stash, guidance, blur, sparse,
 
 def _raw_adjoint(ctx, bwd, grad_out):
     guidance, sparse, stash = ctx.saved_tensors
-    d_guid, d_blur, d_sparse = bwd(guidance, sparse, stash,
-                                   _planes(grad_out),
-                                   num_iters=ctx.num_iters,
-                                   norm_type=ctx.norm_type)
+    with profiling.span("cspn.backward"):
+        d_guid, d_blur, d_sparse = bwd(guidance, sparse, stash,
+                                       _planes(grad_out),
+                                       num_iters=ctx.num_iters,
+                                       norm_type=ctx.norm_type)
     return (d_guid, d_blur, None if sparse is None else d_sparse,
             None, None)
 
@@ -243,6 +245,13 @@ def cspn_propagate(
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
+    with profiling.span("cspn.forward"):
+        return _propagate(guidance, blur_depth, sparse_depth, num_iters,
+                          norm_type, impl, guidance_layout)
+
+
+def _propagate(guidance, blur_depth, sparse_depth, num_iters: int,
+               norm_type: str, impl: str, guidance_layout: str):
     if guidance_layout == "NHWC":
         guidance = guidance.permute(0, 3, 1, 2)
     elif guidance_layout != "NCHW":

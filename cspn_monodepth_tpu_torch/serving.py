@@ -29,6 +29,7 @@ from cspn_monodepth_tpu_torch.train.train_state import (
     TrainState,
     make_optimizer,
 )
+from cspn_monodepth_tpu_torch.utils import profiling
 
 
 class DepthPredictor:
@@ -80,7 +81,24 @@ class DepthPredictor:
     def predict_batch(self, rgb: np.ndarray,
                       sparse_depth: np.ndarray | None = None) -> np.ndarray:
         """rgb (B, h, w, 3); sparse_depth optional (B, h, w). h <= height,
-        w <= width (padded up and cropped back). Returns (B, h, w) meters."""
+        w <= width (padded up and cropped back). Returns (B, h, w) meters.
+        Under a profiler: spans serve.prep, serve.h2d (and the counter
+        serve.h2d_bytes), serve.forward, serve.d2h (utils/profiling.py)."""
+        profiling.next_call()
+        with profiling.span("serve.prep"):
+            x, h, w = self._prep(rgb, sparse_depth)
+        with profiling.span("serve.h2d"):
+            profiling.count("serve.h2d_bytes", x.nbytes)
+            x = torch.from_numpy(x).to(self.device)
+        with profiling.span("serve.forward"):
+            out = self.model(x)
+        with profiling.span("serve.d2h"):
+            return out[:, :h, :w, 0].cpu().numpy()
+
+    def _prep(self, rgb: np.ndarray, sparse_depth: np.ndarray | None
+              ) -> tuple[np.ndarray, int, int]:
+        """The model's input (B, height, width, C) float32 on the host, and
+        the request's h, w."""
         rgb = self._prep_rgb(rgb)
         b, h, w, _ = rgb.shape
         if h > self.height or w > self.width:
@@ -91,20 +109,15 @@ class DepthPredictor:
 
         modality = self.model.modality
         if modality == "rgb":
-            x = rgb_p
+            return rgb_p, h, w
+        if sparse_depth is None:
+            sparse = np.zeros((b, self.height, self.width), np.float32)
         else:
-            if sparse_depth is None:
-                sparse = np.zeros((b, self.height, self.width), np.float32)
-            else:
-                sparse = np.pad(np.asarray(sparse_depth, np.float32),
-                                ((0, 0), (0, ph), (0, pw)))
-            if modality == "d":
-                x = sparse[..., None]
-            else:
-                x = np.concatenate([rgb_p, sparse[..., None]], axis=-1)
-
-        out = self.model(torch.from_numpy(x).to(self.device))
-        return out[:, :h, :w, 0].cpu().numpy()
+            sparse = np.pad(np.asarray(sparse_depth, np.float32),
+                            ((0, 0), (0, ph), (0, pw)))
+        if modality == "d":
+            return sparse[..., None], h, w
+        return np.concatenate([rgb_p, sparse[..., None]], axis=-1), h, w
 
     def predict(self, rgb: np.ndarray,
                 sparse_depth: np.ndarray | None = None) -> np.ndarray:

@@ -114,6 +114,7 @@ from cspn_monodepth_tpu_torch.train.train_state import (
     make_lr_schedule,
     make_optimizer,
 )
+from cspn_monodepth_tpu_torch.utils import profiling
 from cspn_monodepth_tpu_torch.utils.logging import (
     CSVLogger,
     merge_into_row,
@@ -278,26 +279,35 @@ class Trainer:
         """One update of `state` (in place) on `batch` (numpy or tensors,
         packed or float; on a mesh this rank's share of the global batch);
         the sparse input is drawn from (seed, tag, state.step). Returns
-        (state, loss, metric sums) of the global batch, on the device."""
+        (state, loss, metric sums) of the global batch, on the device.
+        Under a profiler: spans train.input, train.forward, train.loss,
+        train.backward, train.optimizer, train.metrics
+        (utils/profiling.py)."""
         cfg = self.cfg
-        batch = self._unpack(self._to_device(batch))
-        sparse = self._sample_sparse(self._rng(tag, state.step),
-                                     batch["depth"], batch["rgb"])
-        x = self._assemble_input(batch["rgb"], sparse)
-        target = self._mine(batch["depth"])[..., None]
-
-        model = state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        pred = model(x)
-        loss = self.loss_fn(pred, target, self.group)
-        loss.backward()
-        state.apply_gradients(self.lr_schedule, cfg.train.clip_norm,
-                              self.group)
-        loss = loss.detach()
-        with torch.no_grad():
-            sums = self._metric_sums(pred, target)
-        if self.group is not None:
-            torch.distributed.all_reduce(loss, group=self.group)
+        profiling.next_call()
+        with profiling.span("train.input"):
+            batch = self._unpack(self._to_device(batch))
+            sparse = self._sample_sparse(self._rng(tag, state.step),
+                                         batch["depth"], batch["rgb"])
+            x = self._assemble_input(batch["rgb"], sparse)
+            target = self._mine(batch["depth"])[..., None]
+            model = state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("train.forward"):
+            pred = model(x)
+        with profiling.span("train.loss"):
+            loss = self.loss_fn(pred, target, self.group)
+        with profiling.span("train.backward"):
+            loss.backward()
+        with profiling.span("train.optimizer"):
+            state.apply_gradients(self.lr_schedule, cfg.train.clip_norm,
+                                  self.group)
+        with profiling.span("train.metrics"):
+            loss = loss.detach()
+            with torch.no_grad():
+                sums = self._metric_sums(pred, target)
+            if self.group is not None:
+                torch.distributed.all_reduce(loss, group=self.group)
         return state, loss, sums
 
     @torch.no_grad()

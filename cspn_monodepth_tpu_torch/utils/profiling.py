@@ -3,9 +3,15 @@
 * `trace(logdir)`: `torch.profiler` over the host and, where the process
   has a card, the CUDA device; writes a trace that TensorBoard's profiler
   plugin and Chrome's trace viewer read, with every kernel by name (the
-  CSPN kernels included).
-* `StepTimer`: a wall-clock timer of steps that drops the warm-up steps and
-  synchronizes the card at entry and exit, for steady-state step times.
+  CSPN kernels included), and the program's spans among the host's
+  events.
+* `span(name)`, `count(name, n)`, `next_call()`, `collected()`: the
+  program's own spans and counters, live only while a `torch.profiler`
+  records. A span is a `record_function` range of the profiler's trace
+  and an entry of an in-memory collection: its name, the span enclosing it
+  on its thread, the `train_step` or `predict_batch` call it ran in, its
+  host ms and, on the card, its ms on the device's timeline (a pair of
+  CUDA events). Each profiled stretch gets a fresh collection.
 * `marginal_chain`: the marginal time of one step of a serially dependent
   chain, the method the bench tools share.
 * `device_profile` / `kernel_class`: one call under `torch.profiler`, its
@@ -14,25 +20,25 @@
   time; `count_syncs`: the host-device synchronizations a call makes.
 * `card`: the card's name and power limit as nvidia-smi reports them,
   written beside every time measured on it.
-* `kernel_roofline`: the least time of the CSPN forward on this card (it is
-  bound by its bytes: bytes over the device memory's rate), to set beside
-  measured times.
 """
 
 from __future__ import annotations
 
 import contextlib
 import subprocess
+import threading
 import time
 import warnings
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._pytree import tree_leaves
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block's host and device activity into `logdir`."""
+    """Profile the block's host and device activity into `logdir`; yields
+    the profiler, whose `events()` hold the trace once the block ends."""
     from torch.profiler import ProfilerActivity, profile, \
         tensorboard_trace_handler
 
@@ -40,40 +46,149 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
+
+
+# ------------------------------------------------------------------ spans
+
+_OFF = contextlib.nullcontext()
+
+
+class _Collection:
+    """One profiled stretch: its spans in the order they opened, the CUDA
+    events of those not yet resolved, its counters."""
+
+    def __init__(self):
+        self.spans: list[dict] = []
+        self.events: list[tuple] = []
+        self.counters: dict[str, float] = {}
+
+
+class _SpanState:
+    """The process's spans: the current (or last) stretch's collection,
+    whether the last look found the profiler on, the call count, and each
+    thread's stack of open span names."""
+
+    def __init__(self):
+        self.collection = _Collection()
+        self.live = False
+        self.call = 0
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def look(self) -> bool:
+        """Whether a profiler records. The first look that finds it on
+        after one that found it off starts a fresh collection."""
+        if not _autograd_profiler._is_profiler_enabled:
+            self.live = False
+            return False
+        if not self.live:
+            with self.lock:
+                if not self.live:
+                    self.collection = _Collection()
+                    self.live = True
+        return True
+
+    def stack(self) -> list[str]:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_SPANS = _SpanState()
+
+
+class _Span:
+    """A live span: a `record_function` range around the block, its entry
+    in the collection, the host's clock and, on the card, a pair of timing
+    events on the current stream."""
+
+    __slots__ = ("name", "_range", "_coll", "_entry", "_stack", "_start",
+                 "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _SPANS.look()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._stack = _SPANS.stack()
+        self._entry = {"name": self.name,
+                       "parent": self._stack[-1] if self._stack else None,
+                       "call": _SPANS.call, "host_ms": None,
+                       "device_ms": None}
+        self._coll = _SPANS.collection
+        self._coll.spans.append(self._entry)
+        self._stack.append(self.name)
+        self._start = None
+        if torch.cuda.is_initialized():
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._entry["host_ms"] = (time.perf_counter_ns() - self._t0) / 1e6
+        if self._start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._coll.events.append((self._entry, self._start, end))
+        self._stack.pop()
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one phase of the program. While no
+    profiler records it is one shared null context; while one does, a
+    `record_function(name)` range of the same trace and an entry
+    {name, parent, call, host_ms, device_ms} of the collection."""
+    if not _autograd_profiler._is_profiler_enabled:
+        _SPANS.live = False
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: float) -> None:
+    """Add n to the collection's counter `name`, while spans are live."""
+    if _SPANS.look():
+        with _SPANS.lock:
+            counters = _SPANS.collection.counters
+            counters[name] = counters.get(name, 0) + n
+
+
+def next_call() -> None:
+    """Count one call of a program entry (`Trainer.train_step`,
+    `DepthPredictor.predict_batch`), while spans are live: the spans it
+    opens, the autograd thread's included, carry its number as `call`."""
+    if _SPANS.look():
+        _SPANS.call += 1
+
+
+def collected() -> dict:
+    """{"spans": [...], "counters": {...}} of the current or last profiled
+    stretch. Resolves the spans' CUDA events into device_ms (waiting for
+    them, which the stretch's closing synchronize has already done);
+    device_ms stays None for a span that ran off the card. Read after the
+    stretch, it also closes it: the next span that finds a profiler on
+    starts a fresh collection."""
+    _SPANS.look()
+    coll = _SPANS.collection
+    with _SPANS.lock:
+        events, coll.events = coll.events, []
+    for entry, start, end in events:
+        end.synchronize()
+        entry["device_ms"] = start.elapsed_time(end)
+    return {"spans": [dict(s) for s in coll.spans],
+            "counters": dict(coll.counters)}
 
 
 def _sync():
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Accumulates steady-state step times, discarding warmup steps. Entry
-    and exit synchronize the current CUDA device when the process uses one,
-    so a step's time is its device work's, not its enqueue's."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times: list[float] = []
-        self._n = 0
-        self._t0 = None
-
-    def __enter__(self):
-        _sync()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        _sync()
-        dt = time.perf_counter() - self._t0
-        self._n += 1
-        if self._n > self.warmup:
-            self.times.append(dt)
-
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
 
 
 def _read_back(carry) -> float:
@@ -128,33 +243,6 @@ def marginal_chain(fn, carry, params=None, n=10, reps=2, max_retries=3,
         f"marginal-chain timing failed: t_5n={t_long:.4f}s <= "
         f"t_n={t_short:.4f}s after {max_retries} attempts - launch "
         f"latency noise exceeds the chain signal; increase n")
-
-
-# Device memory rate in bytes/s by device name (torch.cuda.get_device_name),
-# from NVIDIA's data sheet: the H100 SXM's HBM3 at its full 700 W limit.
-HBM_BYTES_PER_S = {"H100 80GB HBM3": 3.35e12}
-
-
-def kernel_roofline(batch: int, h: int, w: int, device_kind: str | None = None
-                    ) -> dict[str, float]:
-    """Speed-of-light for the CSPN forward (K1): one read of the guidance
-    (8 planes), blur and sparse and one write of the output, independent of
-    the iteration count, over the device memory's rate. device_kind is the
-    card's name (default: the current CUDA device's); a card not in
-    HBM_BYTES_PER_S raises ValueError."""
-    if device_kind is None:
-        device_kind = torch.cuda.get_device_name()
-    rate = next((v for k, v in HBM_BYTES_PER_S.items() if k in device_kind),
-                None)
-    if rate is None:
-        raise ValueError(f"no device memory rate for {device_kind!r}; "
-                         f"known: {sorted(HBM_BYTES_PER_S)}")
-    bytes_total = 4.0 * batch * h * w * (8 + 1 + 1 + 1)
-    return {
-        "bytes": bytes_total,
-        "hbm_gbps": rate / 1e9,
-        "sol_seconds": bytes_total / rate,
-    }
 
 
 def kernel_class(name: str) -> str:

@@ -8,36 +8,7 @@ import pytest
 import torch
 
 from cspn_monodepth_tpu_torch.utils.debug import checkify_step, enable_debug
-from cspn_monodepth_tpu_torch.utils.profiling import (
-    HBM_BYTES_PER_S,
-    StepTimer,
-    kernel_roofline,
-    marginal_chain,
-    trace,
-)
-
-
-def test_step_timer_discards_warmup():
-    t = StepTimer(warmup=2)
-    for _ in range(5):
-        with t:
-            pass
-    assert len(t.times) == 3
-    assert t.mean() >= 0.0
-
-
-def test_kernel_roofline_estimate():
-    r = kernel_roofline(8, 228, 304, device_kind="NVIDIA H100 80GB HBM3")
-    assert r["bytes"] == 4 * 8 * 228 * 304 * 11
-    assert r["sol_seconds"] == r["bytes"] / HBM_BYTES_PER_S["H100 80GB HBM3"]
-    assert r["hbm_gbps"] == 3350.0
-    assert 0 < r["sol_seconds"] < 1e-3
-
-
-def test_kernel_roofline_refuses_an_unknown_card():
-    """No default rate: JAX's 819 GB/s default is a TPU v5e's."""
-    with pytest.raises(ValueError, match="no device memory rate"):
-        kernel_roofline(8, 228, 304, device_kind="TPU v5 lite")
+from cspn_monodepth_tpu_torch.utils.profiling import marginal_chain, trace
 
 
 def test_checkify_catches_nan():
