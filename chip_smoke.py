@@ -791,9 +791,10 @@ def serve(cfg, predictor, rgb, sparse, gpu: str, phase: str) -> dict:
     chooses algorithms per shape), then, with the launch counts set to 0,
     SINGLE_REQUESTS single-image requests and BATCH_REQUESTS batches, each
     checked; emits `phase` and `phase`_profile (the host-to-device copy of
-    the model's input, the model's forward on an input already on the
-    card, the rest of a predict_batch call being the host's preparation
-    and the copy back; one batch under the profiler). Returns the launch
+    the model's float32 input built on the host, the model's forward on an
+    input already on the card, the rest of a predict_batch call being the
+    request's upload, the input's build on the card and the copy back; one
+    batch under the profiler). Returns the launch
     counts of the main path and the last batch's output."""
     batch, h, w = sparse.shape
     predictor.predict(rgb[0], sparse[0])

@@ -22,7 +22,10 @@ import torch
 
 from cspn_monodepth_tpu_torch.configs import Config
 from cspn_monodepth_tpu_torch.models.convert import load_jax_variables
-from cspn_monodepth_tpu_torch.models.cspn_net import CSPNDepthNet
+from cspn_monodepth_tpu_torch.models.cspn_net import (
+    MODALITIES,
+    CSPNDepthNet,
+)
 from cspn_monodepth_tpu_torch.ops.library import load_program
 from cspn_monodepth_tpu_torch.train.checkpoint import CheckpointManager
 from cspn_monodepth_tpu_torch.train.train_state import (
@@ -70,54 +73,77 @@ class DepthPredictor:
                                    variables)
         return cls(model, cfg.data.height, cfg.data.width, device)
 
-    @staticmethod
-    def _prep_rgb(rgb: np.ndarray) -> np.ndarray:
-        rgb = np.asarray(rgb)
-        if rgb.dtype == np.uint8:
-            rgb = rgb.astype(np.float32) / 255.0
-        return rgb.astype(np.float32)
-
     @torch.inference_mode()
     def predict_batch(self, rgb: np.ndarray,
                       sparse_depth: np.ndarray | None = None) -> np.ndarray:
         """rgb (B, h, w, 3); sparse_depth optional (B, h, w). h <= height,
         w <= width (padded up and cropped back). Returns (B, h, w) meters.
-        Under a profiler: spans serve.prep, serve.h2d (and the counter
-        serve.h2d_bytes), serve.forward, serve.d2h (utils/profiling.py)."""
+
+        The request's arrays go to the device as they are (uint8 rgb at a
+        byte a channel, other rgb as float32, the sparse map as float32,
+        each only where the modality reads it); the model's float32 input
+        is built there. Under a profiler: spans serve.h2d (the checks and
+        the upload, and the counter serve.h2d_bytes), serve.prep (the
+        build on the device), serve.forward, serve.d2h
+        (utils/profiling.py)."""
         profiling.next_call()
-        with profiling.span("serve.prep"):
-            x, h, w = self._prep(rgb, sparse_depth)
         with profiling.span("serve.h2d"):
-            profiling.count("serve.h2d_bytes", x.nbytes)
-            x = torch.from_numpy(x).to(self.device)
+            rgb_t, sparse_t, (b, h, w) = self._upload(rgb, sparse_depth)
+        with profiling.span("serve.prep"):
+            x = self._model_input(b, h, w, rgb_t, sparse_t)
         with profiling.span("serve.forward"):
             out = self.model(x)
         with profiling.span("serve.d2h"):
             return out[:, :h, :w, 0].cpu().numpy()
 
-    def _prep(self, rgb: np.ndarray, sparse_depth: np.ndarray | None
-              ) -> tuple[np.ndarray, int, int]:
-        """The model's input (B, height, width, C) float32 on the host, and
-        the request's h, w."""
-        rgb = self._prep_rgb(rgb)
+    def _upload(self, rgb: np.ndarray, sparse_depth: np.ndarray | None):
+        """The request's rgb and sparse map on the device, each None where
+        the modality does not read it or the caller left it out, and the
+        request's (B, h, w). Raises ValueError, before anything is
+        uploaded, for frames larger than the configured size or a sparse
+        map of another shape than the frames."""
+        rgb = np.asarray(rgb)
         b, h, w, _ = rgb.shape
         if h > self.height or w > self.width:
             raise ValueError(f"input {h}x{w} exceeds configured "
                              f"{self.height}x{self.width}")
-        ph, pw = self.height - h, self.width - w
-        rgb_p = np.pad(rgb, ((0, 0), (0, ph), (0, pw), (0, 0)))
+        sparse_ch = MODALITIES[self.model.modality][1]
+        if self.model.modality == "d":
+            rgb = None
+        elif rgb.dtype != np.uint8:
+            rgb = rgb.astype(np.float32, copy=False)
+        sparse = None
+        if sparse_ch is not None and sparse_depth is not None:
+            sparse = np.asarray(sparse_depth, np.float32)
+            if sparse.shape != (b, h, w):
+                raise ValueError(f"sparse depth {sparse.shape} does not "
+                                 f"match the frames' {(b, h, w)}")
+        host = [None if a is None else np.ascontiguousarray(a)
+                for a in (rgb, sparse)]
+        profiling.count("serve.h2d_bytes",
+                        sum(a.nbytes for a in host if a is not None))
+        rgb_t, sparse_t = (None if a is None
+                           else torch.from_numpy(a).to(self.device)
+                           for a in host)
+        return rgb_t, sparse_t, (b, h, w)
 
-        modality = self.model.modality
-        if modality == "rgb":
-            return rgb_p, h, w
-        if sparse_depth is None:
-            sparse = np.zeros((b, self.height, self.width), np.float32)
-        else:
-            sparse = np.pad(np.asarray(sparse_depth, np.float32),
-                            ((0, 0), (0, ph), (0, pw)))
-        if modality == "d":
-            return sparse[..., None], h, w
-        return np.concatenate([rgb_p, sparse[..., None]], axis=-1), h, w
+    def _model_input(self, b: int, h: int, w: int,
+                     rgb: torch.Tensor | None, sparse: torch.Tensor | None
+                     ) -> torch.Tensor:
+        """The model's input (B, height, width, C) float32 on the device:
+        zeros, with rgb (uint8 scaled by 1/255) in [:, :h, :w, :3] and the
+        sparse map in its channel of [:, :h, :w] where they are given."""
+        in_channels, sparse_ch = MODALITIES[self.model.modality]
+        x = torch.zeros((b, self.height, self.width, in_channels),
+                        dtype=torch.float32, device=self.device)
+        if rgb is not None:
+            dst = x[:, :h, :w, :3]
+            dst.copy_(rgb)
+            if rgb.dtype == torch.uint8:
+                dst.div_(255.0)
+        if sparse is not None:
+            x[:, :h, :w, sparse_ch] = sparse
+        return x
 
     def predict(self, rgb: np.ndarray,
                 sparse_depth: np.ndarray | None = None) -> np.ndarray:

@@ -137,9 +137,12 @@ def test_dispatcher_sends_cuda_tensors_to_the_kernel(cuda, impl):
 
 
 @pytest.mark.cuda
-def test_small_model_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("request_kind", ["float32_full", "uint8_padded"])
+def test_small_model_on_card_matches_cpu(cuda, request_kind):
     """The serving path of a small f32 model: the kernel on the card, the
-    plain loop on the CPU, the same weights and requests."""
+    plain loop on the CPU, the same weights and requests. A float32 request
+    of the configured size, and a uint8 one smaller than it, whose scale
+    and padding are built on the card."""
     cfg = get_config("synthetic_tiny").override(**{"model.dtype": "float32"})
     model = CSPNDepthNet.from_config(
         cfg.model, generator=torch.Generator().manual_seed(0))
@@ -149,19 +152,24 @@ def test_small_model_on_card_matches_cpu(cuda):
         model.head.bias.fill_(0.5)
     h, w = cfg.data.height, cfg.data.width
     rng = np.random.default_rng(0)
-    rgb = rng.random((2, h, w, 3), dtype=np.float32)
+    if request_kind == "float32_full":
+        rgb = rng.random((2, h, w, 3), dtype=np.float32)
+    else:
+        h, w = h - 14, w - 26
+        rgb = rng.integers(0, 256, (2, h, w, 3), np.uint8)
     sparse = np.where(rng.random((2, h, w)) < 0.01,
                       rng.uniform(0.5, 9.5, (2, h, w)), 0.0).astype(np.float32)
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         before = cspn_cuda.cspn_fwd.launches
-        got = DepthPredictor(model, h, w, device=cuda).predict_batch(rgb,
-                                                                     sparse)
+        got = DepthPredictor(model, cfg.data.height, cfg.data.width,
+                             device=cuda).predict_batch(rgb, sparse)
         assert cspn_cuda.cspn_fwd.launches == before + 1
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    want = DepthPredictor(model, h, w, device="cpu").predict_batch(rgb, sparse)
+    want = DepthPredictor(model, cfg.data.height, cfg.data.width,
+                          device="cpu").predict_batch(rgb, sparse)
     assert got.shape == (2, h, w) and np.isfinite(got).all()
     assert np.abs(got - want).max() / np.abs(want).max() <= MODEL_TOL
     m = sparse > 0

@@ -114,3 +114,103 @@ def test_cuda_is_the_default_device():
         return
     with pytest.raises((RuntimeError, AssertionError)):
         DepthPredictor(model, cfg.data.height, cfg.data.width)
+
+
+# ------------------------------------------- the model's input, on the device
+@pytest.fixture(scope="module")
+def port_only():
+    """modality -> the port's predictor of synthetic_tiny in float32 on the
+    CPU, with its initial weights."""
+    made = {}
+    for modality in ("rgbd", "rgb", "d"):
+        cfg = get_config("synthetic_tiny").override(
+            **{"model.dtype": "float32", "model.modality": modality})
+        model = CSPNDepthNet.from_config(
+            cfg.model, generator=torch.Generator().manual_seed(7))
+        made[modality] = DepthPredictor(model, H, W, device="cpu")
+    return made
+
+
+def host_input(modality, rgb, sparse):
+    """The model's input as the host built it in numpy: uint8 scaled by
+    1/255, zero padding to (H, W), an all-zero sparse map where none is
+    given, the channels the modality reads."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype == np.uint8:
+        rgb = rgb.astype(np.float32) / 255.0
+    rgb = rgb.astype(np.float32)
+    b, h, w, _ = rgb.shape
+    ph, pw = H - h, W - w
+    rgb_p = np.pad(rgb, ((0, 0), (0, ph), (0, pw), (0, 0)))
+    if modality == "rgb":
+        return rgb_p
+    if sparse is None:
+        sp = np.zeros((b, H, W), np.float32)
+    else:
+        sp = np.pad(np.asarray(sparse, np.float32), ((0, 0), (0, ph), (0, pw)))
+    if modality == "d":
+        return sp[..., None]
+    return np.concatenate([rgb_p, sp[..., None]], axis=-1)
+
+
+def captured_input(predictor, rgb, sparse):
+    """The model's input of one predict_batch call."""
+    seen = []
+    hook = predictor.model.register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].clone()))
+    try:
+        predictor.predict_batch(rgb, sparse)
+    finally:
+        hook.remove()
+    assert len(seen) == 1
+    return seen[0].numpy()
+
+
+@pytest.mark.parametrize("with_sparse", [True, False])
+@pytest.mark.parametrize("modality", ["rgbd", "rgb", "d"])
+@pytest.mark.parametrize("hw", [(H, W), (50, 70)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_input_built_on_the_device_matches_host_construction(
+        port_only, dtype, hw, modality, with_sparse):
+    """predict_batch builds the model's input on its device from the
+    request's arrays as they are; it matches the host's numpy build exactly
+    on the padding and the sparse channel, and on rgb to the rounding of a
+    division by 255 (CUDA multiplies by the reciprocal)."""
+    h, w = hw
+    rng = np.random.default_rng(8)
+    rgb = rng.integers(0, 256, (2, h, w, 3), np.uint8)
+    if dtype == np.float32:
+        rgb = rng.random((2, h, w, 3), dtype=np.float32)
+    _, sparse = requests(9, 2, h, w)
+    sparse = sparse if with_sparse else None
+    got = captured_input(port_only[modality], rgb, sparse)
+    want = host_input(modality, rgb, sparse)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    inside = np.zeros(want.shape[:3], bool)
+    inside[:, :h, :w] = True
+    np.testing.assert_array_equal(got[~inside], want[~inside])
+    if modality != "rgb":
+        np.testing.assert_array_equal(got[..., -1], want[..., -1])
+    if modality != "d":
+        np.testing.assert_allclose(got[inside][:, :3], want[inside][:, :3],
+                                   rtol=3e-7, atol=0)
+
+
+@pytest.mark.parametrize("modality", ["rgbd", "d"])
+@pytest.mark.parametrize("bad", ["larger", "sparse_shape"])
+def test_bad_request_raises_before_any_upload(port_only, modality, bad,
+                                              monkeypatch):
+    rgb = np.zeros((2, H, W, 3), np.uint8)
+    sparse = np.zeros((2, H, W), np.float32)
+    if bad == "larger":
+        rgb = np.zeros((2, H + 1, W, 3), np.uint8)
+        sparse = np.zeros((2, H + 1, W), np.float32)
+    else:
+        sparse = sparse[:1]
+    uploads = []
+    real = torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy",
+                        lambda a: uploads.append(a) or real(a))
+    with pytest.raises(ValueError, match="exceeds|does not match"):
+        port_only[modality].predict_batch(rgb, sparse)
+    assert uploads == []

@@ -145,9 +145,12 @@ def test_predict_batch_spans(entry, built, monkeypatch):
     assert len({s["call"] for s in got["spans"]}) == 1
     assert all(s["device_ms"] is None and s["host_ms"] > 0
                for s in got["spans"])
-    ch = 3 if predictor.model.modality == "rgb" else 4
-    assert uploads == [B * H * W * ch * 4]
-    assert got["counters"] == {"serve.h2d_bytes": uploads[0]}
+    # The request's arrays go up as they are, each where the modality
+    # reads it; the model's input is built on the device.
+    want = [rgb.nbytes] + ([sparse.nbytes]
+                           if predictor.model.modality == "rgbd" else [])
+    assert uploads == want
+    assert got["counters"] == {"serve.h2d_bytes": sum(want)}
 
 
 @pytest.mark.parametrize("entry", ["train-auto", "train-cuda_tiled"])
