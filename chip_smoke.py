@@ -134,6 +134,15 @@ exits non-zero:
      step, vs_baseline against the card's own torch baseline); entry()'s
      forward with exact anchors against the plain CSPN loop (K1 once), and
      dryrun_multichip(8) with 8 ranks on the card over gloo, both layouts.
+ 15. kxk (run after phase 6): CSPN++'s k x k kernels (csrc/cspn_kxk.cu,
+     built here: `build` line with its registers and spills): the forward,
+     stash forward and adjoint for k = 5 and 7 at the kitti1216-cspnpp
+     cell's B=8 352x1216, T = 6 (a segment) and 24, against their plain
+     versions (`kxk_case`), timed beside the plain versions and their
+     bounds (`kxk_time`), then kitti_1216_cspnpp's Trainer: the launches
+     of one train step (8 stash forwards and 8 adjoints, K5/K6 4 each) and
+     of one eval forward (8 forwards, K4 4), with every count zeroed just
+     before each (`kxk_train`).
 The kernel checks (3, 6, 9) run first. Every path's launch counts also
 count the plain normalization's and anchor's calls on a CUDA tensor
 ("prenorm_gates9", "anchor"), which must stay 0. Then a line with the
@@ -343,7 +352,7 @@ def counted(kind, real):
     def step(self, *args):
         steps[kind] += 1
         if steps["train"] + steps["eval"] == 1:
-            for fn in cspn_cuda.WRAPPERS:
+            for fn in cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS:
                 fn.launches = 0
             prenorm_gates9.cuda_calls = anchor.cuda_calls = 0
         if steps[kind] != 3:
@@ -358,7 +367,8 @@ Trainer.eval_step = counted("eval", Trainer.eval_step)
 runpy.run_module("cspn_monodepth_tpu_torch.bench", run_name="__main__")
 print(json.dumps({"bench_child": {
     "steps": steps, "syncs": syncs,
-    "launches": {**{fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS},
+    "launches": {**{fn.__name__: fn.launches for fn in
+                    cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS},
                  "prenorm_gates9": prenorm_gates9.cuda_calls,
                  "anchor": anchor.cuda_calls}}}), flush=True)
 """
@@ -406,7 +416,8 @@ for path, x_path, out_path, calls in json.loads(sys.argv[1]):
     load_s = time.perf_counter() - t0
     x = torch.from_numpy(np.load(x_path)).cuda()
     program(x).cpu()
-    for fn in library.cspn_cuda.WRAPPERS:
+    wrappers = library.cspn_cuda.WRAPPERS + library.cspn_cuda.KXK_WRAPPERS
+    for fn in wrappers:
         fn.launches = 0
     ms = []
     for _ in range(calls):
@@ -416,7 +427,7 @@ for path, x_path, out_path, calls in json.loads(sys.argv[1]):
     np.save(out_path, y.numpy())
     print(json.dumps({"path": path, "load_s": load_s, "ms": ms,
                       "launches": {fn.__name__: fn.launches
-                                   for fn in library.cspn_cuda.WRAPPERS},
+                                   for fn in wrappers},
                       "jax_imported": "jax" in sys.modules}), flush=True)
     del program
 '''
@@ -657,9 +668,11 @@ def phase_toolchain() -> str:
     return gpu
 
 
-def phase_build():
+def phase_build(names: tuple | None = None):
+    """Build the kernel sources `names` (cspn_cuda.build's default: all but
+    the ON_DEMAND ones); a `build` line each."""
     t0 = time.perf_counter()
-    paths = cspn_cuda.build()
+    paths = cspn_cuda.build(names)
     seconds = time.perf_counter() - t0
     for name, path in paths.items():
         # Each kernel's entry line (its mangled name: ILb0E is the raw
@@ -1092,7 +1105,7 @@ def fixed_batch(trainer: Trainer, n: int) -> dict:
 
 
 def reset_counts():
-    for fn in cspn_cuda.WRAPPERS:
+    for fn in cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS:
         fn.launches = 0
     prenorm_gates9.cuda_calls = anchor.cuda_calls = 0
 
@@ -1101,7 +1114,8 @@ def counts() -> dict:
     """Each wrapper's launches, and the calls of the plain normalization
     and anchor on a CUDA tensor ("prenorm_gates9", "anchor"), which no
     route makes: every check of a path's counts holds them at 0."""
-    return {**{fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS},
+    return {**{fn.__name__: fn.launches for fn in
+               cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS},
             "prenorm_gates9": prenorm_gates9.cuda_calls,
             "anchor": anchor.cuda_calls}
 
@@ -1707,6 +1721,193 @@ def phase_kitti_epoch(variables, gpu: str) -> dict:
         raise AssertionError(f"KITTI epoch: {metrics['loss']} {ev} "
                              f"{launches}")
     return dict(launches=launches)
+
+
+# CSPN++'s k x k kernels at the kitti1216-cspnpp-train-b8 cell's shape:
+# (k, T, sparse), T = 6 one of the cell's four segments, 24 the whole run.
+KXK_CASES = ((5, 6, True), (7, 6, True), (5, 24, True), (7, 24, True),
+             (7, 6, False))
+
+
+def kxk_bound_ms(kind: str, k: int, b, h, w, num_iters, sparse: bool):
+    """X1-X3: each operand read or written once a call. Forward: the
+    guidance's k^2 - 1 planes, blur, sparse, the output; the stash adds T
+    planes written. Adjoint: the cotangent, guidance, sparse and the T
+    stash planes read, d_guidance, d_blur and d_sparse written. ~2 k^2
+    flop/px an iteration forward, twice that in the adjoint (the
+    transposed stencil and the gate sums)."""
+    px, n = b * h * w, k * k - 1
+    if kind == "fwd":
+        return bound_ms(n + 2 + int(sparse), px, px * 2 * k * k * num_iters)
+    if kind == "fwd_stash":
+        return bound_ms(n + 2 + int(sparse) + num_iters, px,
+                        px * 2 * k * k * num_iters)
+    return bound_ms(1 + n + int(sparse) + num_iters + n + 2, px,
+                    px * (4 * k * k * num_iters + 8 * k * k))
+
+
+def kxk_problem(gen, k: int, sparse: bool):
+    """Raw guidance N(0, 1) and blur U(0.5, 9.5) as slices of one (B, k^2,
+    H, W) tensor, as the model's head hands them over, ~1 % anchors; the
+    cell's B=8 352x1216."""
+    heads = torch.randn((KITTI_BATCH, k * k, KITTI_H, KITTI_W),
+                        generator=gen, device="cuda")
+    heads[:, 0] = 0.5 + 9.0 * torch.rand(heads[:, 0].shape, generator=gen,
+                                         device="cuda")
+    guid, blur = heads[:, 1:], heads[:, 0]
+    sp = None
+    if sparse:
+        keep = torch.rand(blur.shape, generator=gen, device="cuda") < 0.01
+        sp = torch.where(keep, blur + 0.25, torch.zeros_like(blur))
+    return guid, blur, sp
+
+
+def kxk_errors(guid, blur, sp, cot, num_iters: int) -> dict:
+    """X1, X2 and X3 against cspn_kxk_*_plain: the max-relative error of
+    the output, every stash plane and each gradient, each kernel's largest
+    absolute error, whether X2's output is X1's bit for bit, anchors
+    exact, d_sparse zero without a sparse map."""
+    kw = dict(num_iters=num_iters, norm_type="8sum_clamp")
+    out = cspn_cuda.cspn_kxk_fwd(guid, blur, sp, **kw)
+    out_s, stash = cspn_cuda.cspn_kxk_fwd_stash(guid, blur, sp, **kw)
+    grads = cspn_cuda.cspn_kxk_bwd(guid, sp, stash, cot, **kw)
+    want, want_stash = cspn_cuda.cspn_kxk_fwd_stash_plain(guid, blur, sp,
+                                                          **kw)
+    want_grads = cspn_cuda.cspn_kxk_bwd_plain(guid, sp, want_stash, cot,
+                                              **kw)
+    torch.cuda.synchronize()
+    errs = {"out": max_rel(out, want),
+            "stash": max(max_rel(stash[:, t], want_stash[:, t])
+                         for t in range(num_iters))}
+    for name, got, ref in zip(("d_guid", "d_blur", "d_sparse"), grads,
+                              want_grads):
+        errs[name] = max_rel_or_zero(got, ref)
+    anchors_exact = sp is None or bool(torch.equal(out[sp > 0],
+                                                   sp[sp > 0]))
+    return dict(max_rel=errs, stash_equals_fwd=bool(torch.equal(out_s, out)),
+                anchors_exact=anchors_exact,
+                max_abs={"cspn_kxk_fwd": float((out - want).abs().max()),
+                         "cspn_kxk_fwd_stash": float(
+                             (stash - want_stash).abs().max()),
+                         "cspn_kxk_bwd": max(
+                             float((g - r).abs().max())
+                             for g, r in zip(grads, want_grads))},
+                d_sparse_zero=sp is not None or not bool(grads[2].any()))
+
+
+def kxk_train(gpu: str) -> dict:
+    """kitti_1216_cspnpp's Trainer at batch 8 on synthetic records: the
+    launches of one train step and of one eval forward, every count zeroed
+    just before each; the step's ms and peak memory."""
+    cfg = get_config("kitti_1216_cspnpp").override(**{
+        "data.dataset": "synthetic"})
+    trainer = Trainer(cfg)
+    state = trainer.init_state()
+    batch = fixed_batch(trainer, KITTI_BATCH)
+    losses = []
+    for _ in range(2):
+        state, loss, _ = trainer.train_step(state, batch)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, loss, _ = trainer.train_step(state, batch)
+    losses.append(float(loss))
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    train_launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reset_counts()
+    with torch.no_grad():
+        trainer.eval_step(state, batch, 0)
+    torch.cuda.synchronize()
+    eval_launches = counts()
+    # A call per kernel size and segment: the 3x3 branch on K4-K6, the
+    # 5x5 and 7x7 on X1-X3.
+    segments = len(cfg.model.cspn_checkpoints)
+    kxk = segments * (len(cfg.model.cspn_kernel_sizes) - 1)
+    want_train = {k: 0 for k in train_launches}
+    want_train.update(cspn_kxk_fwd_stash=kxk, cspn_kxk_bwd=kxk,
+                      cspn_tiled_fwd_stash=segments, cspn_tiled_bwd=segments)
+    want_eval = {k: 0 for k in eval_launches}
+    want_eval.update(cspn_kxk_fwd=kxk, cspn_tiled_fwd=segments)
+    emit("kxk_train", config=cfg.name, arch=cfg.model.arch,
+         kernel_sizes=list(cfg.model.cspn_kernel_sizes),
+         checkpoints=list(cfg.model.cspn_checkpoints), batch=KITTI_BATCH,
+         train_launches=train_launches, eval_launches=eval_launches,
+         step_ms=step_ms, peak_mem_gb=peak_gb, losses=losses, gpu=gpu)
+    if not (train_launches == want_train and eval_launches == want_eval
+            and all(np.isfinite(losses))):
+        raise AssertionError(f"kitti_1216_cspnpp's launches: train "
+                             f"{train_launches} (want {want_train}), eval "
+                             f"{eval_launches} (want {want_eval}), losses "
+                             f"{losses}")
+    return dict(train=train_launches, eval=eval_launches)
+
+
+def phase_kxk(gpu: str) -> dict:
+    """CSPN++'s k x k kernels: built, checked against their plain versions
+    and timed at the cell's shape, then counted on kitti_1216_cspnpp's
+    train and eval paths. Returns the kernel table's numbers of X1-X3
+    (k = 7, T = 24) and the paths' launches."""
+    phase_build(("cspn_kxk",))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    worst = {"cspn_kxk_fwd": 0.0, "cspn_kxk_fwd_stash": 0.0,
+             "cspn_kxk_bwd": 0.0}
+    for k, t, sparse in KXK_CASES:
+        guid, blur, sp = kxk_problem(gen, k, sparse)
+        cot = torch.randn(blur.shape, generator=gen, device="cuda")
+        r = kxk_errors(guid, blur, sp, cot, t)
+        emit("kxk_case", k=k, b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=t,
+             norm="8sum_clamp", sparse=sparse, **r, tol=KERNEL_TOL)
+        if not (max(r["max_rel"].values()) <= KERNEL_TOL
+                and r["stash_equals_fwd"] and r["anchors_exact"]
+                and r["d_sparse_zero"]):
+            raise AssertionError(f"the k x k kernels disagree with their "
+                                 f"plain versions: k={k} T={t} {r}")
+        worst = {n: max(v, r["max_abs"][n]) for n, v in worst.items()}
+        del guid, blur, sp, cot
+
+    timing = {}
+    for k, t, sparse in KXK_CASES:
+        if not sparse:
+            continue
+        guid, blur, sp = kxk_problem(gen, k, sparse)
+        cot = torch.randn(blur.shape, generator=gen, device="cuda")
+        kw = dict(num_iters=t, norm_type="8sum_clamp")
+        _, stash = cspn_cuda.cspn_kxk_fwd_stash(guid, blur, sp, **kw)
+        calls = {
+            "cspn_kxk_fwd": (
+                lambda: cspn_cuda.cspn_kxk_fwd(guid, blur, sp, **kw),
+                lambda: cspn_cuda.cspn_kxk_fwd_plain(guid, blur, sp, **kw),
+                "fwd"),
+            "cspn_kxk_fwd_stash": (
+                lambda: cspn_cuda.cspn_kxk_fwd_stash(guid, blur, sp, **kw),
+                lambda: cspn_cuda.cspn_kxk_fwd_stash_plain(guid, blur, sp,
+                                                           **kw),
+                "fwd_stash"),
+            "cspn_kxk_bwd": (
+                lambda: cspn_cuda.cspn_kxk_bwd(guid, sp, stash, cot, **kw),
+                lambda: cspn_cuda.cspn_kxk_bwd_plain(guid, sp, stash, cot,
+                                                     **kw),
+                "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            ms = time_ms(fn, 10)
+            plain_ms = time_ms(plain, 2, warmup=1)
+            device_ms = device_profile(fn)["busy_ms"]
+            bound, bound_by = kxk_bound_ms(kind, k, KITTI_BATCH, KITTI_H,
+                                           KITTI_W, t, sparse)
+            emit("kxk_time", kernel=name, k=k, b=KITTI_BATCH, h=KITTI_H,
+                 w=KITTI_W, t=t, norm="8sum_clamp", ms=ms,
+                 device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=bound_by, library_ms=None, gpu=gpu)
+            if k == 7 and t == 24:
+                timing[name] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by=bound_by)
+        del guid, blur, sp, cot, stash
+    torch.cuda.empty_cache()
+    launches = kxk_train(gpu)
+    return dict(timing=timing, max_abs=worst, launches=launches)
 
 
 def slab_problem(gen, b, h, w, r, sparse=True, edge=None,
@@ -3678,6 +3879,7 @@ def main():
     k1 = phase_kernels(gpu)
     k23 = phase_train_kernels(gpu)
     k456 = phase_kitti_kernels(gpu)
+    kxk = phase_kxk(gpu)
     # Beside the other kernel checks: torch.profiler has recorded no device
     # time once the KITTI epoch's phase has run.
     k789 = phase_spatial_kernels(gpu)
@@ -3740,6 +3942,14 @@ def main():
             spatial["train_launches"]["cspn_gates9_bwd"],
             k789["gates9"]["max_abs"]["gates9_bwd_max_abs"],
             k789["gates9"]["timing"]["cspn_gates9_bwd"]),
+        # CSPN++'s k x k kernels, which have no TPU kernel (k = 7, T = 24;
+        # the launches of one kitti_1216_cspnpp eval forward or train step).
+        *[{**row(name, "cspn_kxk.cu", None, kxk["launches"][path][name],
+                 kxk["max_abs"][name], kxk["timing"][name]),
+           "replaces": None}
+          for name, path in (("cspn_kxk_fwd", "eval"),
+                             ("cspn_kxk_fwd_stash", "train"),
+                             ("cspn_kxk_bwd", "train"))],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,10 @@ nothing of the JAX package): the same fields, names and values, so that
 Differences: `model.cspn_impl` takes the port's values (auto | torch |
 cuda | cuda_tiled), and `synthetic_tiny` uses "auto" where the JAX package
 forces its plain "jnp" loop (on the CPU "auto" is the plain loop here).
+Port only: `model.cspn_kernel_sizes` and `model.cspn_checkpoints` (CSPN++'s
+context-aware propagation; their defaults are the plain CSPN, which is
+all the JAX package has) and the named config `kitti_1216_cspnpp`, which
+the JAX package does not have.
 """
 
 from __future__ import annotations
@@ -51,6 +55,14 @@ class ModelConfig:
     # Refuse to train without a pretrained encoder (the paper-exact
     # "8sum" recipe is unstable from scratch — ops/cspn_ref.py norm note).
     require_pretrained: bool = False
+    # CSPN++'s context-aware CSPN (Cheng et al., AAAI 2020): one branch per
+    # stencil size (3, 5, 7, each with its own affinities), each branch's
+    # iterate kept at these iterations (increasing, the last num_iters),
+    # and the output mixed per pixel over sizes and checkpoints with
+    # weights the head predicts (models/cspn_net.py). (3,) and () are the
+    # plain CSPN: one 3x3 stencil, its final iterate, a 9-channel head.
+    cspn_kernel_sizes: tuple = (3,)
+    cspn_checkpoints: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -213,6 +225,25 @@ CONFIGS: dict[str, Config] = {
         "multihost",
         **{"model.num_iters": 24, "train.batch_size": 256,
            "mesh.data": 16, "mesh.spatial": 2}),
+    # 6. CSPN++ on KITTI (port only; Cheng, Wang, Guan, Yang, AAAI 2020,
+    # arXiv:1911.05377): kitti_1216's data, a ResNet-34 UpProj UNet, the
+    # context-aware CSPN with 3x3, 5x5 and 7x7 stencils mixed per pixel
+    # over the iterates at 6, 12, 18 and 24 iterations (a 96-channel
+    # head), batch 8 on one card. "arch" sets the encoder's blocks; the
+    # block fields say the same, since the benchmark holds them to its
+    # configuration file.
+    "kitti_1216_cspnpp": _cfg(
+        "kitti_1216_cspnpp",
+        **{"data.dataset": "kitti", "data.root": "/data/kitti",
+           "data.height": 352, "data.width": 1216, "data.max_depth": 85.0,
+           "data.eval_max_depth": 85.0,
+           "data.rotate_deg": 0.0, "data.scale_max": 1.0,
+           "model.arch": "resnet34", "model.encoder_block": "basic",
+           "model.encoder_stages": (3, 4, 6, 3),
+           "model.num_iters": 24, "model.norm_type": "8sum_clamp",
+           "model.cspn_kernel_sizes": (3, 5, 7),
+           "model.cspn_checkpoints": (6, 12, 18, 24),
+           "train.batch_size": 8, "mesh.data": 1, "mesh.spatial": 1}),
     # Test/dev config: tiny synthetic data + tiny encoder, CPU-runnable
     # (XLA-CPU compile of the full 115M-param model takes minutes; the
     # tiny arch keeps the test suite fast while exercising every code path)

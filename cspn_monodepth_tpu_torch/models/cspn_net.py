@@ -8,6 +8,16 @@ Counterpart of cspn_monodepth_tpu/models/cspn_net.py:
     -> CSPN propagation (num_iters, anchored on the input's sparse channel)
     -> refined depth (B, H, W, 1)
 
+With `cspn_kernel_sizes` or `cspn_checkpoints` set (the port only), the
+refinement is CSPN++'s context-aware CSPN (Cheng, Wang, Guan, Yang, AAAI
+2020, arXiv:1911.05377): one branch per stencil size k, each with its own
+k^2 - 1 affinities, its iterate kept at every checkpoint t_j, and the
+output mixed per pixel, D = sum_k s_k sum_j l_kj d_k^{t_j}, with s_k =
+sigmoid(s^_k) / sum_k' sigmoid(s^_k') and l_kj = sigmoid(l^_kj) / sum_j'
+sigmoid(l^_kj'). The head is then 1 + sum_k (k^2 - 1) + n_k + n_k n_c
+channels, [blur, the affinities by k, s^ (n_k), l^ (n_k x n_c,
+kernel-major)]: 96 for (3, 5, 7) and four checkpoints.
+
 Dtypes as in the JAX package: the encoder and decoder run under bf16
 autocast when `dtype` is bfloat16; the head and CSPN run in float32, the
 head conv with TF32 off (cuDNN would otherwise use TF32 for f32 convs).
@@ -43,6 +53,7 @@ from cspn_monodepth_tpu_torch.models.resnet import (
 )
 from cspn_monodepth_tpu_torch.models.unet import UpProjDecoder
 from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate
+from cspn_monodepth_tpu_torch.ops.cspn_ref import KERNEL_SIZES
 from cspn_monodepth_tpu_torch.ops.library import no_tf32
 from cspn_monodepth_tpu_torch.parallel.halo import (
     cspn_propagate_spatial,
@@ -50,6 +61,7 @@ from cspn_monodepth_tpu_torch.parallel.halo import (
     scatter_rows,
 )
 from cspn_monodepth_tpu_torch.parallel.rows import Rows, conv2d_rows
+from cspn_monodepth_tpu_torch.utils import profiling
 
 # modality -> (input channels, index of the sparse-depth channel or None)
 MODALITIES = {"rgbd": (4, 3), "rgb": (3, None), "d": (1, 0)}
@@ -57,6 +69,38 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # flax's lecun_normal: the standard deviation of a unit normal truncated at
 # +-2, by which the drawn std is divided so that the variance is 1/fan_in.
 TRUNC_STD = 0.87962566103423978
+
+
+def cspnpp_plan(kernel_sizes: tuple, checkpoints: tuple,
+                num_iters: int) -> tuple[tuple, tuple] | None:
+    """The context-aware CSPN's (kernel sizes, checkpoints), or None for the
+    plain CSPN ((3,) and ()). Sizes are distinct, increasing, of
+    KERNEL_SIZES; checkpoints strictly increasing, positive and ending at
+    num_iters; none given means the final iterate alone."""
+    sizes, marks = tuple(kernel_sizes), tuple(checkpoints)
+    if sizes == (3,) and not marks:
+        return None
+    if not sizes or any(k not in KERNEL_SIZES for k in sizes) or list(
+            sizes) != sorted(set(sizes)):
+        raise ValueError(f"cspn_kernel_sizes {sizes}: distinct, increasing, "
+                         f"each of {KERNEL_SIZES}")
+    marks = marks or (num_iters,)
+    if (marks[0] < 1 or marks[-1] != num_iters
+            or any(a >= b for a, b in zip(marks, marks[1:]))):
+        raise ValueError(f"cspn_checkpoints {marks}: strictly increasing, "
+                         f"positive, the last num_iters ({num_iters})")
+    return sizes, marks
+
+
+def head_channels(plan: tuple[tuple, tuple] | None) -> int:
+    """1 blur + the affinities of each stencil, + for CSPN++ one size
+    weight per stencil and one checkpoint weight per stencil and
+    checkpoint."""
+    if plan is None:
+        return 9
+    sizes, marks = plan
+    return (1 + sum(k * k - 1 for k in sizes) + len(sizes)
+            + len(sizes) * len(marks))
 
 
 class CSPNDepthNet(nn.Module):
@@ -85,7 +129,9 @@ class CSPNDepthNet(nn.Module):
                  decoder_channels: tuple = (512, 256, 128, 64),
                  decoder_out: int = 64, decoder_block: str = "upproj",
                  generator: torch.Generator | None = None,
-                 bn_group=None, spatial_mesh=None, layout: str = "images"):
+                 bn_group=None, spatial_mesh=None, layout: str = "images",
+                 cspn_kernel_sizes: tuple = (3,),
+                 cspn_checkpoints: tuple = ()):
         super().__init__()
         if modality not in MODALITIES:
             raise ValueError(f"unknown modality: {modality!r}")
@@ -107,7 +153,16 @@ class CSPNDepthNet(nn.Module):
         self.decoder = UpProjDecoder(self.encoder.skip_channels,
                                      tuple(decoder_channels), decoder_out,
                                      decoder_block)
-        self.head = nn.Conv2d(decoder_out, 9, 3, padding=1, bias=True)
+        self.cspnpp = cspnpp_plan(cspn_kernel_sizes, cspn_checkpoints,
+                                  num_iters)
+        if self.cspnpp is not None and spatial_mesh is not None:
+            raise ValueError(
+                "a spatial mesh runs the 3x3 CSPN alone: its slab route "
+                "(parallel/halo.py) exchanges a one-pixel halo and has no "
+                "mix; cspn_kernel_sizes above 3 and cspn_checkpoints need "
+                "mesh.spatial = 1")
+        self.head = nn.Conv2d(decoder_out, head_channels(self.cspnpp), 3,
+                              padding=1, bias=True)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.reset_parameters(generator)
@@ -139,6 +194,8 @@ class CSPNDepthNet(nn.Module):
                    decoder_channels=tuple(c.decoder_channels),
                    decoder_out=c.decoder_out,
                    decoder_block=c.decoder_block, generator=generator,
+                   cspn_kernel_sizes=tuple(c.cspn_kernel_sizes),
+                   cspn_checkpoints=tuple(c.cspn_checkpoints),
                    bn_group=None if mesh is None else mesh.world_group,
                    spatial_mesh=(mesh if mesh is not None and mesh.spatial > 1
                                  else None),
@@ -181,6 +238,9 @@ class CSPNDepthNet(nn.Module):
             feat = self.decoder(self.encoder(x), (h, w))
         with torch.autocast(dev, enabled=False), no_tf32():
             heads = self.head(feat.float())           # (B, 9, H, W) f32
+        if self.cspnpp is not None:
+            with torch.autocast(dev, enabled=False):
+                return self._cspnpp(heads, sparse)[..., None]
         if self.spatial_mesh is not None:
             return self._propagate_spatial(heads, sparse)[..., None]
         refined = cspn_propagate(
@@ -188,6 +248,39 @@ class CSPNDepthNet(nn.Module):
             num_iters=self.num_iters, norm_type=self.norm_type,
             impl=self.cspn_impl, guidance_layout="NCHW")
         return refined[..., None]
+
+    def _cspnpp(self, heads, sparse):
+        """CSPN++'s context-aware CSPN on the head's planes (B, C, H, W)
+        float32 -> (B, H, W). Each stencil's branch runs in segments
+        between checkpoints, d^{t_j} from d^{t_{j-1}}: the segment anchors
+        an anchored plane (the identity) and renormalizes the same raw
+        affinities, so the segments are one run of num_iters."""
+        sizes, marks = self.cspnpp
+        b, _, h, w = heads.shape
+        with profiling.span("cspnpp.forward"):
+            first = 1
+            iterates = []
+            for k in sizes:
+                guidance = heads[:, first:first + k * k - 1]
+                first += k * k - 1
+                d, done = heads[:, 0], 0
+                for t in marks:
+                    d = cspn_propagate(
+                        guidance, d, sparse, num_iters=t - done,
+                        norm_type=self.norm_type, impl=self.cspn_impl,
+                        guidance_layout="NCHW")
+                    iterates.append(d)
+                    done = t
+            n_k, n_c = len(sizes), len(marks)
+            with profiling.span("cspnpp.mix"):
+                size_w = torch.sigmoid(heads[:, first:first + n_k])
+                size_w = size_w / size_w.sum(1, keepdim=True)
+                mark_w = torch.sigmoid(
+                    heads[:, first + n_k:first + n_k + n_k * n_c]
+                ).view(b, n_k, n_c, h, w)
+                mark_w = mark_w / mark_w.sum(2, keepdim=True)
+                stacked = torch.stack(iterates, 1).view(b, n_k, n_c, h, w)
+                return (size_w * (mark_w * stacked).sum(2)).sum(1)
 
     def _propagate_spatial(self, heads, sparse):
         """The CSPN on H slabs: the heads (and sparse plane) of this rank's

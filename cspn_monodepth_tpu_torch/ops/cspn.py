@@ -23,6 +23,14 @@ inside the hand-written adjoint.
 `impl="auto"` picks the route the JAX package picks on a TPU (`route`);
 `impl="torch"` is the independent plain loop under torch autograd.
 
+CSPN++'s k x k stencils (k 5 or 7, read from the guidance's k^2 - 1
+planes) take one route on the card whatever the image size, on the
+H-tiled route's raw contract: `KxKCSPNFunction` with the stash forward
+`cspn_kxk_fwd_stash` and the adjoint `cspn_kxk_bwd` (csrc/cspn_kxk.cu),
+or `cspn_kxk_fwd` alone without a gradient; each call counts one
+`cspn.kxk_calls`. They have no registered operator, so a program that
+holds one cannot be exported (ops/library.py `check_exportable`).
+
 `cspn_propagate_prenorm` is the slab body of the spatially sharded CSPN
 (parallel/halo.py; JAX's `cspn_propagate_prenorm_pallas`): prenormalized
 gates9 and d^0 as given (or anchored on load, the slab route's first
@@ -43,6 +51,9 @@ from cspn_monodepth_tpu_torch.ops import cspn_cuda
 from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
     cspn_bwd,
     cspn_fwd_stash,
+    cspn_kxk_bwd,
+    cspn_kxk_fwd,
+    cspn_kxk_fwd_stash,
     cspn_prenorm_bwd,
     cspn_prenorm_fwd,
     cspn_prenorm_fwd_stash,
@@ -54,8 +65,10 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     anchor,
     cspn_propagate_prenorm_ref,
     cspn_propagate_ref_nchw,
+    kernel_size_of,
     prenorm_gates9,
 )
+from cspn_monodepth_tpu_torch.ops.library import check_exportable
 from cspn_monodepth_tpu_torch.utils import profiling
 
 IMPLS = ("auto", "torch", "cuda", "cuda_tiled")
@@ -148,6 +161,25 @@ class TiledCSPNFunction(torch.autograd.Function):
         return _raw_adjoint(ctx, cspn_tiled_bwd, grad_out)
 
 
+class KxKCSPNFunction(torch.autograd.Function):
+    """CSPN++'s k x k stencil (k = 5, 7) on the H-tiled route's contract:
+    raw guidance (B, k^2 - 1, H, W), blur and sparse (B, H, W) or None,
+    float32 with contiguous planes -> (B, H, W). `cspn_kxk_fwd_stash`
+    forward, `cspn_kxk_bwd` backward (the normalization's chain rule and
+    the anchor's gradients inside). Saved: the guidance, sparse and the
+    stash."""
+
+    @staticmethod
+    def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
+        return _raw_stash_forward(ctx, cspn_kxk_fwd_stash, guidance, blur,
+                                  sparse, num_iters, norm_type)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return _raw_adjoint(ctx, cspn_kxk_bwd, grad_out)
+
+
 class PrenormCSPNFunction(torch.autograd.Function):
     """The spatial path's slab kernels with the hand-written adjoint (JAX's
     `_cspn_prenorm` custom VJP): gates9 (B, 9, H, W), d0 (B, H, W) as given
@@ -232,8 +264,9 @@ def cspn_propagate(
 ) -> torch.Tensor:
     """Refine blur_depth by CSPN propagation. See cspn_propagate_ref_nchw.
 
-    guidance: (B, H, W, 8) for guidance_layout "NHWC", (B, 8, H, W) for
-      "NCHW" (the plane-major layout the model's head emits).
+    guidance: (B, H, W, N) for guidance_layout "NHWC", (B, N, H, W) for
+      "NCHW" (the plane-major layout the model's head emits); N = k^2 - 1
+      for the k x k stencil (k = 3, or CSPN++'s 5 and 7).
     blur_depth, sparse_depth: (B, H, W) or (B, H, W, 1); the result has
       blur_depth's shape.
     impl: "auto" (the route `route` picks for the image size), "cuda"
@@ -241,7 +274,8 @@ def cspn_propagate(
       (the H-tiled kernels K4-K6 at any size) or "torch" (the plain loop
       on any device). On a CPU tensor every kernel's wrapper runs its plain
       version, so "auto" and "cuda_tiled" run there too, as JAX's
-      "pallas_tiled" runs interpreted on a CPU.
+      "pallas_tiled" runs interpreted on a CPU. A k x k stencil above 3
+      takes its own kernels under every impl but "torch".
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
@@ -256,6 +290,7 @@ def _propagate(guidance, blur_depth, sparse_depth, num_iters: int,
         guidance = guidance.permute(0, 3, 1, 2)
     elif guidance_layout != "NCHW":
         raise ValueError(f"unknown guidance_layout: {guidance_layout!r}")
+    k = kernel_size_of(guidance.shape[1])
     if impl == "torch":
         return cspn_propagate_ref_nchw(
             guidance, blur_depth, sparse_depth,
@@ -271,7 +306,15 @@ def _propagate(guidance, blur_depth, sparse_depth, num_iters: int,
     args = (_planes(guidance), _planes(_squeeze_depth(blur_depth)),
             None if sp is None else _planes(sp))
     tiled = impl == "cuda_tiled"
-    if _wants_grad(*args):
+    if k > 3:
+        check_exportable(k)
+        profiling.count("cspn.kxk_calls", 1)
+        if _wants_grad(*args):
+            out = KxKCSPNFunction.apply(*args, num_iters, norm_type)
+        else:
+            out = cspn_kxk_fwd(*args, num_iters=num_iters,
+                               norm_type=norm_type)
+    elif _wants_grad(*args):
         out = (TiledCSPNFunction if tiled else CSPNFunction).apply(
             *args, num_iters, norm_type)
     else:

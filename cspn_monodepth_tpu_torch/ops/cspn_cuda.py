@@ -26,6 +26,13 @@ r <= k iterations of one round (parallel/halo.py):
 The normalization, the slab route's (csrc/cspn_bwd.cu):
   cspn_gates9      raw guidance to gates9, also K3's and K6's stage 0;
   cspn_gates9_bwd  its adjoint, the chain rule of K3's sums stage.
+CSPN++'s k x k stencils (k = 5, 7; csrc/cspn_kxk.cu), on the raw
+contract of the H-tiled route with guidance of k^2 - 1 planes:
+  cspn_kxk_fwd        the forward;
+  cspn_kxk_fwd_stash  the forward that also stashes every d^t;
+  cspn_kxk_bwd        the adjoint over that stash.
+Their library is built and loaded only when one of them first runs on a
+card (`ON_DEMAND`); `build()` alone builds the 3 x 3 kernels' sources.
 The adjoints are composed of stage kernels (csrc/cspn_bwd.cu); stage 0 is
 cspn_gates9, and the other two have wrappers of their own, for checking and
 timing them alone:
@@ -60,6 +67,9 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_bwd_plain,
     cspn_bwd_sums_plain,
     cspn_fwd_stash_plain,
+    cspn_kxk_bwd_plain,
+    cspn_kxk_fwd_plain,
+    cspn_kxk_fwd_stash_plain,
     cspn_prenorm_bwd_plain,
     cspn_prenorm_fwd_plain,
     cspn_prenorm_fwd_stash_plain,
@@ -67,6 +77,7 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_tiled_bwd_plain,
     cspn_tiled_fwd_plain,
     cspn_tiled_fwd_stash_plain,
+    kernel_size_of,
     prenorm_gates9,
     prenorm_gates9_bwd_plain,
 )
@@ -88,6 +99,9 @@ cspn_fwd_plain = cspn_propagate_ref_nchw
 # (geometry_header), which instantiates its round kernel for each.
 FWD_GEOMETRIES = ((32, 4, 5, 2), (32, 8, 3, 1), (48, 8, 4, 1),
                   (40, 12, 4, 1))
+# Sources built only when first used: a process that runs no k x k stencil
+# neither compiles nor loads them.
+ON_DEMAND = ("cspn_kxk",)
 
 _libs: dict = {}
 build_log: dict[str, str] = {}     # source name -> nvcc's output
@@ -125,12 +139,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build() -> dict[str, Path]:
-    """Compile every source under csrc/ that has no library of its current
-    source yet, all at once (one nvcc each); returns the library paths by
-    name. The compiler's output (registers, spills) is kept in
-    `build_log`."""
-    paths = {name: library_path(name) for name in sources()}
+def build(names: tuple | None = None) -> dict[str, Path]:
+    """Compile each of the sources `names` (default: every source under
+    csrc/ but the ON_DEMAND ones) that has no library of its current source
+    yet, all at once (one nvcc each); returns the library paths by name.
+    The compiler's output (registers, spills) is kept in `build_log`."""
+    if names is None:
+        names = tuple(n for n in sources() if n not in ON_DEMAND)
+    paths = {name: library_path(name) for name in names}
     todo = {name: path for name, path in paths.items() if not path.exists()}
     if not todo:
         return paths
@@ -163,7 +179,9 @@ def build() -> dict[str, Path]:
 
 
 def _load(name: str):
-    if not _libs:
+    """The library of source `name`, built and loaded at its first use: the
+    3 x 3 kernels' libraries together, an ON_DEMAND one alone."""
+    if name not in _libs:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         signatures = {
             "cspn_fwd": {
@@ -187,8 +205,14 @@ def _load(name: str):
                                    i32, i32, i32, i32, p],
                 "cspn_bwd_sums": [p, i64, p, i64, p, p, p, p, p,
                                   i32, i32, i32, i32, i32, p]},
+            "cspn_kxk": {
+                "cspn_kxk_fwd": [p, i64, p, i64, p, i64, p, p, p, p,
+                                 i32, i32, i32, i32, i32, i32, p],
+                "cspn_kxk_bwd": [p, i64, p, i64, p, i64, p, p, p, p, p, p,
+                                 i32, i32, i32, i32, i32, i32, p]},
         }
-        for lib_name, path in build().items():
+        for lib_name, path in build((name,) if name in ON_DEMAND
+                                    else None).items():
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures[lib_name].items():
                 getattr(lib, fn).argtypes = argtypes
@@ -702,6 +726,110 @@ def cspn_prenorm_bwd(gates9: torch.Tensor, sparse: torch.Tensor | None,
     return out
 
 
+def _kxk_size(guidance: torch.Tensor) -> int:
+    """k of a k x k call on a CUDA tensor, from the guidance's k^2 - 1
+    planes: 5 or 7 (the 3 x 3 stencil runs on K1-K9)."""
+    k = kernel_size_of(guidance.shape[1])
+    if k == 3:
+        raise ValueError("the 3 x 3 stencil runs on cspn_fwd / "
+                         "cspn_tiled_fwd, not on the k x k kernels")
+    return k
+
+
+def _kxk_forward(guidance, blur, sparse, num_iters, norm_type, stash):
+    """Launch the C entry cspn_kxk_fwd of csrc/cspn_kxk.cu; writes d^t to
+    `stash` where one is given. Returns the output."""
+    b, n, h, w = guidance.shape
+    k = _kxk_size(guidance)
+    dev = guidance.device
+    _check_adjoint(dev, b, h, w, num_iters, planes=(
+        ("guidance", guidance, n), ("blur", blur, 0), ("sparse", sparse, 0)),
+        stashes=() if stash is None else (("stash", stash),))
+    out = _empty((b, h, w), dev)
+    prep = _empty((b, 2, h, w), dev)
+    ping = None if stash is not None or num_iters == 0 else torch.empty_like(
+        out)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _load("cspn_kxk").cspn_kxk_fwd(
+            guidance.data_ptr(), guidance.stride(0), blur.data_ptr(),
+            blur.stride(0), _ptr(sparse), _bstride(sparse), out.data_ptr(),
+            prep.data_ptr(), _ptr(ping), _ptr(stash), b, h, w, num_iters, k,
+            NORM_TYPES.index(norm_type), stream)
+    _raise_on(err, "cspn_kxk", "cspn_kxk_fwd")
+    return out
+
+
+def cspn_kxk_fwd(guidance: torch.Tensor, blur: torch.Tensor,
+                 sparse: torch.Tensor | None, *, num_iters: int,
+                 norm_type: str) -> torch.Tensor:
+    """CSPN++'s k x k forward (csrc/cspn_kxk.cu): raw guidance
+    (B, k^2 - 1, H, W), k = 5 or 7, blur and sparse (B, H, W), float32 with
+    contiguous planes and any batch stride -> (B, H, W); the
+    normalization and d^0's anchor inside, as K4.
+
+    A CUDA tensor goes to the kernels; a CPU tensor to the plain version.
+    """
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_kxk_fwd_plain(guidance, blur, sparse,
+                                  num_iters=num_iters, norm_type=norm_type)
+    out = _kxk_forward(guidance, blur, sparse, num_iters, norm_type, None)
+    cspn_kxk_fwd.launches += 1
+    return out
+
+
+def cspn_kxk_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
+                       sparse: torch.Tensor | None, *, num_iters: int,
+                       norm_type: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k x k training forward: as cspn_kxk_fwd, and also returns the
+    stash (B, T, H, W) of every d^t. Its output equals cspn_kxk_fwd's."""
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_kxk_fwd_stash_plain(guidance, blur, sparse,
+                                        num_iters=num_iters,
+                                        norm_type=norm_type)
+    stash = _stash_like(blur, num_iters)
+    out = _kxk_forward(guidance, blur, sparse, num_iters, norm_type, stash)
+    cspn_kxk_fwd_stash.launches += 1
+    return out, stash
+
+
+def cspn_kxk_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
+                 stash: torch.Tensor, grad_out: torch.Tensor, *,
+                 num_iters: int, norm_type: str
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k x k adjoint on the stash of cspn_kxk_fwd_stash: (d_guidance
+    (B, k^2 - 1, H, W), d_blur = (1 - m) lam^0, d_sparse = sum_t m
+    lam^{t+1} + m lam^0, zero without a sparse map), the normalization's
+    chain rule included, as K6."""
+    if _check_call(guidance, num_iters, norm_type):
+        return cspn_kxk_bwd_plain(guidance, sparse, stash, grad_out,
+                                  num_iters=num_iters, norm_type=norm_type)
+    b, n, h, w = guidance.shape
+    k = _kxk_size(guidance)
+    dev = guidance.device
+    _check_adjoint(dev, b, h, w, num_iters, planes=(
+        ("guidance", guidance, n), ("grad_out", grad_out, 0),
+        ("sparse", sparse, 0)), stashes=(("stash", stash),))
+    d_guid = _empty((b, n, h, w), dev)
+    d_blur, d_sparse = _empty((b, h, w), dev), _empty((b, h, w), dev)
+    # Scratch: the normalization's two planes and the adjoint stash of
+    # lam^1 .. lam^{T-1}; freed on return.
+    prep = _empty((b, 2, h, w), dev)
+    lam_stash = (_empty((b, num_iters - 1, h, w), dev) if num_iters > 1
+                 else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _load("cspn_kxk").cspn_kxk_bwd(
+            guidance.data_ptr(), guidance.stride(0), _ptr(sparse),
+            _bstride(sparse), grad_out.data_ptr(), grad_out.stride(0),
+            stash.data_ptr(), d_guid.data_ptr(), d_blur.data_ptr(),
+            d_sparse.data_ptr(), prep.data_ptr(), _ptr(lam_stash), b, h, w,
+            num_iters, k, NORM_TYPES.index(norm_type), stream)
+    _raise_on(err, "cspn_kxk", "cspn_kxk_bwd")
+    cspn_kxk_bwd.launches += 1
+    return d_guid, d_blur, d_sparse
+
+
 WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
             cspn_tiled_fwd_stash, cspn_tiled_bwd, cspn_prenorm_fwd,
             cspn_prenorm_fwd_stash, cspn_prenorm_bwd, cspn_gates9,
@@ -709,5 +837,7 @@ WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
 # The adjoint's further stages alone; the adjoints launch them from C, not
 # these.
 STAGE_WRAPPERS = (cspn_bwd_sweep, cspn_bwd_sums)
-for _wrapper in WRAPPERS + STAGE_WRAPPERS:
+# CSPN++'s k x k kernels (csrc/cspn_kxk.cu, ON_DEMAND).
+KXK_WRAPPERS = (cspn_kxk_fwd, cspn_kxk_fwd_stash, cspn_kxk_bwd)
+for _wrapper in WRAPPERS + STAGE_WRAPPERS + KXK_WRAPPERS:
     _wrapper.launches = 0

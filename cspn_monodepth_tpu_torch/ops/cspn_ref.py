@@ -20,6 +20,10 @@ one iteration per step, the same arithmetic in the same order.
   (JAX's `_cspn_pallas_tiled` takes the raw guidance too), so their plain
   versions are these (`cspn_tiled_fwd_plain`, `cspn_tiled_fwd_stash_plain`,
   `cspn_tiled_bwd_plain`);
+* CSPN++'s k x k stencils (k = 5, 7, `csrc/cspn_kxk.cu`): the same
+  three functions on guidance of k^2 - 1 planes in `neighbor_offsets(k)`
+  order (`cspn_kxk_fwd_plain`, `cspn_kxk_fwd_stash_plain`,
+  `cspn_kxk_bwd_plain`); every stencil here reads k from the planes;
 * `prenorm_gates9` (the normalization, `cspn_gates9`'s plain version) and
   `prenorm_gates9_bwd_plain` (its adjoint, torch autograd of it);
 * `cspn_propagate_prenorm_ref`: the prenormalized contract of the
@@ -54,6 +58,25 @@ NEIGHBOR_OFFSETS: tuple[tuple[int, int], ...] = (
 )
 
 NORM_TYPES = ("8sum", "8sum_abs", "8sum_clamp")
+KERNEL_SIZES = (3, 5, 7)
+
+
+def neighbor_offsets(kernel_size: int) -> tuple[tuple[int, int], ...]:
+    """(dy, dx) of the k x k neighbourhood, row-major, centre excluded:
+    NEIGHBOR_OFFSETS for k = 3. Reversed, the list is its own negation
+    (offset N-1-n is -offset n), which the transposed stencil uses."""
+    r = kernel_size // 2
+    return tuple((dy, dx) for dy in range(-r, r + 1)
+                 for dx in range(-r, r + 1) if (dy, dx) != (0, 0))
+
+
+def kernel_size_of(channels: int) -> int:
+    """The k of guidance with `channels` = k^2 - 1 neighbour planes."""
+    for k in KERNEL_SIZES:
+        if k * k - 1 == channels:
+            return k
+    raise ValueError(f"guidance with {channels} planes: the kernel sizes "
+                     f"{KERNEL_SIZES} take {[k * k - 1 for k in KERNEL_SIZES]}")
 
 
 def normalize_affinity(guidance: torch.Tensor, norm_type: str = "8sum",
@@ -148,13 +171,15 @@ def _iterate(g0, gates, d, sp, num_iters: int,
 
 def _stencil(g0, gates, d) -> torch.Tensor:
     """One gather step: g0 d + sum_k gates[:, k] d(j + off_k), with d zero
-    outside the image."""
+    outside the image; the k x k neighbourhood of gates' k^2 - 1 planes."""
     h, w = d.shape[-2:]
-    padded = F.pad(d, (1, 1, 1, 1))
+    size = kernel_size_of(gates.shape[1])
+    r = size // 2
+    padded = F.pad(d, (r, r, r, r))
     new = g0 * d
-    for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
-        new = new + gates[:, k] * padded[:, 1 + dy:1 + dy + h,
-                                         1 + dx:1 + dx + w]
+    for k, (dy, dx) in enumerate(neighbor_offsets(size)):
+        new = new + gates[:, k] * padded[:, r + dy:r + dy + h,
+                                         r + dx:r + dx + w]
     return new
 
 
@@ -230,8 +255,10 @@ def cspn_bwd_sums_plain(
     s = sum_k |g_k| and active = [s > floor]:
       signed norms: (Ghat_l - active sign(g_l) c1) / den
       8sum_abs:     sign(g_l) (Ghat_l - active c1) / den."""
+    size = 3 if guidance is None else kernel_size_of(guidance.shape[1])
     g_acc, g0_acc, d_sparse = adjoint_sums_plain(sparse, stash, lam_stash,
-                                                 num_iters=num_iters)
+                                                 num_iters=num_iters,
+                                                 kernel_size=size)
     if guidance is None:
         return torch.cat([g0_acc[:, None], g_acc], dim=1), d_sparse
     raw = guidance.abs() if norm_type == "8sum_abs" else guidance
@@ -266,15 +293,21 @@ def anchor_grad_plain(sparse: torch.Tensor | None, lam0: torch.Tensor,
 
 def transposed_gates(gates9: torch.Tensor) -> torch.Tensor:
     """The adjoint stencil's gates in the forward's gather form: channel 0
-    the centre g0, channel 1 + k gT_k(j) = g_{7-k}(j + off_k), the gate
-    with which the neighbour j + off_k reads j (off_{7-k} = -off_k), 0
-    where j + off_k lies outside the image. Then lam^t = the forward's
-    stencil on these gates applied to lam_u = (1 - m) lam^{t+1}."""
+    the centre g0, channel 1 + k gT_k(j) = g_{N-1-k}(j + off_k), the gate
+    with which the neighbour j + off_k reads j (off_{N-1-k} = -off_k; N = 8
+    for gates9, k^2 - 1 for a k x k stencil's k^2 planes), 0 where j +
+    off_k lies outside the image. Then lam^t = the forward's stencil on
+    these gates applied to lam_u = (1 - m) lam^{t+1}."""
     h, w = gates9.shape[-2:]
-    gpad = F.pad(gates9[:, 1:], (1, 1, 1, 1))
+    n = gates9.shape[1] - 1
+    size = kernel_size_of(n)
+    r = size // 2
+    gpad = F.pad(gates9[:, 1:], (r, r, r, r))
     return torch.stack(
-        [gates9[:, 0]] + [gpad[:, 7 - k, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
-                          for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS)], 1)
+        [gates9[:, 0]] + [gpad[:, n - 1 - k, r + dy:r + dy + h,
+                               r + dx:r + dx + w]
+                          for k, (dy, dx) in enumerate(neighbor_offsets(size))],
+        1)
 
 
 def adjoint_sweep_plain(
@@ -307,16 +340,20 @@ def adjoint_sums_plain(
     lam_stash: torch.Tensor,
     *,
     num_iters: int,
+    kernel_size: int = 3,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage 2 of the adjoint kernels: from the forward's stash (d^t) and
     the adjoint stash of `adjoint_sweep_plain` (lam^{t+1}), summed over
     t = T-1 .. 0 with lam_u = (1 - m) lam^{t+1}: G_k (B, 8, H, W) =
     sum_t lam_u d^t(j + off_k) (d^t zero outside the image), G_0 =
     sum_t lam_u d^t and sum_t m lam^{t+1} (B, H, W), zero without a sparse
-    map."""
+    map. A k x k stencil (`kernel_size`) has k^2 - 1 planes G_k.
+    """
     b, _, h, w = stash.shape
+    offsets = neighbor_offsets(kernel_size)
+    r = kernel_size // 2
     masked = None if sparse is None else sparse > 0
-    g_acc = stash.new_zeros((b, 8, h, w))
+    g_acc = stash.new_zeros((b, len(offsets), h, w))
     g0_acc = stash.new_zeros((b, h, w))
     d_sparse = stash.new_zeros((b, h, w))
     for t in reversed(range(num_iters)):
@@ -327,11 +364,11 @@ def adjoint_sums_plain(
             lam_u = torch.where(masked, zero, lam)
             d_sparse = d_sparse + torch.where(masked, lam, zero)
         d = stash[:, t]
-        dpad = F.pad(d, (1, 1, 1, 1))
+        dpad = F.pad(d, (r, r, r, r))
         g0_acc = g0_acc + lam_u * d
-        for k, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
-            g_acc[:, k] += lam_u * dpad[:, 1 + dy:1 + dy + h,
-                                        1 + dx:1 + dx + w]
+        for k, (dy, dx) in enumerate(offsets):
+            g_acc[:, k] += lam_u * dpad[:, r + dy:r + dy + h,
+                                        r + dx:r + dx + w]
     return g_acc, g0_acc, d_sparse
 
 
@@ -342,6 +379,14 @@ def adjoint_sums_plain(
 cspn_tiled_fwd_plain = cspn_propagate_ref_nchw      # K4
 cspn_tiled_fwd_stash_plain = cspn_fwd_stash_plain   # K5
 cspn_tiled_bwd_plain = cspn_bwd_plain               # K6
+
+# CSPN++'s k x k stencils (k = 5, 7; csrc/cspn_kxk.cu) take the same
+# contract on guidance of k^2 - 1 planes (neighbor_offsets(k) order): the
+# same three functions, whose stencils read the kernel size from the
+# guidance.
+cspn_kxk_fwd_plain = cspn_propagate_ref_nchw
+cspn_kxk_fwd_stash_plain = cspn_fwd_stash_plain
+cspn_kxk_bwd_plain = cspn_bwd_plain
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,10 @@ the registry. It builds no model and reads no config:
     program = load_program("depth.pt2")           # exported on "cuda"
     depth = program(x)                            # (B, H, W, C) -> (B, H, W, 1)
 
+CSPN++'s k x k stencils (k = 5, 7; ops/cspn_cuda.py's cspn_kxk_*) have
+no operator here: `check_exportable` raises where one is traced, so that
+exporting such a model fails with that message.
+
 This module imports torch, ops/cspn_cuda.py and ops/cspn_ref.py only.
 """
 
@@ -53,6 +57,18 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
 )
 
 NAMESPACE = "cspn_monodepth_tpu_torch"
+
+
+def check_exportable(kernel_size: int) -> None:
+    """Raise where a k x k stencil above 3 runs under `torch.export` or
+    `torch.compile`: its kernels are bound with ctypes and have no
+    operator, so no traced program can hold them. Eager calls pass."""
+    if kernel_size > 3 and (torch.compiler.is_exporting()
+                            or torch.compiler.is_compiling()):
+        raise NotImplementedError(
+            f"a {kernel_size}x{kernel_size} CSPN stencil cannot be exported "
+            f"or compiled: only the 3x3 stencil has registered operators "
+            f"(ops/library.py); serve such a model eagerly")
 
 
 def _result(out: torch.Tensor, num_iters: int) -> torch.Tensor:

@@ -263,6 +263,21 @@ def kernel_class(name: str) -> str:
     return "elementwise"
 
 
+def event_times(averages, events, cuda: bool) -> list[tuple[str, float]]:
+    """(name, ms) of each row of a profile's `key_averages()`: with `cuda`
+    the device's events (a host operator's row would count the kernels it
+    launched a second time) but the device timeline's copies of the
+    program's spans (`record_function` ranges, user annotations among
+    `events`), which are not device work; else the CPU's operators."""
+    if not cuda:
+        return [(e.key, e.self_cpu_time_total / 1e3) for e in averages
+                if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = {e.name for e in events if e.is_user_annotation}
+    return [(e.key, e.self_device_time_total / 1e3) for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in spans]
+
+
 def device_profile(fn, top: int = 12, device: str = "cuda") -> dict:
     """One call of fn under torch.profiler: the time of each kernel and
     their sum (`busy_ms`) against the host wall time of the call, by class
@@ -282,18 +297,9 @@ def device_profile(fn, top: int = 12, device: str = "cuda") -> dict:
         fn()
         sync()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    if cuda:
-        # Device-side events only: a host operator's row would count the
-        # kernels it launched a second time.
-        rows = ((e.key, e.self_device_time_total / 1e3)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    else:
-        rows = ((e.key, e.self_cpu_time_total / 1e3)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CPU)
-    kernels = sorted(((k, ms) for k, ms in rows if ms > 0),
-                     key=lambda kv: -kv[1])
+    kernels = sorted(((k, ms) for k, ms in
+                      event_times(prof.key_averages(), prof.events(), cuda)
+                      if ms > 0), key=lambda kv: -kv[1])
     if not kernels:
         return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None,
                     by_class=None, top=[])

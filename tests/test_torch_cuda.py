@@ -844,3 +844,143 @@ def test_bench_steps_make_no_host_sync(cuda):
 
     # A chain syncs once: its read-back.
     assert len(count_syncs(chain)) == 1
+
+
+# ------------------------------------------------------------ k x k (CSPN++)
+# csrc/cspn_kxk.cu against ops/cspn_ref.py's plain k x k loop on the card.
+# The kernels normalize by a reciprocal and sum in their own order; the
+# gates are contractive (8sum_abs, or positive affinities under
+# 8sum_clamp, as a trained or seeded head gives), so TOL holds as for
+# K1-K6. Signed gates under 8sum and 8sum_clamp expand at T = 24 (row abs
+# sums near 2); those cases run at T <= 5.
+def kxk_problem(seed, k, b, h, w, norm, with_sparse):
+    rng = np.random.default_rng(seed)
+    n = k * k - 1
+    if norm == "8sum_clamp":
+        guid = rng.uniform(0.5, 1.5, (b, n, h, w))
+    else:
+        guid = rng.standard_normal((b, n, h, w))
+    blur = rng.uniform(0.1, 10.0, (b, h, w))
+    sparse = None
+    if with_sparse:
+        sparse = torch.from_numpy(np.where(
+            rng.random((b, h, w)) < 0.05, rng.uniform(1.0, 80.0, (b, h, w)),
+            0.0).astype(np.float32))
+    return (torch.from_numpy(guid.astype(np.float32)),
+            torch.from_numpy(blur.astype(np.float32)), sparse)
+
+
+def kxk_check(cuda, k, b, hw, num_iters, norm, with_sparse):
+    """The three k x k wrappers against the plain versions on the card; the
+    largest max-relative error of out, stash and the three gradients."""
+    from cspn_monodepth_tpu_torch.ops import cspn_ref
+
+    g, blur, sp = to(kxk_problem(k, k, b, *hw, norm, with_sparse), cuda)
+    kw = dict(num_iters=num_iters, norm_type=norm)
+    want, want_stash = cspn_ref.cspn_kxk_fwd_stash_plain(g, blur, sp, **kw)
+    got = cspn_cuda.cspn_kxk_fwd(g, blur, sp, **kw)
+    got_s, stash = cspn_cuda.cspn_kxk_fwd_stash(g, blur, sp, **kw)
+    grad = torch.randn(want.shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(k))
+    want_g = cspn_ref.cspn_kxk_bwd_plain(g, sp, want_stash, grad, **kw)
+    got_g = cspn_cuda.cspn_kxk_bwd(g, sp, stash, grad, **kw)
+    errs = [max_rel(got, want), max_rel(got_s, want)]
+    if num_iters:
+        errs.append(max_rel(stash, want_stash))
+    errs += [max_rel(a, b_) for a, b_ in zip(got_g[:2], want_g[:2])]
+    if with_sparse:
+        errs.append(max_rel(got_g[2], want_g[2]))
+    else:
+        assert not got_g[2].any()
+    return max(errs)
+
+
+KXK_CASES = [
+    (5, 2, (37, 53), 24, "8sum_clamp", True),
+    (7, 2, (37, 53), 24, "8sum_abs", True),
+    (7, 1, (19, 33), 5, "8sum", True),
+    (5, 3, (13, 17), 5, "8sum_clamp", False),
+    (7, 2, (40, 64), 1, "8sum_clamp", True),
+    (5, 1, (9, 70), 0, "8sum_abs", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,hw,num_iters,norm,with_sparse", KXK_CASES)
+def test_kxk_kernels_match_plain(cuda, k, b, hw, num_iters, norm,
+                                 with_sparse):
+    before = [w.launches for w in cspn_cuda.KXK_WRAPPERS]
+    assert kxk_check(cuda, k, b, hw, num_iters, norm, with_sparse) <= TOL
+    assert [w.launches - n for w, n in zip(cspn_cuda.KXK_WRAPPERS,
+                                           before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 7])
+def test_kxk_kernels_match_plain_at_kitti_size(cuda, k):
+    """B = 8 at 352x1216, T = 24, as CSPN++'s training step runs them."""
+    assert kxk_check(cuda, k, 8, (352, 1216), 24, "8sum_clamp", True) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sparse", [True, False])
+def test_kxk_function_matches_torch_autograd(cuda, with_sparse):
+    """cspn_propagate on k x k guidance under autograd: KxKCSPNFunction
+    on the card against torch autograd of the plain loop, with the
+    guidance and blur as slices of one head output, as the model passes
+    them."""
+    from cspn_monodepth_tpu_torch.ops import cspn_ref
+
+    g, blur, sp = kxk_problem(3, 7, 2, 30, 41, "8sum_clamp", with_sparse)
+    heads = torch.cat([blur[:, None], g], 1).to(cuda)
+    sp = None if sp is None else sp.to(cuda)
+    grad = torch.randn((2, 30, 41), device=cuda)
+    got_h = heads.clone().requires_grad_()
+    before = cspn_cuda.cspn_kxk_bwd.launches
+    out = cspn_propagate(got_h[:, 1:], got_h[:, 0], sp, num_iters=12,
+                         norm_type="8sum_clamp", guidance_layout="NCHW")
+    out.backward(grad)
+    assert cspn_cuda.cspn_kxk_bwd.launches == before + 1
+    want_h = heads.clone().requires_grad_()
+    cspn_ref.cspn_kxk_fwd_plain(want_h[:, 1:], want_h[:, 0], sp,
+                                num_iters=12,
+                                norm_type="8sum_clamp").backward(grad)
+    assert max_rel(got_h.grad, want_h.grad) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_cspnpp_model_on_card_matches_cpu(cuda):
+    """A small f32 CA-CSPN model's train-mode forward and gradients: the
+    kernels (K5/K6's 3x3 branch, the k x k ones) on the card, the plain
+    loops on the CPU; no plain CSPN runs on the card."""
+    cfg = get_config("synthetic_tiny").override(**{
+        "model.dtype": "float32", "model.cspn_kernel_sizes": (3, 5, 7),
+        "model.cspn_checkpoints": (2, 4), "model.cspn_impl": "cuda_tiled"})
+    model = CSPNDepthNet.from_config(
+        cfg.model, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.05,
+                                  generator=torch.Generator().manual_seed(1))
+        model.head.bias.fill_(1.0)
+    rng = np.random.default_rng(0)
+    x = rng.random((2, 32, 48, 4), dtype=np.float32)
+    x[..., 3] = np.where(rng.random((2, 32, 48)) < 0.02, 5.0, 0.0)
+    x = torch.from_numpy(x)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    plain = plain_cuda_calls()
+    try:
+        card = CSPNDepthNet.from_config(cfg.model).to(cuda)
+        card.load_state_dict(model.state_dict())
+        before = cspn_cuda.cspn_kxk_fwd_stash.launches
+        got = card(x.to(cuda))
+        got.square().mean().backward()
+        assert cspn_cuda.cspn_kxk_fwd_stash.launches == before + 4
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert plain_cuda_calls() == plain
+    want = model(x)
+    want.square().mean().backward()
+    assert max_rel(got.cpu(), want) <= MODEL_TOL
+    assert max_rel(card.head.weight.grad.cpu(),
+                   model.head.weight.grad) <= MODEL_TOL
