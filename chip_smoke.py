@@ -142,7 +142,16 @@ exits non-zero:
      bounds (`kxk_time`), then kitti_1216_cspnpp's Trainer: the launches
      of one train step (8 stash forwards and 8 adjoints, K5/K6 4 each) and
      of one eval forward (8 forwards, K4 4), with every count zeroed just
-     before each (`kxk_train`).
+     before each (`kxk_train`);
+ 16. batch_norm (run after phase 15): train-mode BatchNorm's kernels
+     (csrc/batch_norm.cu, built in phase 2) at every distinct BatchNorm
+     site (shape and strides) of the three train cells' networks, in bf16:
+     against the plain version and ATen's F.batch_norm, two runs bit for
+     bit (`bn_case`); the forward and backward timed beside the plain
+     version, ATen's kernels (`library_ms`) and the bounds (`bn_time`),
+     summed over a step's sites per cell (`bn_step`); then each cell's
+     Trainer: one launch of each wrapper a site in a train step, none in
+     an eval forward, the counter bn.train_calls a step (`bn_train`).
 The kernel checks (3, 6, 9) run first. Every path's launch counts also
 count the plain normalization's and anchor's calls on a CUDA tensor
 ("prenorm_gates9", "anchor"), which must stay 0. Then a line with the
@@ -179,7 +188,12 @@ from cspn_monodepth_tpu_torch.models import CSPNDepthNet, jax_variables
 from cspn_monodepth_tpu_torch.models import resnet
 from cspn_monodepth_tpu_torch.models.resnet import ARCHS
 from cspn_monodepth_tpu_torch.models.torch_weights import encoder_key
-from cspn_monodepth_tpu_torch.ops import cspn_cuda, cspn_propagate, parity
+from cspn_monodepth_tpu_torch.ops import (
+    batch_norm,
+    cspn_cuda,
+    cspn_propagate,
+    parity,
+)
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     NORM_TYPES,
     adjoint_sweep_plain,
@@ -1910,6 +1924,250 @@ def phase_kxk(gpu: str) -> dict:
     return dict(timing=timing, max_abs=worst, launches=launches)
 
 
+# Train-mode BatchNorm (csrc/batch_norm.cu) at every BatchNorm site of the
+# three train cells' networks, in bf16 as they run under autocast.
+BN_CELLS = (("nyu_completion_500", TRAIN_BATCH), ("kitti_1216", KITTI_BATCH),
+            ("kitti_1216_cspnpp", KITTI_BATCH))
+# bf16 outputs (y, dx) within one bf16 rounding step of the largest (each
+# side computes in f32 and rounds once); f32 statistics within 1e-5;
+# dweight, dbias within 2**-6 of their sums of |terms| of the plain
+# version's (both reduce as ATen's CUDA kernel, rounding to bf16 at each
+# step of a tree, from per-thread sums in f32 or float64, so a rounding may
+# land one bf16 step apart), and within one bf16 step of ATen's.
+BN_TOL = 2.0 ** -7
+BN_STAT_TOL = 1e-5
+BN_TREE_TOL = 2.0 ** -6
+
+
+def bn_tol(side: str, key: str) -> float:
+    if key in ("y", "dx") or (side == "aten" and key in ("dweight",
+                                                         "dbias")):
+        return BN_TOL
+    return BN_TREE_TOL if key in ("dweight", "dbias") else BN_STAT_TOL
+
+
+def bn_config(name: str):
+    """A train cell's configuration on one device, synthetic data."""
+    return get_config(name).override(**{
+        "mesh.data": 1, "mesh.spatial": 1, "data.dataset": "synthetic"})
+
+
+def bn_sites(name: str, batch: int) -> list:
+    """(shape, strides) of every BatchNorm input of config `name`'s network
+    at its data size, in call order (the network on the meta device)."""
+    cfg = get_config(name)
+    with torch.device("meta"):
+        model = CSPNDepthNet.from_config(cfg.model)
+    model.eval()
+    sites = []
+    for m in model.modules():
+        if isinstance(m, resnet.BatchNorm2d):
+            m.register_forward_pre_hook(
+                lambda _, args: sites.append((tuple(args[0].shape),
+                                              args[0].stride())))
+    h, w = cfg.data.height, cfg.data.width
+    x = torch.empty((batch, 4 if cfg.model.modality == "rgbd" else 3, h, w),
+                    device="meta")
+    with torch.no_grad():
+        model.decoder(model.encoder(x), (h, w))
+    return sites
+
+
+def bn_problem(gen, shape, strides):
+    """bf16 x N(1.5, 3^2) with the site's strides (a cropped view where they
+    are wider), f32 parameters and running statistics, a cotangent."""
+    size = 1 + sum((s - 1) * st for s, st in zip(shape, strides))
+    base = torch.randn(size, generator=gen, device="cuda") * 3 + 1.5
+    x = base.to(torch.bfloat16).as_strided(shape, strides)
+    c = shape[1]
+    prm = [torch.randn(c, generator=gen, device="cuda"),
+           torch.randn(c, generator=gen, device="cuda"),
+           torch.randn(c, generator=gen, device="cuda"),
+           torch.rand(c, generator=gen, device="cuda") + 0.5]
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, prm, dy
+
+
+def bn_sum_err(got, want, terms) -> float:
+    """max over channels of |got - want| / sum |terms|."""
+    scale = terms.double().abs().sum((0, 2, 3))
+    return float(((got.double() - want.double()).abs() / scale).max())
+
+
+def bn_case(x, prm, dy) -> dict:
+    """The kernels against the plain version and ATen's F.batch_norm (the
+    module's path before these kernels; its unbiased running variance
+    folded back), and two runs bit for bit."""
+    w, b, rm, rv = prm
+    kw = dict(momentum=0.1, eps=1e-5)
+    runs = []
+    for _ in range(2):
+        stats = [rm.clone(), rv.clone()]
+        y, mean, invstd = batch_norm.batch_norm_train_fwd(x, w, b, *stats,
+                                                          **kw)
+        runs.append((y, mean, invstd, *stats, *batch_norm.batch_norm_train_bwd(
+            dy, x, w, mean, invstd)))
+    y, mean, invstd, r_mean, r_var, dx, dw, db = runs[0]
+    p_stats = [rm.clone(), rv.clone()]
+    py, pmean, pinv = batch_norm.batch_norm_train_fwd_plain(x, w, b,
+                                                            *p_stats, **kw)
+    pdx, pdw, pdb = batch_norm.batch_norm_train_bwd_plain(dy, x, w, pmean,
+                                                          pinv)
+    xa = x.detach().requires_grad_()
+    wa, ba = w.clone().requires_grad_(), b.clone().requires_grad_()
+    ra, va = rm.clone(), rv.clone()
+    ay = torch.nn.functional.batch_norm(xa, ra, va, wa, ba, True, 0.1, 1e-5)
+    ay.backward(dy)
+    n = x.numel() // x.shape[1]
+    va = rv * 0.9 + (va - rv * 0.9) * ((n - 1) / n)
+    xhat = (x.double() - pmean.double()[:, None, None]) \
+        * pinv.double()[:, None, None]
+    dw_terms = dy.double() * xhat
+    errs = {
+        "plain": {"y": max_rel(y, py), "dx": max_rel(dx, pdx),
+                  "mean": max_rel(mean, pmean),
+                  "invstd": max_rel(invstd, pinv),
+                  "running_mean": max_rel(r_mean, p_stats[0]),
+                  "running_var": max_rel(r_var, p_stats[1]),
+                  "dweight": bn_sum_err(dw, pdw, dw_terms),
+                  "dbias": bn_sum_err(db, pdb, dy)},
+        "aten": {"y": max_rel(y, ay.detach()), "dx": max_rel(dx, xa.grad),
+                 "running_mean": max_rel(r_mean, ra),
+                 "running_var": max_rel(r_var, va),
+                 "dweight": max_rel(dw, wa.grad),
+                 "dbias": max_rel(db, ba.grad)}}
+    ok = all(v <= bn_tol(side, k) for side, got in errs.items()
+             for k, v in got.items())
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    return dict(max_rel=errs, deterministic=same, ok=ok and same)
+
+
+def bn_times(x, prm, dy) -> dict:
+    """CUDA-event ms of the forward and backward wrappers, of their plain
+    versions and of ATen's (F.batch_norm forward, native_batch_norm_backward
+    on its saved statistics: the kernels the module ran before), and
+    the bounds: each input read once and each output written once (bf16: 4
+    B an element forward, 6 backward), and the two passes' (6 and 10 B)."""
+    w, b, rm, rv = prm
+    kw = dict(momentum=0.1, eps=1e-5)
+    stats = [rm.clone(), rv.clone()]
+    _, mean, invstd = batch_norm.batch_norm_train_fwd(x, w, b, *stats, **kw)
+    _, s_mean, s_inv = torch.ops.aten.native_batch_norm(
+        x, w, b, rm.clone(), rv.clone(), True, 0.1, 1e-5)
+    calls = {
+        "fwd": (lambda: batch_norm.batch_norm_train_fwd(x, w, b, *stats,
+                                                        **kw),
+                lambda: batch_norm.batch_norm_train_fwd_plain(
+                    x, w, b, *stats, **kw),
+                lambda: torch.nn.functional.batch_norm(
+                    x, stats[0], stats[1], w, b, True, 0.1, 1e-5), (2, 3)),
+        "bwd": (lambda: batch_norm.batch_norm_train_bwd(dy, x, w, mean,
+                                                        invstd),
+                lambda: batch_norm.batch_norm_train_bwd_plain(
+                    dy, x, w, mean, invstd),
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    dy, x, w, rm, rv, s_mean, s_inv, True, 1e-5,
+                    [True, True, True]), (3, 5))}
+    out = {}
+    for kind, (fn, plain, library, (once, passes)) in calls.items():
+        byte = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        out[kind] = dict(ms=time_ms(fn, 10), device_ms=device_profile(fn)[
+            "busy_ms"], plain_ms=time_ms(plain, 2, warmup=1),
+            library_ms=time_ms(library, 10), bound_ms=once * byte,
+            two_pass_ms=passes * byte)
+    return out
+
+
+def bn_train(name: str, batch: int, sites: int, gpu: str) -> dict:
+    """The cell's Trainer at its batch: the BatchNorm wrappers' launches of
+    one train step and one eval forward (a launch a site each way in
+    training, none in eval) and the counter bn.train_calls of one step
+    under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = Trainer(bn_config(name))
+    state = trainer.init_state()
+    batch_data = fixed_batch(trainer, batch)
+    for _ in range(2):
+        state, _, _ = trainer.train_step(state, batch_data)
+    torch.cuda.synchronize()
+    before = [fn.launches for fn in batch_norm.WRAPPERS]
+    state, loss, _ = trainer.train_step(state, batch_data)
+    torch.cuda.synchronize()
+    train_launches = [fn.launches - n for fn, n in
+                      zip(batch_norm.WRAPPERS, before)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, _, _ = trainer.train_step(state, batch_data)
+        torch.cuda.synchronize()
+    counters = profiling.collected()["counters"]
+    before = [fn.launches for fn in batch_norm.WRAPPERS]
+    with torch.no_grad():
+        trainer.eval_step(state, batch_data, 0)
+    torch.cuda.synchronize()
+    eval_launches = [fn.launches - n for fn, n in
+                     zip(batch_norm.WRAPPERS, before)]
+    line = dict(config=name, batch=batch, sites=sites,
+                train_launches=train_launches, eval_launches=eval_launches,
+                bn_train_calls=counters.get("bn.train_calls"),
+                loss=float(loss), gpu=gpu)
+    emit("bn_train", **line)
+    if not (train_launches == [sites, sites] and eval_launches == [0, 0]
+            and counters.get("bn.train_calls") == sites
+            and np.isfinite(float(loss))):
+        raise AssertionError(f"{name}'s BatchNorm launches: {line}")
+    del trainer, state, batch_data
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_batch_norm(gpu: str) -> dict:
+    """Train-mode BatchNorm's kernels at every distinct BatchNorm site of
+    the three train cells: against the plain version and ATen, bit for bit
+    across two runs (`bn_case`), timed beside the plain version, ATen and
+    the bounds (`bn_time`); per cell the sum over its sites, a step's
+    BatchNorm (`bn_step`); then each cell's Trainer (`bn_train`). Returns
+    the kernel table's numbers (the KITTI cell's step sums, launches a
+    step) and the worst errors."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    worst = {"batch_norm_train_fwd": 0.0, "batch_norm_train_bwd": 0.0}
+    steps = {}
+    for name, batch in BN_CELLS:
+        sites = bn_sites(name, batch)
+        step = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "bound_ms": 0.0, "two_pass_ms": 0.0}
+                for k in ("fwd", "bwd")}
+        for shape, strides in sorted(set(sites)):
+            uses = sites.count((shape, strides))
+            x, prm, dy = bn_problem(gen, shape, strides)
+            r = bn_case(x, prm, dy)
+            emit("bn_case", config=name, shape=list(shape),
+                 strides=list(strides), plan=list(batch_norm.plan(
+                     (x, x), shape)), slices=batch_norm.slices(
+                     shape[1], x.numel() // shape[1]), **r,
+                 tol={"out": BN_TOL, "stat": BN_STAT_TOL,
+                      "tree": BN_TREE_TOL})
+            if not r["ok"]:
+                raise AssertionError(f"BatchNorm kernels at {shape} "
+                                     f"{strides}: {r}")
+            worst["batch_norm_train_fwd"] = max(
+                worst["batch_norm_train_fwd"], r["max_rel"]["plain"]["y"])
+            worst["batch_norm_train_bwd"] = max(
+                worst["batch_norm_train_bwd"], r["max_rel"]["plain"]["dx"])
+            t = bn_times(x, prm, dy)
+            emit("bn_time", config=name, shape=list(shape),
+                 strides=list(strides), uses=uses, **t, gpu=gpu)
+            for kind in step:
+                for k in step[kind]:
+                    step[kind][k] += uses * t[kind][k]
+            del x, prm, dy
+        torch.cuda.empty_cache()
+        emit("bn_step", config=name, batch=batch, sites=len(sites), **step,
+             gpu=gpu)
+        steps[name] = dict(step, train=bn_train(name, batch, len(sites),
+                                                gpu))
+    return dict(steps=steps, max_rel=worst)
+
+
 def slab_problem(gen, b, h, w, r, sparse=True, edge=None,
                  anchor_d0=False):
     """A rank's halo'd slab: prenormalized gates of N(0, 1) guidance, an
@@ -2413,9 +2671,9 @@ def f32_step(cfg, variables, batch, layout: str = "auto", *,
     `variables` on `batch` with the Trainer's own sparse samples, in
     `layout` on a mesh: the loss, the head's gradients and the samples'
     sum and count. `cudnn` False runs it with cuDNN off (PyTorch's own
-    CUDA convolutions and BatchNorm); `bn_sums` (one process only) takes
-    BatchNorm's train statistics from the per-channel sums as a mesh does
-    (flax's fast variance) instead of torch's batch_norm kernel."""
+    CUDA convolutions); `bn_sums` (one process only) takes BatchNorm's
+    train statistics from the per-channel sums as a mesh does (flax's fast
+    variance) instead of the port's BatchNorm kernels."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -3880,6 +4138,7 @@ def main():
     k23 = phase_train_kernels(gpu)
     k456 = phase_kitti_kernels(gpu)
     kxk = phase_kxk(gpu)
+    bn = phase_batch_norm(gpu)
     # Beside the other kernel checks: torch.profiler has recorded no device
     # time once the KITTI epoch's phase has run.
     k789 = phase_spatial_kernels(gpu)
@@ -3950,6 +4209,19 @@ def main():
           for name, path in (("cspn_kxk_fwd", "eval"),
                              ("cspn_kxk_fwd_stash", "train"),
                              ("cspn_kxk_bwd", "train"))],
+        # Train-mode BatchNorm, which has no TPU kernel (XLA's on the TPU):
+        # kitti1216-train-b8's sites summed over a step, its launches a
+        # step, the worst bf16 error against the plain version.
+        *[{"name": name, "route": "cuda",
+           "source": "cspn_monodepth_tpu_torch/csrc/batch_norm.cu",
+           "replaces": None,
+           "launches": bn["steps"]["kitti_1216"]["train"]["train_launches"][i],
+           "max_abs_err": None, "max_rel_err": bn["max_rel"][name],
+           **{k: bn["steps"]["kitti_1216"][kind][k] for k in (
+               "ms", "plain_ms", "bound_ms", "library_ms")},
+           "bound_by": "bytes"}
+          for i, (name, kind) in enumerate((("batch_norm_train_fwd", "fwd"),
+                                            ("batch_norm_train_bwd", "bwd")))],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

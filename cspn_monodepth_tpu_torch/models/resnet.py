@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cspn_monodepth_tpu_torch.ops.batch_norm import batch_norm_train
 from cspn_monodepth_tpu_torch.parallel.comm import all_reduce
 from cspn_monodepth_tpu_torch.parallel.rows import (
     Rows,
@@ -48,6 +49,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     for a bf16 input under autocast (torch's kernels accumulate in f32),
     as flax reduces them in f32.
 
+    On one card train mode runs the port's kernels
+    (ops/batch_norm.py:batch_norm_train); on the CPU torch's batch_norm
+    with the update folded back to the biased variance.
+
     With a process `group` (set by CSPNDepthNet on a mesh) the train-mode
     statistics are those of the global batch, as flax computes them under
     pjit: each rank's per-channel f32 sum and sum of squares go through a
@@ -64,6 +69,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         if self.group is not None:
             return self._global_batch_norm(x)
         self.num_batches_tracked.add_(1)
+        if x.device.type != "cpu":
+            return batch_norm_train(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    momentum=self.momentum, eps=self.eps)
         n = x.numel() // x.shape[1]
         m = self.momentum
         # torch's update goes into a copy (autograd keeps it, so the

@@ -32,7 +32,10 @@ contract of the H-tiled route with guidance of k^2 - 1 planes:
   cspn_kxk_fwd_stash  the forward that also stashes every d^t;
   cspn_kxk_bwd        the adjoint over that stash.
 Their library is built and loaded only when one of them first runs on a
-card (`ON_DEMAND`); `build()` alone builds the 3 x 3 kernels' sources.
+card (`ON_DEMAND`); `build()` alone builds the other sources: the 3 x 3
+kernels' and train-mode BatchNorm's (csrc/batch_norm.cu, whose wrappers
+live in ops/batch_norm.py), which every train step runs beside the CSPN
+kernels, so it builds in parallel with theirs at the first kernel call.
 The adjoints are composed of stage kernels (csrc/cspn_bwd.cu); stage 0 is
 cspn_gates9, and the other two have wrappers of their own, for checking and
 timing them alone:
@@ -180,10 +183,18 @@ def build(names: tuple | None = None) -> dict[str, Path]:
 
 def _load(name: str):
     """The library of source `name`, built and loaded at its first use: the
-    3 x 3 kernels' libraries together, an ON_DEMAND one alone."""
+    libraries of `build()`'s default together, an ON_DEMAND one alone."""
     if name not in _libs:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        f32 = ctypes.c_float
         signatures = {
+            # Train-mode BatchNorm (ops/batch_norm.py's wrappers).
+            "batch_norm": {
+                "batch_norm_fwd": [p, i64, i64, i64, p, i64, i64, i64,
+                                   *[i32] * 9, *[p] * 7, f32, f32, p],
+                "batch_norm_bwd": [p, i64, i64, i64, p, i64, i64, i64,
+                                   p, i64, i64, i64, *[i32] * 14, *[p] * 6,
+                                   p]},
             "cspn_fwd": {
                 "cspn_fwd": [p, i64, p, i64, p, i64, p, p, p,
                              i32, i32, i32, i32, i32, i32, p],

@@ -984,3 +984,227 @@ def test_cspnpp_model_on_card_matches_cpu(cuda):
     assert max_rel(got.cpu(), want) <= MODEL_TOL
     assert max_rel(card.head.weight.grad.cpu(),
                    model.head.weight.grad) <= MODEL_TOL
+
+
+# Train-mode BatchNorm (csrc/batch_norm.cu, ops/batch_norm.py) at every
+# BatchNorm site of the three train cells' configurations, in bf16 as they
+# run under autocast. bf16 outputs (y, dx) within 2**-7 of the largest: one
+# bf16 rounding step, since each side computes in f32 and rounds once. f32
+# statistics (mean, invstd, running statistics) within 1e-5 relative.
+# dweight and dbias against the plain version within 2**-6 of their sums of
+# |terms|: both reduce as ATen's CUDA kernel does, rounding to bf16 at each
+# step of a tree, from per-thread sums in f32 (the kernels) or float64
+# (the plain version), so a rounding may land one bf16 step apart (2**-7
+# of its operand); against ATen's within 2**-7 of the largest, as outputs.
+BN_CELLS = (("nyu_completion_500", 32), ("kitti_1216", 8),
+            ("kitti_1216_cspnpp", 8))
+BN_TOL = 2.0 ** -7
+BN_STAT_TOL = 1e-5
+BN_TREE_TOL = 2.0 ** -6
+
+
+def bn_sites(name: str, batch: int) -> list:
+    """(shape, strides) of every BatchNorm input of config `name`'s network
+    at its data size, in call order (the network on the meta device)."""
+    from cspn_monodepth_tpu_torch.models.resnet import BatchNorm2d
+
+    cfg = get_config(name)
+    with torch.device("meta"):
+        model = CSPNDepthNet.from_config(cfg.model)
+    model.eval()
+    sites = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.register_forward_pre_hook(
+                lambda _, args: sites.append((tuple(args[0].shape),
+                                              args[0].stride())))
+    h, w = cfg.data.height, cfg.data.width
+    x = torch.empty((batch, 4 if cfg.model.modality == "rgbd" else 3, h, w),
+                    device="meta")
+    with torch.no_grad():
+        model.decoder(model.encoder(x), (h, w))
+    return sites
+
+
+def bn_problem(shape, strides, dtype, device, seed):
+    """x N(1.5, 3^2) with the site's strides (a cropped view where they
+    are wider), parameters, running statistics and a cotangent N(0, 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    size = 1 + sum((s - 1) * st for s, st in zip(shape, strides))
+    base = torch.randn(size, generator=g, device=device) * 3 + 1.5
+    x = base.to(dtype).as_strided(shape, strides)
+    c = shape[1]
+    prm = [torch.randn(c, generator=g, device=device),
+           torch.randn(c, generator=g, device=device),
+           torch.randn(c, generator=g, device=device),
+           torch.rand(c, generator=g, device=device) + 0.5]
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    return x, prm, dy
+
+
+def bn_sum_err(got, want, terms) -> float:
+    scale = terms.double().abs().sum((0, 2, 3))
+    return float(((got.double() - want.double()).abs() / scale).max().cpu())
+
+
+def bn_errors(x, prm, dy) -> dict:
+    """The kernels against the plain version and against ATen's
+    F.batch_norm (the module's path before these kernels, whose running
+    variance is torch's unbiased one: folded back here)."""
+    import torch.nn.functional as F
+
+    from cspn_monodepth_tpu_torch.ops import batch_norm as bn
+
+    w, b, rm, rv = prm
+    kw = dict(momentum=0.1, eps=1e-5)
+    stats = [rm.clone(), rv.clone()]
+    y, mean, invstd = bn.batch_norm_train_fwd(x, w, b, *stats, **kw)
+    dx, dw, db = bn.batch_norm_train_bwd(dy, x, w, mean, invstd)
+    plain_stats = [rm.clone(), rv.clone()]
+    py, pmean, pinv = bn.batch_norm_train_fwd_plain(x, w, b, *plain_stats,
+                                                    **kw)
+    pdx, pdw, pdb = bn.batch_norm_train_bwd_plain(dy, x, w, pmean, pinv)
+    xa = x.detach().requires_grad_()
+    wa, ba = w.clone().requires_grad_(), b.clone().requires_grad_()
+    ra, va = rm.clone(), rv.clone()
+    n = x.numel() // x.shape[1]
+    ay = F.batch_norm(xa, ra, va, wa, ba, True, 0.1, 1e-5)
+    ay.backward(dy)
+    va = rv * 0.9 + (va - rv * 0.9) * ((n - 1) / n)
+    xhat = (x.double() - pmean.double()[:, None, None]) \
+        * pinv.double()[:, None, None]
+    return {
+        "plain": {"y": max_rel(y, py), "dx": max_rel(dx, pdx),
+                  "mean": max_rel(mean, pmean),
+                  "invstd": max_rel(invstd, pinv),
+                  "running_mean": max_rel(stats[0], plain_stats[0]),
+                  "running_var": max_rel(stats[1], plain_stats[1]),
+                  "dweight": bn_sum_err(dw, pdw, dy.double() * xhat),
+                  "dbias": bn_sum_err(db, pdb, dy)},
+        "aten": {"y": max_rel(y, ay.detach()), "dx": max_rel(dx, xa.grad),
+                 "running_mean": max_rel(stats[0], ra),
+                 "running_var": max_rel(stats[1], va),
+                 "dweight": max_rel(dw, wa.grad),
+                 "dbias": max_rel(db, ba.grad)}}
+
+
+def bn_tol(side: str, key: str) -> float:
+    if key in ("y", "dx") or (side == "aten" and key in ("dweight",
+                                                         "dbias")):
+        return BN_TOL
+    return BN_TREE_TOL if key in ("dweight", "dbias") else BN_STAT_TOL
+
+
+def bn_within(errs: dict) -> bool:
+    return all(v <= bn_tol(side, k) for side, got in errs.items()
+               for k, v in got.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, batch", BN_CELLS)
+def test_batch_norm_kernels_at_every_site(cuda, name, batch):
+    """Every distinct (shape, strides) BatchNorm site of the cell's network,
+    bf16: the kernels against the plain version and ATen's F.batch_norm."""
+    from cspn_monodepth_tpu_torch.ops import batch_norm as bn
+
+    sites = sorted(set(bn_sites(name, batch)))
+    before = (bn.batch_norm_train_fwd.launches,
+              bn.batch_norm_train_bwd.launches)
+    for i, (shape, strides) in enumerate(sites):
+        x, prm, dy = bn_problem(shape, strides, torch.bfloat16, cuda, i)
+        errs = bn_errors(x, prm, dy)
+        assert bn_within(errs), (shape, strides, errs)
+        del x, prm, dy
+    assert (bn.batch_norm_train_fwd.launches,
+            bn.batch_norm_train_bwd.launches) == (before[0] + len(sites),
+                                                  before[1] + len(sites))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, strides", [
+    ((4, 64, 57, 76), (554496, 4332, 76, 1)),
+    ((4, 512, 15, 19), (163840, 320, 20, 1)),   # rows of 19, 20 apart
+    ((2, 48, 9, 33), (14256, 297, 33, 1))])     # odd sizes: 4-byte loads
+def test_batch_norm_kernels_in_f32(cuda, shape, strides):
+    """f32 x: everything within BN_STAT_TOL; ATen's dweight and dbias are
+    held in the bf16 cases only."""
+    x, prm, dy = bn_problem(shape, strides, torch.float32, cuda, 7)
+    errs = bn_errors(x, prm, dy)
+    del errs["aten"]["dweight"], errs["aten"]["dbias"]
+    assert all(v <= BN_STAT_TOL for side in errs.values()
+               for v in side.values()), errs
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_are_deterministic(cuda):
+    """Two runs bit for bit: fixed slices, fixed merge orders, no atomics."""
+    from cspn_monodepth_tpu_torch.ops import batch_norm as bn
+
+    x, (w, b, rm, rv), dy = bn_problem((8, 64, 176, 608),
+                                       (6848512, 107008, 608, 1),
+                                       torch.bfloat16, cuda, 3)
+    runs = []
+    for _ in range(2):
+        stats = [rm.clone(), rv.clone()]
+        y, mean, invstd = bn.batch_norm_train_fwd(x, w, b, *stats,
+                                                  momentum=0.1, eps=1e-5)
+        runs.append((y, mean, invstd, *stats,
+                     *bn.batch_norm_train_bwd(dy, x, w, mean, invstd)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_batch_norm_module_takes_the_kernels_in_train_mode_only(cuda):
+    from cspn_monodepth_tpu_torch.models.resnet import batch_norm
+    from cspn_monodepth_tpu_torch.ops import batch_norm as bn
+
+    m = batch_norm(16).to(cuda)
+    x = torch.randn((2, 16, 12, 20), device=cuda)
+    before = bn.batch_norm_train_fwd.launches
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = m(x.to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert m.weight.grad.dtype == torch.float32
+    assert bn.batch_norm_train_fwd.launches == before + 1
+    m.eval()
+    m(x)
+    assert bn.batch_norm_train_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_batch_norm_wrapper_refuses_a_vector_off_the_card(cuda):
+    from cspn_monodepth_tpu_torch.ops import batch_norm as bn
+
+    x = torch.randn((2, 3, 4, 5), device=cuda)
+    on = torch.ones(3, device=cuda)
+    with pytest.raises(ValueError, match="weight is on cpu"):
+        bn.batch_norm_train_fwd(x, torch.ones(3), on, on.clone(), on.clone(),
+                                momentum=0.1, eps=1e-5)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_reproduce_atens_numbers(cuda):
+    """kitti_1216's sites (all contiguous), bf16: y, mean and invstd equal
+    ATen's (native_batch_norm, which F.batch_norm runs and the benchmark's
+    reference with it) bit for bit; dx on the same mean and invstd differs
+    from ATen's native_batch_norm_backward in at most a 1e-4 share of the
+    elements: the kernels take ATen's threads' sums by parts, in another
+    order, so a rounding of its reduction tree may land one step apart."""
+    from cspn_monodepth_tpu_torch.ops import batch_norm as bn
+
+    for i, (shape, strides) in enumerate(sorted(set(bn_sites("kitti_1216",
+                                                             8)))):
+        x, (w, b, rm, rv), dy = bn_problem(shape, strides, torch.bfloat16,
+                                           cuda, 100 + i)
+        y, mean, inv = bn.batch_norm_train_fwd(x, w, b, rm.clone(),
+                                               rv.clone(), momentum=0.1,
+                                               eps=1e-5)
+        ay, am, ai = torch.ops.aten.native_batch_norm(
+            x, w, b, rm.clone(), rv.clone(), True, 0.1, 1e-5)
+        assert torch.equal(mean, am) and torch.equal(inv, ai), shape
+        assert torch.equal(y, ay), shape
+        dx, _, _ = bn.batch_norm_train_bwd(dy, x, w, mean, inv)
+        adx, _, _ = torch.ops.aten.native_batch_norm_backward(
+            dy, x, w, None, None, am, ai, True, 1e-5, [True, True, True])
+        assert float((dx != adx).float().mean()) <= 1e-4, shape
