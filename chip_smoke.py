@@ -26,21 +26,18 @@ exits non-zero:
      Trainer.evaluate (K1), one step with the kernels against one with the
      plain CSPN loop, and a small f32 model's train step on the card
      against the CPU;
-  6. kitti_kernels: the H-tiled route's kernels (K4 forward, K5 stash
-     forward, K6 adjoint, on the raw inputs as JAX's `_cspn_pallas_tiled`
-     takes them, through K1-K3's C entries) against their plain versions
-     at KITTI's 352x1216 and at edge cases, K5 = K4 and K4 = the gates9
-     contract on cspn_gates9's planes bit for bit, TiledCSPNFunction's
-     gradients against torch autograd of the plain loop, the tiled route
-     against K1 on the same raw guidance; K4-K6, K1 and the plain versions
-     timed at batch 8, K4 also at batch 1; K6's stage kernels (gates9,
-     sweep, sums) against their plain stages and timed, two K6 runs bit
-     for bit; what the normalization costs on the route against the plain
-     ops it replaced (`prenorm_time`), and the two ways to serve without a
-     gradient (`serving_route`);
+  6. kitti_kernels: K1-K3 at KITTI's shapes (K4 forward, K5 stash
+     forward, K6 adjoint in the kernel table, on the raw inputs as JAX's
+     `_cspn_pallas_tiled` takes them) against their plain versions at
+     352x1216 and at edge cases, K5 = K4 and K4 = the slab route's
+     cspn_gates9 then K7 bit for bit, CSPNFunction's gradients against
+     torch autograd of the plain loop; K4-K6 and the plain versions timed
+     at batch 8, K4 also at batch 1; K6's stage kernels (gates9, sweep,
+     sums) against their plain stages and timed, two K6 runs bit for bit;
+     the normalization's kernel pair beside the plain ops (`prenorm_time`);
   7. kitti_serving: DepthPredictor at the full width of kitti_1216 (one
      device) with seeded random weights, single requests and batches of 8,
-     the K4/K1 launch counts of that run, a profile of one batch, the path
+     the K4 launch counts of that run, a profile of one batch, the path
      against the plain CSPN loop;
   8. kitti_train: Trainer.train_step of kitti_1216 at batch 8 on synthetic
      records (timed steps, K5/K6 launch counts, peak memory, a profile, the
@@ -69,7 +66,7 @@ exits non-zero:
      narrower than a tile (57x75, 13x17, 13x16; a 20x75 slab);
  10. spatial: ranks on the one card, each a process on cuda:0 over gloo
      (NCCL refuses two ranks on one device): cspn_propagate_spatial on a
-     1x4 spatial group against the whole-image tiled route (K4-K6), then
+     1x4 spatial group against the whole-image kernels (K4-K6), then
      the kitti_1216 Trainer at its own 2x4 mesh on 8 ranks at full width,
      three runs in one spawn (MESH_RUNS): the images layout at batch 8,
      and every feature map sharded over H (the rows layout) at batch 2,
@@ -96,7 +93,7 @@ exits non-zero:
      host8_dp's share of one rank (mesh.data 8 -> 1, batch 64 -> 8) on NYU
      shards and KITTI frames the script writes, NYU and KITTI batches in
      turn, a warm-up epoch, then one counted epoch (step ms by shape, data
-     ms, peak memory, K2/K3 per NYU step, K5/K6 per KITTI step, K1 per
+     ms, peak memory, K2/K3 per NYU step and per KITTI step, K1 per
      eval batch, nothing else) and a kill and resume inside the epoch;
      `ref_recipe`: nyu_completion_500_ref at full width with a
      torchvision-layout .pth written from seeded weights (the loaded
@@ -114,8 +111,7 @@ exits non-zero:
      fresh process that imports torch and ops/library.py by name and builds
      no model, its output against predict_batch, its K1 (NYU) or K4 (KITTI)
      launches, one a call and nothing else, its host ms per call beside the
-     eager model's, and a program on the gates9 operator contract of K4
-     before it took raw guidance (it loads and runs K7's entry); `parity`: ops/parity.py's checks of K1-K9 as the JAX
+     eager model's; `parity`: ops/parity.py's checks of K1-K9 as the JAX
      bench runs its parity gate; `profiling`: a trace of a serving batch
      and the program's spans in it, marginal_chain of K1; `debug`:
      checkify_step on a train step, clean and with a NaN in rgb, and a step
@@ -337,17 +333,16 @@ DEBUG_BATCH = 8
 BENCH_CELLS = (("nyu_completion_500", TRAIN_BATCH,
                 ("cspn_fwd_stash", "cspn_bwd"), "cspn_fwd"),
                ("kitti_1216", KITTI_BATCH,
-                ("cspn_tiled_fwd_stash", "cspn_tiled_bwd"), "cspn_tiled_fwd"))
+                ("cspn_fwd_stash", "cspn_bwd"), "cspn_fwd"))
 BENCH_TIMEOUT_S = 600
 # bench.py:214-227, the root bench's keys, and the parity block's by config.
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
               "train_images_per_sec", "infer_images_per_sec", "batch",
               "chain_len", "dispatch_overhead_ms", "backend", "device",
               "parity"}
-BENCH_PARITY = {"nyu_completion_500": {"routing", "whole_plane_228x304",
+BENCH_PARITY = {"nyu_completion_500": {"whole_plane_228x304",
                                        "prenorm_96x304"},
-                "kitti_1216": {"routing", "tiled_352x1216",
-                               "prenorm_104x1216"}}
+                "kitti_1216": {"tiled_352x1216", "prenorm_104x1216"}}
 # The child: the bench module run as __main__ (what `python -m` does), with
 # every Trainer step counted and the launch counts set to 0 at the first
 # step (after the parity block, whose launches compare kernels with their
@@ -366,8 +361,7 @@ def counted(kind, real):
     def step(self, *args):
         steps[kind] += 1
         if steps["train"] + steps["eval"] == 1:
-            for fn in cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS:
-                fn.launches = 0
+            cspn_cuda.reset_launch_counts()
             prenorm_gates9.cuda_calls = anchor.cuda_calls = 0
         if steps[kind] != 3:
             return real(self, *args)
@@ -381,8 +375,7 @@ Trainer.eval_step = counted("eval", Trainer.eval_step)
 runpy.run_module("cspn_monodepth_tpu_torch.bench", run_name="__main__")
 print(json.dumps({"bench_child": {
     "steps": steps, "syncs": syncs,
-    "launches": {**{fn.__name__: fn.launches for fn in
-                    cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS},
+    "launches": {**cspn_cuda.launch_counts(),
                  "prenorm_gates9": prenorm_gates9.cuda_calls,
                  "anchor": anchor.cuda_calls}}}), flush=True)
 """
@@ -430,9 +423,7 @@ for path, x_path, out_path, calls in json.loads(sys.argv[1]):
     load_s = time.perf_counter() - t0
     x = torch.from_numpy(np.load(x_path)).cuda()
     program(x).cpu()
-    wrappers = library.cspn_cuda.WRAPPERS + library.cspn_cuda.KXK_WRAPPERS
-    for fn in wrappers:
-        fn.launches = 0
+    library.cspn_cuda.reset_launch_counts()
     ms = []
     for _ in range(calls):
         t0 = time.perf_counter()
@@ -440,8 +431,7 @@ for path, x_path, out_path, calls in json.loads(sys.argv[1]):
         ms.append(1e3 * (time.perf_counter() - t0))
     np.save(out_path, y.numpy())
     print(json.dumps({"path": path, "load_s": load_s, "ms": ms,
-                      "launches": {fn.__name__: fn.launches
-                                   for fn in wrappers},
+                      "launches": library.cspn_cuda.launch_counts(),
                       "jax_imported": "jax" in sys.modules}), flush=True)
     del program
 '''
@@ -522,7 +512,7 @@ def bwd_bound_ms(b, h, w, num_iters, sparse: bool):
 def prenorm_fwd_bound_ms(b, h, w, num_iters, sparse: bool):
     """K7 (the gates9 contract): read the 9 gate planes, d0 and sparse
     once, write the result once; 19 flop/px per iteration (no
-    normalization). K4-K6 compute K1-K3's functions, with their bounds."""
+    normalization). K4-K6 are K1-K3 at KITTI's shape, with their bounds."""
     px = b * h * w
     return bound_ms(9 + 1 + int(sparse) + 1, px, px * 19 * num_iters)
 
@@ -544,7 +534,7 @@ def prenorm_bwd_bound_ms(b, h, w, num_iters, sparse: bool):
 
 
 def gates9_bound_ms(b, h, w):
-    """cspn_gates9 (K3's and K6's stage 0): read the 8 guidance planes,
+    """cspn_gates9 (K3's stage 0): read the 8 guidance planes,
     write the 9 gate planes; ~32 flop/px."""
     px = b * h * w
     return bound_ms(8 + 9, px, 32 * px)
@@ -568,7 +558,7 @@ def sweep_bound_ms(b, h, w, num_iters, sparse: bool):
 
 def sums_bound_ms(b, h, w, num_iters, sparse: bool, raw: bool):
     """The adjoint's stage 2: read the T stash and T adjoint-stash planes
-    and sparse; write the 9 gate sums and the sparse sum (K6, K9), or (K3,
+    and sparse; write the 9 gate sums and the sparse sum (K9), or (K3,
     `raw`) also read the 8 guidance planes and lam^0 and write the 8
     guidance gradients, d_blur and d_sparse; 18 flop/px per iteration, ~80
     for the chain rule."""
@@ -614,7 +604,7 @@ def check_adjoint_stages(c: dict, gates9, sp, stash, cot, guid=None,
 
 def time_adjoint_stages(gpu: str, kernel: str, shape: dict, gates9, sp,
                         stash, cot, guid=None, norm=None):
-    """Each stage of `kernel` (K3 or K6 with `guid`, else K9) timed alone on
+    """Each stage of `kernel` (K3 with `guid`, else K9) timed alone on
     the inputs it gets inside the adjoint, beside its plain stage and its
     own bound: one `stage_time` line each."""
     b, h, w, t = shape["b"], shape["h"], shape["w"], shape["t"]
@@ -988,11 +978,11 @@ def train_kernel_errors(guid, blur, sp, cot, kw) -> dict:
                                for g, w in zip(grads, want_grads)))
 
 
-def grad_case(gen, c: dict, impl: str, phase: str):
-    """Gradients of every input of cspn_propagate(impl) for a random
-    cotangent against torch autograd of the plain loop, guidance and blur
-    as slices of one random head tensor; emits `phase`, raises past
-    GRAD_TOL."""
+def grad_case(gen, c: dict, phase: str):
+    """Gradients of every input of cspn_propagate (CSPNFunction: K2, K3)
+    for a random cotangent against torch autograd of the plain loop,
+    guidance and blur as slices of one random head tensor; emits `phase`,
+    raises past GRAD_TOL."""
     heads = torch.randn((c["b"], 9, c["h"], c["w"]), generator=gen,
                         device="cuda")
     heads[:, 0] = 0.5 + 9.0 * heads[:, 0].abs()
@@ -1004,18 +994,18 @@ def grad_case(gen, c: dict, impl: str, phase: str):
                          torch.zeros_like(heads[:, 0]))
     cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
     grads = {}
-    for route in (impl, "torch"):
+    for impl in ("auto", "torch"):
         h = heads.clone().requires_grad_()
         s = None if sp is None else sp.clone().requires_grad_()
         out = cspn_propagate(h[:, 1:], h[:, 0], s, num_iters=c["t"],
-                             norm_type=c["norm"], impl=route,
+                             norm_type=c["norm"], impl=impl,
                              guidance_layout="NCHW")
         inputs = [h] + ([s] if s is not None else [])
-        grads[route] = torch.autograd.grad((out * cot).sum(), inputs)
-    errs = [max_rel(a, b) for a, b in zip(grads[impl], grads["torch"])]
-    emit(phase, **c, impl=impl, max_rel=errs, tol=GRAD_TOL)
+        grads[impl] = torch.autograd.grad((out * cot).sum(), inputs)
+    errs = [max_rel(a, b) for a, b in zip(grads["auto"], grads["torch"])]
+    emit(phase, **c, max_rel=errs, tol=GRAD_TOL)
     if not max(errs) <= GRAD_TOL:
-        raise AssertionError(f"{impl} gradients vs torch autograd of the "
+        raise AssertionError(f"kernel gradients vs torch autograd of the "
                              f"plain loop: {c} {errs}")
 
 
@@ -1056,7 +1046,7 @@ def phase_train_kernels(gpu: str) -> dict:
     for c in (dict(b=2, h=NYU_H, w=NYU_W, t=24, norm="8sum_clamp",
                    sparse=True),
               dict(b=1, h=57, w=76, t=24, norm="8sum_abs", sparse=False)):
-        grad_case(gen, c, "cuda", "function_grad_case")
+        grad_case(gen, c, "function_grad_case")
 
     b, t, kw = TRAIN_BATCH, 24, dict(num_iters=24, norm_type="8sum_clamp")
     guid, blur, sp = cspn_problem(gen, b, NYU_H, NYU_W, strided=True)
@@ -1119,17 +1109,15 @@ def fixed_batch(trainer: Trainer, n: int) -> dict:
 
 
 def reset_counts():
-    for fn in cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS:
-        fn.launches = 0
+    cspn_cuda.reset_launch_counts()
     prenorm_gates9.cuda_calls = anchor.cuda_calls = 0
 
 
 def counts() -> dict:
     """Each wrapper's launches, and the calls of the plain normalization
     and anchor on a CUDA tensor ("prenorm_gates9", "anchor"), which no
-    route makes: every check of a path's counts holds them at 0."""
-    return {**{fn.__name__: fn.launches for fn in
-               cspn_cuda.WRAPPERS + cspn_cuda.KXK_WRAPPERS},
+    kernel path makes: every check of a path's counts holds them at 0."""
+    return {**cspn_cuda.launch_counts(),
             "prenorm_gates9": prenorm_gates9.cuda_calls,
             "anchor": anchor.cuda_calls}
 
@@ -1329,26 +1317,25 @@ def phase_train_device_vs_cpu():
                              f"CPU: {without}, with cuDNN {with_cudnn}")
 
 
-def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
+def kitti_kernel_errors(guid, blur, sp, cot, num_iters: int,
                         norm_type: str) -> dict:
-    """K4, K5 and K6 on the raw guidance `guid`, blur and sparse against
-    their plain versions: the largest max-relative error of each output
-    (every stash plane on its own), their largest absolute errors, anchors
-    exact, whether K5's output is K4's bit for bit, and whether K4's is,
-    bit for bit, the gates9 contract's on cspn_gates9's planes with d^0
-    anchored on load (K7's entry: what K4 computed before it took raw
-    guidance)."""
+    """K1, K2 and K3 at a KITTI shape (K4, K5 and K6 of the kernel table)
+    on the raw guidance `guid`, blur and sparse against their plain
+    versions: the largest max-relative error of each output (every stash
+    plane on its own), their largest absolute errors, anchors exact,
+    whether K2's output is K1's bit for bit, and whether K1's is, bit for
+    bit, the slab route's on cspn_gates9's planes with d^0 anchored on load
+    (K7's entry)."""
     kw = dict(num_iters=num_iters, norm_type=norm_type)
-    k4 = cspn_cuda.cspn_tiled_fwd(guid, blur, sp, **kw)
-    out, stash = cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw)
-    grads = cspn_cuda.cspn_tiled_bwd(guid, sp, stash, cot, **kw)
+    k4 = cspn_cuda.cspn_fwd(guid, blur, sp, **kw)
+    out, stash = cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw)
+    grads = cspn_cuda.cspn_bwd(guid, sp, stash, cot, **kw)
     on_gates9 = cspn_cuda.cspn_prenorm_fwd(
         cspn_cuda.cspn_gates9(guid, norm_type=norm_type), blur, sp,
         num_iters=num_iters, anchor_d0=True)
-    want_out, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(
+    want_out, want_stash = cspn_cuda.cspn_fwd_stash_plain(
         guid, blur, sp, **kw)
-    want_grads = cspn_cuda.cspn_tiled_bwd_plain(guid, sp, want_stash, cot,
-                                                **kw)
+    want_grads = cspn_cuda.cspn_bwd_plain(guid, sp, want_stash, cot, **kw)
     torch.cuda.synchronize()
     errs = {"k4_out": max_rel(k4, want_out),
             "k5_stash": max([max_rel(stash[:, t], want_stash[:, t])
@@ -1361,7 +1348,7 @@ def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
         m = sp > 0
         anchors_exact = bool(torch.equal(k4[m], sp[m]))
     return dict(max_rel=errs, k5_equals_k4=bool(torch.equal(out, k4)),
-                k4_equals_gates9_contract=bool(torch.equal(k4, on_gates9)),
+                k4_equals_slab_route=bool(torch.equal(k4, on_gates9)),
                 anchors_exact=anchors_exact,
                 k4_max_abs=float((k4 - want_out).abs().max()),
                 k5_max_abs=float((stash - want_stash).abs().max())
@@ -1370,9 +1357,9 @@ def tiled_kernel_errors(guid, blur, sp, cot, num_iters: int,
                                for g, w in zip(grads, want_grads)))
 
 
-def tiled_ok(r: dict) -> bool:
+def kitti_ok(r: dict) -> bool:
     return (max(r["max_rel"].values()) <= KERNEL_TOL and r["k5_equals_k4"]
-            and r["k4_equals_gates9_contract"] and r["anchors_exact"])
+            and r["k4_equals_slab_route"] and r["anchors_exact"])
 
 
 def kitti_kernel_cases() -> list[dict]:
@@ -1395,10 +1382,10 @@ def kitti_kernel_cases() -> list[dict]:
 
 
 def phase_kitti_kernels(gpu: str) -> dict:
-    """K4, K5 and K6 against their plain versions; TiledCSPNFunction's
-    gradients against torch autograd of the plain loop; the tiled route
-    against K1 on the same raw guidance; times at batch 8, 352x1216, with
-    the normalization's cost on the route (`prenorm_time`)."""
+    """K1, K2 and K3 at KITTI's shapes (K4, K5 and K6 of the kernel table)
+    against their plain versions; CSPNFunction's gradients against torch
+    autograd of the plain loop; times at batch 8, 352x1216, and the
+    normalization's kernel pair beside the plain ops (`prenorm_time`)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     for c in kitti_kernel_cases():
         guid, blur, sp = cspn_problem(gen, c["b"], c["h"], c["w"],
@@ -1407,63 +1394,43 @@ def phase_kitti_kernels(gpu: str) -> dict:
         if c.get("zero"):
             guid = torch.zeros_like(guid)
         cot = torch.randn(blur.shape, generator=gen, device="cuda")
-        r = tiled_kernel_errors(guid, blur, sp, cot, c["t"], c["norm"])
-        emit("kitti_kernel_case", kernels=["cspn_tiled_fwd",
-                                           "cspn_tiled_fwd_stash",
-                                           "cspn_tiled_bwd"],
+        r = kitti_kernel_errors(guid, blur, sp, cot, c["t"], c["norm"])
+        emit("kitti_kernel_case", kernels=["cspn_fwd", "cspn_fwd_stash",
+                                           "cspn_bwd"],
              **c, **r, tol=KERNEL_TOL)
-        if not tiled_ok(r):
+        if not kitti_ok(r):
             raise AssertionError(f"K4/K5/K6 disagree with their plain "
                                  f"versions: {c} {r}")
 
-    # Gradients of every input through TiledCSPNFunction (K5 + K6), the
+    # Gradients of every input through CSPNFunction (K2 + K3), the
     # normalization and the anchor inside, against torch autograd of the
     # plain loop.
     for c in (dict(b=2, h=KITTI_H, w=KITTI_W, t=24, norm="8sum_clamp",
                    sparse=True),
               dict(b=1, h=37, w=48, t=10, norm="8sum_abs", sparse=False)):
-        grad_case(gen, c, "cuda_tiled", "tiled_function_grad_case")
-
-    # The same function by two routes: K4 against K1 on the same raw
-    # guidance (one C entry: bit for bit).
-    for norm in NORM_TYPES:
-        guid, blur, sp = cspn_problem(gen, 2, KITTI_H, KITTI_W)
-        kw = dict(num_iters=24, norm_type=norm, guidance_layout="NCHW")
-        tiled = cspn_propagate(guid, blur, sp, impl="cuda_tiled", **kw)
-        whole = cspn_propagate(guid, blur, sp, impl="cuda", **kw)
-        err = max_rel(tiled, whole)
-        emit("tiled_vs_whole_plane_route", norm=norm, max_rel=err,
-             bitwise_equal=bool(torch.equal(tiled, whole)), tol=KERNEL_TOL)
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"tiled route vs K1 ({norm}): {err}")
+        grad_case(gen, c, "kitti_function_grad_case")
 
     b, t = KITTI_BATCH, 24
     guid, blur, sp = cspn_problem(gen, b, KITTI_H, KITTI_W, strided=True)
     cot = torch.randn(blur.shape, generator=gen, device="cuda")
     kw = dict(num_iters=t, norm_type="8sum_clamp")
-    _, stash = cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw)
-    _, plain_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(guid, blur, sp,
-                                                          **kw)
+    _, stash = cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw)
+    _, plain_stash = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw)
     timing = {}
     for name, fn, plain, bound in (
-            ("cspn_tiled_fwd",
-             lambda: cspn_cuda.cspn_tiled_fwd(guid, blur, sp, **kw),
-             lambda: cspn_cuda.cspn_tiled_fwd_plain(guid, blur, sp, **kw),
-             cspn_bound_ms(b, KITTI_H, KITTI_W, t, True)),
-            ("cspn_tiled_fwd_stash",
-             lambda: cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw),
-             lambda: cspn_cuda.cspn_tiled_fwd_stash_plain(guid, blur, sp,
-                                                          **kw),
-             stash_bound_ms(b, KITTI_H, KITTI_W, t, True)),
-            ("cspn_tiled_bwd",
-             lambda: cspn_cuda.cspn_tiled_bwd(guid, sp, stash, cot, **kw),
-             lambda: cspn_cuda.cspn_tiled_bwd_plain(guid, sp, plain_stash,
-                                                    cot, **kw),
-             bwd_bound_ms(b, KITTI_H, KITTI_W, t, True)),
             ("cspn_fwd",
              lambda: cspn_cuda.cspn_fwd(guid, blur, sp, **kw),
              lambda: cspn_cuda.cspn_fwd_plain(guid, blur, sp, **kw),
-             cspn_bound_ms(b, KITTI_H, KITTI_W, t, True))):
+             cspn_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+            ("cspn_fwd_stash",
+             lambda: cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw),
+             lambda: cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw),
+             stash_bound_ms(b, KITTI_H, KITTI_W, t, True)),
+            ("cspn_bwd",
+             lambda: cspn_cuda.cspn_bwd(guid, sp, stash, cot, **kw),
+             lambda: cspn_cuda.cspn_bwd_plain(guid, sp, plain_stash, cot,
+                                              **kw),
+             bwd_bound_ms(b, KITTI_H, KITTI_W, t, True))):
         ms = time_ms(fn, 20)
         plain_ms = time_ms(plain, 3, warmup=1)
         device_ms = device_profile(fn)["busy_ms"]
@@ -1474,52 +1441,45 @@ def phase_kitti_kernels(gpu: str) -> dict:
              plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
              library_ms=None, gpu=gpu)
 
-    # K6's stages at batch 8 and on a case with a remainder round.
+    # K3's stages at batch 8 and on a case with a remainder round.
     shape = dict(b=b, h=KITTI_H, w=KITTI_W, t=t, norm="8sum_clamp")
     gates9 = cspn_cuda.cspn_gates9(guid, norm_type="8sum_clamp")
     check_adjoint_stages(shape, gates9, sp, stash, cot, guid, "8sum_clamp")
-    time_adjoint_stages(gpu, "cspn_tiled_bwd", shape, gates9, sp, stash, cot,
+    time_adjoint_stages(gpu, "cspn_bwd", shape, gates9, sp, stash, cot,
                         guid, "8sum_clamp")
-    check_deterministic("cspn_tiled_bwd",
-                        lambda: cspn_cuda.cspn_tiled_bwd(guid, sp, stash,
-                                                         cot, **kw))
+    check_deterministic("cspn_bwd",
+                        lambda: cspn_cuda.cspn_bwd(guid, sp, stash, cot,
+                                                   **kw))
     del stash, plain_stash
     g2, b2, s2 = cspn_problem(gen, 2, 37, 48)
     c2 = torch.randn(b2.shape, generator=gen, device="cuda")
-    _, st2 = cspn_cuda.cspn_tiled_fwd_stash(g2, b2, s2, num_iters=10,
-                                            norm_type="8sum")
+    _, st2 = cspn_cuda.cspn_fwd_stash(g2, b2, s2, num_iters=10,
+                                      norm_type="8sum")
     check_adjoint_stages(dict(b=2, h=37, w=48, t=10, norm="8sum"),
                          cspn_cuda.cspn_gates9(g2, norm_type="8sum"), s2,
                          st2, c2, g2, "8sum")
 
-    # K4 on single images, as the serving path's single requests call it.
+    # K1 on single images, as the serving path's single requests call it.
     g1, d1, s1 = guid[:1], blur[:1], sp[:1]
-    fn = lambda: cspn_cuda.cspn_tiled_fwd(g1, d1, s1, **kw)   # noqa: E731
+    fn = lambda: cspn_cuda.cspn_fwd(g1, d1, s1, **kw)   # noqa: E731
     bound = cspn_bound_ms(1, KITTI_H, KITTI_W, t, True)
-    timing["cspn_tiled_fwd_b1"] = dict(
+    timing["cspn_fwd_b1"] = dict(
         ms=time_ms(fn, 50), device_ms=device_profile(fn)["busy_ms"],
-        plain_ms=time_ms(lambda: cspn_cuda.cspn_tiled_fwd_plain(
+        plain_ms=time_ms(lambda: cspn_cuda.cspn_fwd_plain(
             g1, d1, s1, **kw), 5), bound_ms=bound[0], bound_by=bound[1])
-    emit("kernel_time", kernel="cspn_tiled_fwd", b=1, h=KITTI_H, w=KITTI_W,
-         t=t, norm="8sum_clamp", **timing["cspn_tiled_fwd_b1"],
+    emit("kernel_time", kernel="cspn_fwd", b=1, h=KITTI_H, w=KITTI_W,
+         t=t, norm="8sum_clamp", **timing["cspn_fwd_b1"],
          library_ms=None, gpu=gpu)
-    prenorm_time(gen, guid, blur, sp, cot, gpu)
-    serving_route(guid, blur, sp, gpu)
+    prenorm_time(gen, guid, blur, sp, gpu)
     return timing
 
 
-def prenorm_time(gen, guid, blur, sp, cot, gpu: str):
+def prenorm_time(gen, guid, blur, sp, gpu: str):
     """What the normalization and d^0's anchor cost at KITTI B=8 (T=24,
     8sum_clamp): the plain versions (forward, forward and backward, the
-    anchor), as the route ran them before it took raw guidance; the kernel
-    pair cspn_gates9 / cspn_gates9_bwd (the slab route's), each beside its
-    bound; the route itself, K5 and K5 + K6 on the raw guidance, against
-    the same kernels on the gates9 contract (K8's and K9's entries on
-    cspn_gates9's planes with d^0 anchored on load: the route's old kernel
-    work without the plain normalization), the difference being what the
-    normalization and the anchor add inside the kernels."""
-    b, t, norm = KITTI_BATCH, 24, "8sum_clamp"
-    kw = dict(num_iters=t, norm_type=norm)
+    anchor) beside the kernel pair cspn_gates9 / cspn_gates9_bwd (the slab
+    route's), each beside its bound."""
+    b, norm = KITTI_BATCH, "8sum_clamp"
     g = guid.detach().clone().requires_grad_()
     d_gates9 = torch.randn((b, 9, KITTI_H, KITTI_W), generator=gen,
                            device="cuda")
@@ -1531,25 +1491,6 @@ def prenorm_time(gen, guid, blur, sp, cot, gpu: str):
         cspn_cuda.cspn_gates9(guid, norm_type=norm)
         cspn_cuda.cspn_gates9_bwd(guid, d_gates9, norm_type=norm)
 
-    gates9 = cspn_cuda.cspn_gates9(guid, norm_type=norm)
-    _, stash = cspn_cuda.cspn_tiled_fwd_stash(guid, blur, sp, **kw)
-    raw_fwd = lambda: cspn_cuda.cspn_tiled_fwd_stash(   # noqa: E731
-        guid, blur, sp, **kw)
-    raw_bwd = lambda: cspn_cuda.cspn_tiled_bwd(         # noqa: E731
-        guid, sp, stash, cot, **kw)
-    g9_fwd = lambda: cspn_cuda.cspn_prenorm_fwd_stash(  # noqa: E731
-        gates9, blur, sp, num_iters=t, anchor_d0=True)
-    g9_bwd = lambda: cspn_cuda.cspn_prenorm_bwd(        # noqa: E731
-        gates9, sp, stash, cot, num_iters=t, anchor_d0=True)
-    route = dict(fwd_ms=time_ms(raw_fwd, 20), bwd_ms=time_ms(raw_bwd, 20),
-                 gates9_fwd_ms=time_ms(g9_fwd, 20),
-                 gates9_bwd_ms=time_ms(g9_bwd, 20))
-    route.update(
-        fwd_bound_ms=stash_bound_ms(b, KITTI_H, KITTI_W, t, True)[0],
-        fwd_bwd_bound_ms=stash_bound_ms(b, KITTI_H, KITTI_W, t, True)[0]
-        + bwd_bound_ms(b, KITTI_H, KITTI_W, t, True)[0],
-        normalization_fwd_ms=route["fwd_ms"] - route["gates9_fwd_ms"],
-        normalization_bwd_ms=route["bwd_ms"] - route["gates9_bwd_ms"])
     emit("prenorm_time", b=b, h=KITTI_H, w=KITTI_W, norm=norm,
          plain=dict(fwd_ms=time_ms(lambda: prenorm_gates9(guid, norm), 20),
                     fwd_bwd_ms=time_ms(plain_fwd_bwd, 20),
@@ -1562,37 +1503,7 @@ def prenorm_time(gen, guid, blur, sp, cot, gpu: str):
              fwd_bwd_ms=time_ms(pair_fwd_bwd, 20),
              fwd_bwd_bound_ms=gates9_bound_ms(b, KITTI_H, KITTI_W)[0]
              + gates9_bwd_bound_ms(b, KITTI_H, KITTI_W)[0]),
-         route=route, gpu=gpu)
-
-
-def serving_route(guid, blur, sp, gpu: str):
-    """The two ways the H-tiled route can serve without a gradient, timed at
-    KITTI B=1 and B=8 (T=24, 8sum_clamp) on the same inputs: K4, the round
-    in raw mode (one call: the first round normalizes, anchors and writes
-    the gates9 the later rounds read), against cspn_gates9 followed by the
-    gates9 contract with d^0 anchored on load (K7's entry: two calls). The
-    port serves with the first; a `serving_route` line each, and the two
-    outputs bit for bit."""
-    norm = "8sum_clamp"
-    for b in (1, KITTI_BATCH):
-        g, d, s = guid[:b], blur[:b], sp[:b]
-        raw = lambda: cspn_cuda.cspn_tiled_fwd(   # noqa: E731
-            g, d, s, num_iters=24, norm_type=norm)
-
-        def two_calls():
-            return cspn_cuda.cspn_prenorm_fwd(
-                cspn_cuda.cspn_gates9(g, norm_type=norm), d, s, num_iters=24,
-                anchor_d0=True)
-
-        same = bool(torch.equal(raw(), two_calls()))
-        emit("serving_route", b=b, h=KITTI_H, w=KITTI_W, t=24, norm=norm,
-             raw_round_ms=time_ms(raw, 50),
-             raw_round_device_ms=device_profile(raw)["busy_ms"],
-             gates9_then_k7_ms=time_ms(two_calls, 50),
-             gates9_then_k7_device_ms=device_profile(two_calls)["busy_ms"],
-             bitwise_equal=same, gpu=gpu)
-        if not same:
-            raise AssertionError(f"serving routes differ at B={b}")
+         gpu=gpu)
 
 
 def kitti_config(**overrides):
@@ -1611,24 +1522,23 @@ def phase_kitti_serving(gpu: str) -> tuple[int, float]:
     launches = serve(cfg, predictor, rgb, sparse, gpu,
                      "kitti_serving")["launches"]
     want_launches = {k: 0 for k in launches}
-    want_launches["cspn_tiled_fwd"] = SINGLE_REQUESTS + BATCH_REQUESTS
+    want_launches["cspn_fwd"] = SINGLE_REQUESTS + BATCH_REQUESTS
     if launches != want_launches:
         raise AssertionError(f"the KITTI serving path's launches "
-                             f"{launches}: expected K4 on every request and "
+                             f"{launches}: expected K1 on every request and "
                              f"nothing else, no plain normalization or "
                              f"anchor")
 
-    # K4 against its plain version on the heads the path computed.
+    # K1 against its plain version on the heads the path computed.
     heads = path_heads(predictor, rgb, sparse)
     sp = torch.from_numpy(sparse).cuda()
     kw = dict(num_iters=cfg.model.num_iters, norm_type=cfg.model.norm_type)
-    got = cspn_cuda.cspn_tiled_fwd(heads[:, 1:], heads[:, 0], sp, **kw)
-    want = cspn_cuda.cspn_tiled_fwd_plain(heads[:, 1:], heads[:, 0], sp,
-                                          **kw)
+    got = cspn_cuda.cspn_fwd(heads[:, 1:], heads[:, 0], sp, **kw)
+    want = cspn_cuda.cspn_fwd_plain(heads[:, 1:], heads[:, 0], sp, **kw)
     heads_err = max_rel(got, want)
     heads_abs = float((got - want).abs().max())
     if not heads_err <= KERNEL_TOL:
-        raise AssertionError(f"cspn_tiled_fwd vs plain on the path's heads:"
+        raise AssertionError(f"cspn_fwd vs plain on the path's heads:"
                              f" max_rel {heads_err} > {KERNEL_TOL}")
 
     path_err, _ = path_vs_plain(cfg, variables, predictor, rgb, sparse)
@@ -1639,7 +1549,7 @@ def phase_kitti_serving(gpu: str) -> tuple[int, float]:
     if not path_err <= PATH_TOL:
         raise AssertionError(f"KITTI serving path with the kernel vs the "
                              f"plain CSPN: max_rel {path_err} > {PATH_TOL}")
-    return launches["cspn_tiled_fwd"], heads_abs
+    return launches["cspn_fwd"], heads_abs
 
 
 def write_kitti_frames(root: Path, rng) -> None:
@@ -1665,18 +1575,18 @@ def phase_kitti_train(gpu: str) -> dict:
     cfg = kitti_config(**{"data.dataset": "synthetic"})
     variables = randomized_variables(cfg)
     trainer, state, launches, _ = timed_train(
-        cfg, variables, KITTI_BATCH,
-        ("cspn_tiled_fwd_stash", "cspn_tiled_bwd"), gpu, "kitti_train")
+        cfg, variables, KITTI_BATCH, ("cspn_fwd_stash", "cspn_bwd"), gpu,
+        "kitti_train")
     del state, trainer
 
     line, heads, sparse = step_vs_plain(cfg, variables, KITTI_BATCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     cot = torch.randn(heads[:, 0].shape, generator=gen, device="cuda")
-    r = tiled_kernel_errors(heads[:, 1:], heads[:, 0], sparse, cot,
+    r = kitti_kernel_errors(heads[:, 1:], heads[:, 0], sparse, cot,
                             cfg.model.num_iters, cfg.model.norm_type)
     emit("kitti_train_vs_plain_cspn", **line, heads_kernels=r, gpu=gpu)
-    if not tiled_ok(r):
-        raise AssertionError(f"K4/K5/K6 vs plain on the path's heads: {r}")
+    if not kitti_ok(r):
+        raise AssertionError(f"K1/K2/K3 vs plain on the path's heads: {r}")
     del heads
 
     epoch = phase_kitti_epoch(variables, gpu)
@@ -1727,9 +1637,9 @@ def phase_kitti_epoch(variables, gpu: str) -> dict:
          rmse=ev["rmse"], mae=ev["mae"], delta1=ev["delta1"],
          eval_img_per_s=ev["images_per_sec"], eval_launches=launches,
          gpu=gpu)
-    if not (np.isfinite(metrics["loss"]) and launches["cspn_tiled_fwd"] > 0
-            and launches["cspn_fwd"] == 0 and launches["prenorm_gates9"] ==
-            launches["anchor"] == 0 and all(
+    if not (np.isfinite(metrics["loss"]) and launches["cspn_fwd"] > 0
+            and not any(n for k, n in launches.items() if k != "cspn_fwd")
+            and all(
                 np.isfinite(ev[k]) for k in ("rmse", "mae", "rel",
                                              "delta1"))):
         raise AssertionError(f"KITTI epoch: {metrics['loss']} {ev} "
@@ -1836,15 +1746,15 @@ def kxk_train(gpu: str) -> dict:
         trainer.eval_step(state, batch, 0)
     torch.cuda.synchronize()
     eval_launches = counts()
-    # A call per kernel size and segment: the 3x3 branch on K4-K6, the
+    # A call per kernel size and segment: the 3x3 branch on K1-K3, the
     # 5x5 and 7x7 on X1-X3.
     segments = len(cfg.model.cspn_checkpoints)
     kxk = segments * (len(cfg.model.cspn_kernel_sizes) - 1)
     want_train = {k: 0 for k in train_launches}
     want_train.update(cspn_kxk_fwd_stash=kxk, cspn_kxk_bwd=kxk,
-                      cspn_tiled_fwd_stash=segments, cspn_tiled_bwd=segments)
+                      cspn_fwd_stash=segments, cspn_bwd=segments)
     want_eval = {k: 0 for k in eval_launches}
-    want_eval.update(cspn_kxk_fwd=kxk, cspn_tiled_fwd=segments)
+    want_eval.update(cspn_kxk_fwd=kxk, cspn_fwd=segments)
     emit("kxk_train", config=cfg.name, arch=cfg.model.arch,
          kernel_sizes=list(cfg.model.cspn_kernel_sizes),
          checkpoints=list(cfg.model.cspn_checkpoints), batch=KITTI_BATCH,
@@ -2372,9 +2282,10 @@ def gates9_pair(gen, gpu: str) -> dict:
 
 
 def forward_calls(gen) -> list:
-    """Every forward entry (K1, K2, K4, K5, K7, K8) at each shape this script
-    times it, T=24 (one round of HALO_K on the slabs), and K1 and K4 at T=0
-    and T=4 besides: (kernel, shape, call) each."""
+    """Every forward entry (K1 and K2 at NYU's and KITTI's shapes, where
+    the kernel table calls them K4 and K5; K7, K8) at each shape this
+    script times it, T=24 (one round of HALO_K on the slabs), and K1 at
+    T=0 and T=4 besides: (kernel, shape, call) each."""
     calls = []
     for b in (1, TRAIN_BATCH):
         guid, blur, sp = cspn_problem(gen, b, NYU_H, NYU_W)
@@ -2389,19 +2300,15 @@ def forward_calls(gen) -> list:
     del guid, blur, sp
     guid, blur, sp = cspn_problem(gen, KITTI_BATCH, KITTI_H, KITTI_W,
                                   strided=True)
-    calls.append(("cspn_fwd", dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24),
-                  lambda g=guid, d=blur, s=sp: cspn_cuda.cspn_fwd(
-                      g, d, s, num_iters=24, norm_type="8sum_clamp")))
     for b in (1, KITTI_BATCH):
         g, d, s = guid[:b], blur[:b], sp[:b]
         for t in SPLIT_ITERS:
-            calls.append(("cspn_tiled_fwd", dict(b=b, h=KITTI_H, w=KITTI_W,
-                                                 t=t),
-                          lambda g=g, d=d, s=s, t=t: cspn_cuda.cspn_tiled_fwd(
+            calls.append(("cspn_fwd", dict(b=b, h=KITTI_H, w=KITTI_W, t=t),
+                          lambda g=g, d=d, s=s, t=t: cspn_cuda.cspn_fwd(
                               g, d, s, num_iters=t, norm_type="8sum_clamp")))
-    calls.append(("cspn_tiled_fwd_stash",
+    calls.append(("cspn_fwd_stash",
                   dict(b=KITTI_BATCH, h=KITTI_H, w=KITTI_W, t=24),
-                  lambda: cspn_cuda.cspn_tiled_fwd_stash(
+                  lambda: cspn_cuda.cspn_fwd_stash(
                       guid, blur, sp, num_iters=24, norm_type="8sum_clamp")))
     for name, slab in (("kitti_2x4", KITTI_SLAB), ("nyu_16x2", NYU_SLAB)):
         g, d, s, _, kw = slab_problem(gen, *slab, HALO_K)
@@ -2419,8 +2326,7 @@ def forward_calls(gen) -> list:
 # forward_calls times both: (stash entry, plain entry, b, h, w, t).
 STASH_SPLITS = (
     ("cspn_fwd_stash", "cspn_fwd", TRAIN_BATCH, NYU_H, NYU_W, 24),
-    ("cspn_tiled_fwd_stash", "cspn_tiled_fwd", KITTI_BATCH, KITTI_H, KITTI_W,
-     24),
+    ("cspn_fwd_stash", "cspn_fwd", KITTI_BATCH, KITTI_H, KITTI_W, 24),
     ("cspn_prenorm_fwd_stash", "cspn_prenorm_fwd", *KITTI_SLAB, HALO_K),
     ("cspn_prenorm_fwd_stash", "cspn_prenorm_fwd", *NYU_SLAB, HALO_K))
 
@@ -2428,7 +2334,7 @@ STASH_SPLITS = (
 def forward_times(gpu: str) -> dict:
     """Each of forward_calls timed: CUDA-event ms over 50 calls and
     torch.profiler's device ms of one, a `forward_time` line each; then a
-    `round_split` line for K1 and K4 at B=1 and at the batch shape. T=0
+    `round_split` line for K1 at NYU's and KITTI's B=1 and batch. T=0
     runs one round with no iteration (its time is the load, normalize and
     store phase alone), T=4 one round of 4 iterations, T=24 every round:
     the line models T=24 as rounds x T=0 plus 24 iterations at (T=4 -
@@ -2445,7 +2351,7 @@ def forward_times(gpu: str) -> dict:
              device_ms=device_ms, gpu=gpu)
     for kernel, (h, w), batches in (
             ("cspn_fwd", (NYU_H, NYU_W), (1, TRAIN_BATCH)),
-            ("cspn_tiled_fwd", (KITTI_H, KITTI_W), (1, KITTI_BATCH))):
+            ("cspn_fwd", (KITTI_H, KITTI_W), (1, KITTI_BATCH))):
         for b in batches:
             ms = {t: times[(kernel, b, h, t)][0] for t in SPLIT_ITERS}
             dev = {t: times[(kernel, b, h, t)][1] for t in SPLIT_ITERS}
@@ -2510,15 +2416,15 @@ def geometry_point(kernel, fn, b, h, w, t, geometry, entries, gpu,
 
 
 def phase_geometry_sweep(gpu: str) -> dict:
-    """K1 (NYU 228x304) and K4 (KITTI 352x1216), T=24, 8sum_clamp, at B=1
+    """K1 at NYU's 228x304 and KITTI's 352x1216, T=24, 8sum_clamp, at B=1
     and at the batch shape, then K7 on both deployed slabs (T=4), over
     every tile geometry: a `geometry` line per point (CUDA-event ms over
     30 calls, torch.profiler's device ms of one, the geometry's registers
     and spills); every point's output must equal the first point's bit for
-    bit. Then K2 and K5 at the batch shape over every geometry: each
-    output must equal K1's (K4's) and each stash the first point's, bit
-    for bit. A `geometry_best` line per shape with the
-    fastest point and the wrappers' own choice."""
+    bit. Then K2 at each batch shape over every geometry: each output must
+    equal K1's and each stash the first point's, bit for bit. A
+    `geometry_best` line per shape with the fastest point and the
+    wrappers' own choice."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     entries = parse_ptxas(cspn_cuda.build_log.get("cspn_fwd", ""))
     guid, blur, sp = cspn_problem(gen, TRAIN_BATCH, NYU_H, NYU_W)
@@ -2534,12 +2440,12 @@ def phase_geometry_sweep(gpu: str) -> dict:
                                         geometry=geometry)
 
     def k4(b, geometry):
-        return cspn_cuda.cspn_tiled_fwd(kg[:b], kb[:b], ks[:b], **raw,
-                                        geometry=geometry)
+        return cspn_cuda.cspn_fwd(kg[:b], kb[:b], ks[:b], **raw,
+                                  geometry=geometry)
 
     def k5(b, geometry):
-        return cspn_cuda.cspn_tiled_fwd_stash(kg[:b], kb[:b], ks[:b], **raw,
-                                              geometry=geometry)
+        return cspn_cuda.cspn_fwd_stash(kg[:b], kb[:b], ks[:b], **raw,
+                                        geometry=geometry)
 
     slabs = {name: slab_problem(gen, *slab, HALO_K)[:3]
              for name, slab in (("kitti_2x4", KITTI_SLAB),
@@ -2554,8 +2460,7 @@ def phase_geometry_sweep(gpu: str) -> dict:
     best, wants = {}, {}
     for kernel, fn, (h, w), batches, t in (
             ("cspn_fwd", k1, (NYU_H, NYU_W), (1, TRAIN_BATCH), 24),
-            ("cspn_tiled_fwd", k4, (KITTI_H, KITTI_W), (1, KITTI_BATCH),
-             24),
+            ("cspn_fwd", k4, (KITTI_H, KITTI_W), (1, KITTI_BATCH), 24),
             ("cspn_prenorm_fwd", k7("kitti_2x4"), KITTI_SLAB[1:],
              (KITTI_SLAB[0],), HALO_K),
             ("cspn_prenorm_fwd", k7("nyu_16x2"), NYU_SLAB[1:],
@@ -2571,18 +2476,18 @@ def phase_geometry_sweep(gpu: str) -> dict:
                 points.append(geometry_point(
                     kernel, lambda: fn(b, geometry), b, h, w, t, geometry,
                     entries, gpu, bitwise_equal=True))
-            wants[(kernel, b)] = want
+            wants[(kernel, b, h)] = want
             own = points[cspn_cuda.fwd_plan(b, h, w, t)]
-            best[(kernel, b)] = own
-            emit("geometry_best", kernel=kernel, b=b,
+            best[(kernel, b, h)] = own
+            emit("geometry_best", kernel=kernel, b=b, h=h,
                  fastest=min(points, key=lambda p: p["ms"]), own_plan=own,
                  gpu=gpu)
 
     for kernel, fn, plain_entry, (h, w), b in (
             ("cspn_fwd_stash", k2, "cspn_fwd", (NYU_H, NYU_W), TRAIN_BATCH),
-            ("cspn_tiled_fwd_stash", k5, "cspn_tiled_fwd", (KITTI_H, KITTI_W),
+            ("cspn_fwd_stash", k5, "cspn_fwd", (KITTI_H, KITTI_W),
              KITTI_BATCH)):
-        want, first, points = wants[(plain_entry, b)], None, []
+        want, first, points = wants[(plain_entry, b, h)], None, []
         for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
             out, stash = fn(b, geometry)
             first = stash if first is None else first
@@ -2600,8 +2505,8 @@ def phase_geometry_sweep(gpu: str) -> dict:
                 stash_equals_first=True))
         del first
         own = points[cspn_cuda.fwd_plan(b, h, w, 24)]
-        best[(kernel, b)] = own
-        emit("geometry_best", kernel=kernel, b=b,
+        best[(kernel, b, h)] = own
+        emit("geometry_best", kernel=kernel, b=b, h=h,
              fastest=min(points, key=lambda p: p["ms"]), own_plan=own,
              gpu=gpu)
     return best
@@ -2611,7 +2516,7 @@ def spatial_op_rank(rank: int) -> dict:
     """One rank of a 1x4 spatial group on cuda:0: this rank's rows of 4
     images of 352x1216 through cspn_propagate_spatial, without a gradient
     (cspn_gates9, K7) and with one (cspn_gates9, K8; K9, cspn_gates9_bwd),
-    against the whole-image tiled route (K4-K6) on all the rows; returns
+    against the whole-image kernels (K1-K3) on all the rows; returns
     the largest errors of its rows, the largest values of the reference,
     the launch and exchange counts."""
     torch.cuda.set_device(0)
@@ -2636,8 +2541,7 @@ def spatial_op_rank(rank: int) -> dict:
 
     whole = [x.clone().requires_grad_() for x in (guid, blur, sp)]
     want = cspn_propagate(whole[0], whole[1], whole[2], num_iters=24,
-                          norm_type="8sum_clamp", impl="cuda_tiled",
-                          guidance_layout="NCHW")
+                          norm_type="8sum_clamp", guidance_layout="NCHW")
     want_grads = torch.autograd.grad((want * cot).sum(), whole)
     want = want.detach()
     mine_want = [want[:, rows]] + [g[..., rows, :] for g in want_grads]
@@ -2886,10 +2790,11 @@ def expandable_segments():
 
 
 def phase_spatial(gpu: str, gap_probe: bool = False) -> dict:
-    """(a) the sharded CSPN op on 4 ranks against K4-K6; (b) the kitti_1216
-    2x4 Trainer on 8 ranks against the 1x1 Trainer. Every rank is a
-    process on cuda:0 over gloo. With `gap_probe`, the f32 step of
-    GAP_RUN is also taken apart (`mesh_gap` line, ROADMAP.md section 3):
+    """(a) the sharded CSPN op on 4 ranks against K1-K3 on whole images;
+    (b) the kitti_1216 2x4 Trainer on 8 ranks against the 1x1 Trainer.
+    Every rank is a process on cuda:0 over gloo. With `gap_probe`, the f32
+    step of GAP_RUN is also taken apart (`mesh_gap` line, ROADMAP.md
+    section 3):
     `python3 -c "import chip_smoke as c; g = c.phase_toolchain();
     c.phase_build(); c.phase_spatial(g, gap_probe=True)"`."""
     t0 = time.perf_counter()
@@ -3397,9 +3302,8 @@ def breadth_mixed(nyu_root: str, kitti_root: str, work: Path,
     tol = max(RESUME_TOL, spread)
     resume_err = max_rel_list(resumed["step_losses"], losses[MIX_CKPT:])
     want = {n: 0 for n in launches}
-    want.update(cspn_fwd_stash=nyu_steps, cspn_bwd=nyu_steps,
-                cspn_tiled_fwd_stash=kitti_steps,
-                cspn_tiled_bwd=kitti_steps, cspn_fwd=eval_batches)
+    want.update(cspn_fwd_stash=MIX_STEPS, cspn_bwd=MIX_STEPS,
+                cspn_fwd=eval_batches)
     line = dict(
         config=cfg.name, reduced=BREADTH_REDUCED, batch=cfg.train.batch_size,
         mix_every=k, steps=MIX_STEPS, nyu_steps=nyu_steps,
@@ -3678,58 +3582,12 @@ def host_call_ms(fn, calls: int) -> list[float]:
     return ms
 
 
-class Gates9ContractCSPN(torch.nn.Module):
-    """The CSPN step of a kitti_1216 serving program as export_program
-    captured it before K4 took raw guidance: the plain normalization and
-    anchor as graph ops, then the operator cspn_tiled_fwd on gates9.
-    x (B, 10, H, W) = guidance, blur, sparse -> (B, H, W, 1)."""
-
-    def forward(self, x):
-        sp = x[:, 9]
-        gates9 = prenorm_gates9(x[:, :8], "8sum_clamp")
-        d0 = anchor(x[:, 8], sp)
-        return torch.ops.cspn_monodepth_tpu_torch.cspn_tiled_fwd(
-            gates9, d0, sp, 24)[..., None]
-
-
-def gates9_contract_job(tmp: Path) -> tuple[list, dict]:
-    """A program of Gates9ContractCSPN at KITTI B=1, exported here, and the
-    loader's job and cell for it: its output is held to K4's on the same
-    raw inputs within KERNEL_TOL (the graph's normalization sums in torch's
-    order), and it must launch K7's entry, the gates9 contract's function,
-    once a call."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    guid, blur, sp = cspn_problem(gen, 1, KITTI_H, KITTI_W)
-    x = torch.cat([guid, blur[:, None], sp[:, None]], 1)
-    path = tmp / "kitti_1216_gates9_contract_b1.pt2"
-    module = Gates9ContractCSPN()
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        torch.export.save(torch.export.export(module, (x,)), str(path))
-        export_s = time.perf_counter() - t0
-        want = cspn_cuda.cspn_tiled_fwd(guid, blur, sp, num_iters=24,
-                                        norm_type="8sum_clamp")
-        module(x).cpu()
-        eager_ms = host_call_ms(lambda: module(x).cpu(), SINGLE_REQUESTS)
-    np.save(tmp / f"{path.stem}_x.npy", x.cpu().numpy())
-    job = [str(path), str(tmp / f"{path.stem}_x.npy"),
-           str(tmp / f"{path.stem}_y.npy"), SINGLE_REQUESTS]
-    cell = dict(config="kitti_1216_gates9_contract", batch=1, h=KITTI_H,
-                w=KITTI_W, export_s=export_s, want=want.cpu().numpy(),
-                sparse=sp.cpu().numpy(), eager_ms=eager_ms,
-                calls=SINGLE_REQUESTS, artifact_mb=path.stat().st_size / 1e6,
-                kernel="cspn_prenorm_fwd", tol=KERNEL_TOL)
-    return job, cell
-
-
 def tools_export(tmp: Path, gpu: str) -> dict:
     """export_program of each EXPORT_CELLS shape on the card, every program
     loaded in one fresh process (LOADER), its output against predict_batch
-    on the same requests, its CSPN launches (K1 for NYU, K4 for KITTI, one
-    a call, nothing else) and its host ms per call beside the eager
-    model's (input on the card, output copied back). An `export` line per
-    cell; one more for a program with the gates9 operator contract of K4
-    before it took raw guidance (gates9_contract_job). Returns the NYU B=32
+    on the same requests, its CSPN launches (K1, one a call, nothing else)
+    and its host ms per call beside the eager model's (input on the card,
+    output copied back). An `export` line per cell. Returns the NYU B=32
     predictor, its requests and the loader's launches by cell."""
     jobs, cells = [], []
     nyu = None
@@ -3762,15 +3620,10 @@ def tools_export(tmp: Path, gpu: str) -> dict:
             cells.append(dict(config=config, batch=batch, h=h, w=w,
                               export_s=export_s, want=want, sparse=sparse,
                               eager_ms=eager_ms, calls=calls,
-                              artifact_mb=path.stat().st_size / 1e6,
-                              kernel="cspn_tiled_fwd" if kitti
-                              else "cspn_fwd"))
+                              artifact_mb=path.stat().st_size / 1e6))
             if config == "nyu_completion_500" and batch == TRAIN_BATCH:
                 nyu = (predictor, rgb, sparse)
         del predictor
-    job, cell = gates9_contract_job(tmp)
-    jobs.append(job)
-    cells.append(cell)
     out = subprocess.run([sys.executable, "-c", LOADER, json.dumps(jobs)],
                          capture_output=True, text=True, timeout=600,
                          cwd=ROOT)
@@ -3782,12 +3635,11 @@ def tools_export(tmp: Path, gpu: str) -> dict:
         got = np.load(job[2])[..., 0]
         check_depth(got, c["sparse"], c["want"].shape)
         err = float(np.abs(got - c["want"]).max() / np.abs(c["want"]).max())
-        tol = c.get("tol", EXPORT_TOL)
         want_launches = {n: 0 for n in res["launches"]}
-        want_launches[c["kernel"]] = c["calls"]
+        want_launches["cspn_fwd"] = c["calls"]
         line = dict(config=c["config"], batch=c["batch"], h=c["h"], w=c["w"],
                     artifact_mb=c["artifact_mb"], export_s=c["export_s"],
-                    load_s=res["load_s"], max_rel=err, tol=tol,
+                    load_s=res["load_s"], max_rel=err, tol=EXPORT_TOL,
                     calls=c["calls"], launches=res["launches"],
                     jax_imported=res["jax_imported"],
                     program_ms_p50=float(np.median(res["ms"])),
@@ -3796,7 +3648,7 @@ def tools_export(tmp: Path, gpu: str) -> dict:
                     eager_ms_p75=float(np.percentile(c["eager_ms"], 75)),
                     gpu=gpu)
         emit("export", **line)
-        if not (err <= tol and res["launches"] == want_launches
+        if not (err <= EXPORT_TOL and res["launches"] == want_launches
                 and not res["jax_imported"]):
             raise AssertionError(f"exported program: {line}")
         launches[f"{c['config']}_b{c['batch']}"] = res["launches"]
@@ -3806,26 +3658,22 @@ def tools_export(tmp: Path, gpu: str) -> dict:
 # The kernels ops/parity.py holds to the plain loop (JAX's parity gate
 # covers the nine Pallas kernels; the normalization's pair is checked in
 # phase 9).
-PARITY_KERNELS = ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd", "cspn_tiled_fwd",
-                  "cspn_tiled_fwd_stash", "cspn_tiled_bwd", "cspn_prenorm_fwd",
+PARITY_KERNELS = ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd", "cspn_prenorm_fwd",
                   "cspn_prenorm_fwd_stash", "cspn_prenorm_bwd")
 
 
 def tools_parity(gpu: str) -> dict:
     """ops/parity.py on the card as the JAX package's bench.py runs its
-    parity gate, for both configs: the whole plane at 228x304 (K1; K2/K3)
-    and the H-tiled route at 352x1216 (K4; K5/K6), B=2, T=24, then the
-    slab kernels (K7; K8/K9) on KITTI and NYU slabs at T=8, and the
-    routing asserts. Any error over its tolerance raises."""
+    parity gate, for both configs: the 3 x 3 kernels (K1; K2/K3) at
+    228x304 and at 352x1216, B=2, T=24, then the slab kernels (K7; K8/K9)
+    on KITTI and NYU slabs at T=8. Any error over its tolerance raises."""
     reset_counts()
     t0 = time.perf_counter()
     result = {
-        "routing": parity.routing_check(),
         "whole_plane_228x304": parity.cspn_parity_check(
             norms=("8sum_clamp", "8sum_abs"), batch=2, h=NYU_H, w=NYU_W),
         "tiled_352x1216": parity.cspn_parity_check(
-            norms=("8sum_clamp",), batch=2, h=KITTI_H, w=KITTI_W,
-            impl="cuda_tiled"),
+            norms=("8sum_clamp",), batch=2, h=KITTI_H, w=KITTI_W),
         "prenorm_104x1216": parity.prenorm_parity_check(
             batch=2, h=104, w=KITTI_W, num_iters=8),
         "prenorm_96x304": parity.prenorm_parity_check(
@@ -4062,8 +3910,7 @@ def bench_dryrun(gpu: str) -> list:
          gpu=gpu)
     slab = ("cspn_prenorm_fwd_stash", "cspn_prenorm_bwd", "cspn_gates9",
             "cspn_gates9_bwd")
-    whole = ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd", "cspn_tiled_fwd",
-             "cspn_tiled_fwd_stash", "cspn_tiled_bwd")
+    whole = ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd")
     meshes = [tuple(r["mesh"]) for r in runs]
     if not (meshes == [(DRYRUN_RANKS // 2, 2), (2, DRYRUN_RANKS // 2)]
             and [r["layout"] for r in runs] == ["images", "rows"]
@@ -4172,14 +4019,15 @@ def main():
             k23["cspn_fwd_stash"]),
         row("cspn_bwd", "cspn_bwd.cu", 245, train["launches"]["cspn_bwd"],
             train["k3_max_abs"], k23["cspn_bwd"]),
-        row("cspn_tiled_fwd", "cspn_fwd.cu", 632, k4_launches, k4_max_abs,
-            k456["cspn_tiled_fwd"]),
-        row("cspn_tiled_fwd_stash", "cspn_fwd.cu", 828,
-            kitti["launches"]["cspn_tiled_fwd_stash"], kitti["k5_max_abs"],
-            k456["cspn_tiled_fwd_stash"]),
-        row("cspn_tiled_bwd", "cspn_bwd.cu", 1008,
-            kitti["launches"]["cspn_tiled_bwd"], kitti["k6_max_abs"],
-            k456["cspn_tiled_bwd"]),
+        # K4-K6: K1-K3's wrappers and C entries at 352x1216.
+        row("cspn_fwd@352x1216", "cspn_fwd.cu", 632, k4_launches,
+            k4_max_abs, k456["cspn_fwd"]),
+        row("cspn_fwd_stash@352x1216", "cspn_fwd.cu", 828,
+            kitti["launches"]["cspn_fwd_stash"], kitti["k5_max_abs"],
+            k456["cspn_fwd_stash"]),
+        row("cspn_bwd@352x1216", "cspn_bwd.cu", 1008,
+            kitti["launches"]["cspn_bwd"], kitti["k6_max_abs"],
+            k456["cspn_bwd"]),
         row("cspn_prenorm_fwd", "cspn_fwd.cu", 1360,
             spatial["eval_launches"]["cspn_prenorm_fwd"],
             k789["max_abs"]["k7_max_abs"], k789["timing"]["cspn_prenorm_fwd"]),

@@ -1,5 +1,6 @@
-"""Time the forward kernels of one checkout on one GPU: K1, K2, K4, K5, K7
-and K8 (ops/cspn_cuda.py) at the shapes chip_smoke.py times them, T=24
+"""Time the forward kernels of one checkout on one GPU: K1 and K2 at NYU's
+and KITTI's shapes (K4 and K5 in the kernel table), K7 and K8
+(ops/cspn_cuda.py) at the shapes chip_smoke.py times them, T=24
 (one round of 4 on the slabs), 8sum_clamp, each through its wrapper with
 the wrapper's own plan: CUDA-event ms over CALLS calls after a warm-up,
 and torch.profiler's device ms of one call. The inputs are seeded random
@@ -10,9 +11,7 @@ planes made on the card, the same for every checkout.
 ROOT is a checkout of the repository; its own package is imported and
 builds its kernels into its own _build/. To compare two commits on one
 card, run both on that card, in turns: parent, change, change, parent.
-Prints one line "AB {json}". K4 and K5 take raw guidance (the wrappers'
-contract since the H-tiled route took JAX's); a checkout from before that
-has other K4/K5 wrappers and cannot be timed by this script.
+Prints one line "AB {json}".
 """
 import json
 import os
@@ -76,11 +75,10 @@ calls["k1_nyu1"] = lambda: cspn_cuda.cspn_fwd(guid[:1], blur[:1], sp[:1],
                                               **raw)
 calls["k2_nyu32"] = lambda: cspn_cuda.cspn_fwd_stash(guid, blur, sp, **raw)
 kg, kb, ks = problem(gen, *KITTI)
-calls["k4_kitti8"] = lambda: cspn_cuda.cspn_tiled_fwd(kg, kb, ks, **raw)
-calls["k4_kitti1"] = lambda: cspn_cuda.cspn_tiled_fwd(kg[:1], kb[:1], ks[:1],
-                                                      **raw)
-calls["k5_kitti8"] = lambda: cspn_cuda.cspn_tiled_fwd_stash(kg, kb, ks,
-                                                            **raw)
+calls["k4_kitti8"] = lambda: cspn_cuda.cspn_fwd(kg, kb, ks, **raw)
+calls["k4_kitti1"] = lambda: cspn_cuda.cspn_fwd(kg[:1], kb[:1], ks[:1],
+                                                **raw)
+calls["k5_kitti8"] = lambda: cspn_cuda.cspn_fwd_stash(kg, kb, ks, **raw)
 for name, shape in SLABS.items():
     sg, sb, ss = problem(gen, *shape)
     s9, s0 = prenorm_gates9(sg, "8sum_clamp"), anchor(sb, ss)

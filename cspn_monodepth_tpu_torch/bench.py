@@ -34,11 +34,10 @@ every step are inside what is timed, as a training loop pays them.
   clamps the mesh to the chips it sees.
 * combined = 1 / (1/train + 1/infer).
 
-The parity block (`ops/parity.py`, at the root bench's shapes: NYU the
-whole-plane kernels at 228x304 and the slab kernels on a 96x304 slab,
-KITTI the H-tiled kernels at 352x1216 and a 104x1216 slab; `routing` in
-the place of `vmem_routing`) runs on the card before timing; it is null
-on the CPU and with BENCH_PARITY=0.
+The parity block (`ops/parity.py`, at the root bench's shapes: the 3 x 3
+kernels at NYU's 228x304 or KITTI's 352x1216, and the slab kernels on a
+96x304 or 104x1216 slab) runs on the card before timing; it is null on
+the CPU and with BENCH_PARITY=0.
 
 vs_baseline: combined over the combined img/s of tools/torch_baseline.py
 (the reference architecture with its per-iteration CSPN loop) measured on
@@ -118,14 +117,12 @@ def parity_block(config_name: str) -> dict:
     from cspn_monodepth_tpu_torch.ops.parity import (
         cspn_parity_check,
         prenorm_parity_check,
-        routing_check,
     )
 
-    parity = {"routing": routing_check()}
+    parity = {}
     if "kitti" in config_name:
         parity["tiled_352x1216"] = cspn_parity_check(
-            norms=("8sum_clamp",), batch=2, h=352, w=1216,
-            impl="cuda_tiled")
+            norms=("8sum_clamp",), batch=2, h=352, w=1216)
         # KITTI 4-way-spatial slab: 352/4 interior + 2*8 halo rows.
         parity["prenorm_104x1216"] = prenorm_parity_check(
             batch=2, h=104, w=1216, num_iters=8)

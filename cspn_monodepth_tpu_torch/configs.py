@@ -3,9 +3,9 @@
 The port's own copy of cspn_monodepth_tpu/configs.py (the port imports
 nothing of the JAX package): the same fields, names and values, so that
 `get_config(name)` describes the same model and data in both packages.
-Differences: `model.cspn_impl` takes the port's values (auto | torch |
-cuda | cuda_tiled), and `synthetic_tiny` uses "auto" where the JAX package
-forces its plain "jnp" loop (on the CPU "auto" is the plain loop here).
+Differences: `model.cspn_impl` takes the port's values (auto | torch),
+and `synthetic_tiny` uses "auto" where the JAX package forces its plain
+"jnp" loop (on the CPU "auto" runs the kernels' plain versions here).
 Port only: `model.cspn_kernel_sizes` and `model.cspn_checkpoints` (CSPN++'s
 context-aware propagation; their defaults are the plain CSPN, which is
 all the JAX package has) and the named config `kitti_1216_cspnpp`, which
@@ -23,11 +23,9 @@ class ModelConfig:
     modality: str = "rgbd"          # rgb | rgbd | d
     num_iters: int = 24             # CSPN prop_time (12 or 24 headline)
     norm_type: str = "8sum_clamp"   # 8sum | 8sum_abs | 8sum_clamp
-    # CSPN route (ops/cspn.py): "auto" picks by image size as the JAX
-    # package does on a TPU (NYU 228x304 -> "cuda", KITTI 352x1216 ->
-    # "cuda_tiled"); "cuda" forces the whole-plane kernels K1-K3 (JAX's
-    # "pallas"), "cuda_tiled" the H-tiled kernels K4-K6 on prenormalized
-    # gates (JAX's "pallas_tiled"), "torch" the plain loop.
+    # CSPN (ops/cspn.py): "auto" the hand-written kernels at every image
+    # size (JAX's "auto", which picks "pallas" or "pallas_tiled" by size),
+    # "torch" the plain loop under autograd (JAX's "jnp").
     cspn_impl: str = "auto"
     dtype: str = "bfloat16"         # encoder/decoder compute dtype
     # Architecture (defaults = ResNet-50 UNet, the reference headline).

@@ -82,15 +82,13 @@ def _dryrun_rank(rank: int, data: int, spatial: int, device: str,
     index, count = trainer._share()
     share = b // count
     mine = {k: v[index * share:(index + 1) * share] for k, v in batch.items()}
-    for fn in cspn_cuda.WRAPPERS:
-        fn.launches = 0
+    cspn_cuda.reset_launch_counts()
     state, loss, _ = trainer.train_step(state, mine)
     loss = float(loss)
     if not np.isfinite(loss):
         raise AssertionError(f"dryrun_multichip: rank {rank} loss {loss}")
     return dict(loss=loss, layout=trainer.layout,
-                launches={fn.__name__: fn.launches
-                          for fn in cspn_cuda.WRAPPERS})
+                launches=cspn_cuda.launch_counts())
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> list[dict]:

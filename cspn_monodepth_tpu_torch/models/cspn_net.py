@@ -293,10 +293,7 @@ class CSPNDepthNet(nn.Module):
             shards[:, 1:9], shards[:, 0],
             None if sparse is None else shards[:, 9],
             mesh=self.spatial_mesh, num_iters=self.num_iters,
-            norm_type=self.norm_type,
-            # "torch" keeps the plain slab body; any kernel route takes the
-            # slab kernels K7-K9.
-            impl="torch" if self.cspn_impl == "torch" else "auto")
+            norm_type=self.norm_type, impl=self.cspn_impl)
         return gather_rows(refined[:, None], self.spatial_mesh,
                            heads.shape[2])[:, 0]
 
@@ -323,5 +320,5 @@ class CSPNDepthNet(nn.Module):
         refined = cspn_propagate_spatial(
             heads[:, 1:], heads[:, 0], sparse, mesh=mesh,
             num_iters=self.num_iters, norm_type=self.norm_type,
-            impl="torch" if self.cspn_impl == "torch" else "auto")
+            impl=self.cspn_impl)
         return refined[:, :hi - lo]

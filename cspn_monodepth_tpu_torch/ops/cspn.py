@@ -5,31 +5,26 @@ to the hand-written Hopper kernels (ops/cspn_cuda.py) and a CPU tensor to
 their plain PyTorch versions (ops/cspn_ref.py). There is no fallback: a
 CUDA tensor whose kernel fails to build or launch raises.
 
-Two routes, as in the JAX package (its ops/cspn.py routes by image size),
-both on JAX's contract: raw guidance, blur and sparse in, the affinity
-normalization and the anchoring of d^0 inside the kernels, their chain rule
-inside the hand-written adjoint.
-* whole-plane, `impl="cuda"` (counterpart of JAX's "pallas"): when an
-  input needs a gradient, `CSPNFunction` runs the stash forward (K2) and
-  its backward the adjoint (K3); with no gradient wanted, the forward is
-  K1 alone, as the operator `cspn_fwd` (ops/library.py).
-* H-tiled, `impl="cuda_tiled"` (JAX's "pallas_tiled", `_cspn_pallas_tiled`,
-  a custom VJP over the raw inputs whose residuals are the guidance, the
-  inputs and the stash): `TiledCSPNFunction` runs K5 forward and K6
-  backward, which return d_guidance, d_blur = (1 - m) lam^0 and d_sparse
-  = sum_t m lam^{t+1} + m lam^0 as `_cspn_tiled_adjoint_bwd_impl` does;
-  K4 alone without a gradient, as the operator `cspn_tiled_fwd_raw`. On
-  the card K4-K6 compute K1-K3's functions with K1-K3's C entries.
-`impl="auto"` picks the route the JAX package picks on a TPU (`route`);
-`impl="torch"` is the independent plain loop under torch autograd.
-
-CSPN++'s k x k stencils (k 5 or 7, read from the guidance's k^2 - 1
-planes) take one route on the card whatever the image size, on the
-H-tiled route's raw contract: `KxKCSPNFunction` with the stash forward
-`cspn_kxk_fwd_stash` and the adjoint `cspn_kxk_bwd` (csrc/cspn_kxk.cu),
-or `cspn_kxk_fwd` alone without a gradient; each call counts one
-`cspn.kxk_calls`. They have no registered operator, so a program that
-holds one cannot be exported (ops/library.py `check_exportable`).
+One path at every image size, on JAX's contract (its `_cspn_pallas_tiled`
+and `cspn_propagate_pallas` take the same inputs): raw guidance, blur and
+sparse in, the affinity normalization and the anchoring of d^0 inside the
+kernels, their chain rule inside the hand-written adjoint. The stencil
+size, read from the guidance's k^2 - 1 planes, picks the kernels:
+* 3 x 3: when an input needs a gradient, `CSPNFunction` runs the stash
+  forward K2 (`cspn_fwd_stash`) and its backward the adjoint K3
+  (`cspn_bwd`), which returns d_guidance, d_blur = (1 - m) lam^0 and
+  d_sparse = sum_t m lam^{t+1} + m lam^0 as JAX's
+  `_cspn_tiled_adjoint_bwd_impl` does; with no gradient wanted, the
+  forward is K1 alone, as the operator `cspn_fwd` (ops/library.py). The
+  tile geometry comes from the shape (ops/cspn_cuda.py `fwd_plan`), so
+  NYU's 228x304 and KITTI's 352x1216 run the same C entries.
+* CSPN++'s k x k (k 5 or 7): `CSPNFunction` with `cspn_kxk_fwd_stash`
+  and `cspn_kxk_bwd` (csrc/cspn_kxk.cu), or `cspn_kxk_fwd` alone without
+  a gradient; each call counts one `cspn.kxk_calls`. They have no
+  registered operator, so a program that holds one cannot be exported
+  (ops/library.py `check_exportable`).
+`impl="auto"` is that path; `impl="torch"` is the independent plain loop
+under torch autograd.
 
 `cspn_propagate_prenorm` is the slab body of the spatially sharded CSPN
 (parallel/halo.py; JAX's `cspn_propagate_prenorm_pallas`): prenormalized
@@ -57,8 +52,6 @@ from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
     cspn_prenorm_bwd,
     cspn_prenorm_fwd,
     cspn_prenorm_fwd_stash,
-    cspn_tiled_bwd,
-    cspn_tiled_fwd_stash,
 )
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     _squeeze_depth,
@@ -71,28 +64,22 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
 from cspn_monodepth_tpu_torch.ops.library import check_exportable
 from cspn_monodepth_tpu_torch.utils import profiling
 
-IMPLS = ("auto", "torch", "cuda", "cuda_tiled")
+IMPLS = ("auto", "torch")
 
-# K1, K4 and the normalization without a gradient: the registered
-# operators (ops/library.py), whose CUDA implementations are the wrappers
-# in ops/cspn_cuda.py, so that eager serving and an exported program launch
+# K1 and the normalization without a gradient: the registered operators
+# (ops/library.py), whose CUDA implementations are the wrappers in
+# ops/cspn_cuda.py, so that eager serving and an exported program launch
 # the same operator.
 cspn_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_fwd
-cspn_tiled_fwd = torch.ops.cspn_monodepth_tpu_torch.cspn_tiled_fwd_raw
 cspn_gates9 = torch.ops.cspn_monodepth_tpu_torch.cspn_gates9
 
-# The JAX package's routing rule, kept as the port's own copy
-# (cspn_monodepth_tpu/ops/cspn.py:_fits_vmem): an image whose ~13 f32
-# planes fit 10 MiB takes the whole-plane kernels, a larger one the H-tiled
-# ones. On Hopper both routes use the same 2-D tiles; the rule is kept so
-# that each shape runs the counterpart of the kernel JAX runs there.
-_PLANE_BUDGET_BYTES = 10 * 1024 * 1024
 
-
-def route(h: int, w: int) -> str:
-    """The impl "auto" picks for an h x w image: "cuda" (whole-plane,
-    K1-K3; NYU 228x304) or "cuda_tiled" (H-tiled, K4-K6; KITTI 352x1216)."""
-    return "cuda" if 13 * 4 * h * w <= _PLANE_BUDGET_BYTES else "cuda_tiled"
+def _kernels(k: int):
+    """(no-gradient forward, stash forward, adjoint) of the k x k stencil,
+    looked up at the call."""
+    if k == 3:
+        return cspn_fwd, cspn_fwd_stash, cspn_bwd
+    return cspn_kxk_fwd, cspn_kxk_fwd_stash, cspn_kxk_bwd
 
 
 def _planes(t: torch.Tensor) -> torch.Tensor:
@@ -104,80 +91,33 @@ def _planes(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride()[1:] == inner else t.contiguous()
 
 
-def _raw_stash_forward(ctx, fwd_stash, guidance, blur, sparse,
-                       num_iters: int, norm_type: str):
-    out, stash = fwd_stash(guidance, blur, sparse, num_iters=num_iters,
-                           norm_type=norm_type)
-    ctx.save_for_backward(guidance, sparse, stash)
-    ctx.num_iters, ctx.norm_type = num_iters, norm_type
-    return out
-
-
-def _raw_adjoint(ctx, bwd, grad_out):
-    guidance, sparse, stash = ctx.saved_tensors
-    with profiling.span("cspn.backward"):
-        d_guid, d_blur, d_sparse = bwd(guidance, sparse, stash,
-                                       _planes(grad_out),
-                                       num_iters=ctx.num_iters,
-                                       norm_type=ctx.norm_type)
-    return (d_guid, d_blur, None if sparse is None else d_sparse,
-            None, None)
-
-
 class CSPNFunction(torch.autograd.Function):
-    """CSPN propagation with the hand-written adjoint: guidance
-    (B, 8, H, W), blur and sparse (B, H, W) float32 with contiguous planes
-    (sparse may be None) -> (B, H, W). Gradients reach all three inputs;
-    sparse gets none when it is None. K2 forward, K3 backward; saved: the
-    guidance, sparse and the stash."""
+    """CSPN propagation with the hand-written adjoint: raw guidance
+    (B, k^2 - 1, H, W), blur and sparse (B, H, W) float32 with contiguous
+    planes (sparse may be None) -> (B, H, W). The stash forward and the
+    adjoint of the guidance's stencil size (`_kernels`); gradients reach
+    all three inputs, sparse none when it is None. Saved: JAX's residuals,
+    the guidance, sparse and the stash; no gates9."""
 
     @staticmethod
     def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
-        return _raw_stash_forward(ctx, cspn_fwd_stash, guidance, blur,
-                                  sparse, num_iters, norm_type)
+        _, fwd_stash, ctx.bwd = _kernels(kernel_size_of(guidance.shape[1]))
+        out, stash = fwd_stash(guidance, blur, sparse, num_iters=num_iters,
+                               norm_type=norm_type)
+        ctx.save_for_backward(guidance, sparse, stash)
+        ctx.num_iters, ctx.norm_type = num_iters, norm_type
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        return _raw_adjoint(ctx, cspn_bwd, grad_out)
-
-
-class TiledCSPNFunction(torch.autograd.Function):
-    """The H-tiled route's kernels on JAX's contract (`_cspn_pallas_tiled`):
-    raw guidance (B, 8, H, W), blur and sparse (B, H, W) or None, float32
-    with contiguous planes -> (B, H, W). K5 forward (the normalization and
-    d^0's anchor in its first round), K6 backward (the normalization
-    recomputed, the chain rule and the anchor's gradients in its sums).
-    Saved: JAX's residuals, the guidance, sparse and the stash; no gates9."""
-
-    @staticmethod
-    def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
-        return _raw_stash_forward(ctx, cspn_tiled_fwd_stash, guidance, blur,
-                                  sparse, num_iters, norm_type)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return _raw_adjoint(ctx, cspn_tiled_bwd, grad_out)
-
-
-class KxKCSPNFunction(torch.autograd.Function):
-    """CSPN++'s k x k stencil (k = 5, 7) on the H-tiled route's contract:
-    raw guidance (B, k^2 - 1, H, W), blur and sparse (B, H, W) or None,
-    float32 with contiguous planes -> (B, H, W). `cspn_kxk_fwd_stash`
-    forward, `cspn_kxk_bwd` backward (the normalization's chain rule and
-    the anchor's gradients inside). Saved: the guidance, sparse and the
-    stash."""
-
-    @staticmethod
-    def forward(ctx, guidance, blur, sparse, num_iters: int, norm_type: str):
-        return _raw_stash_forward(ctx, cspn_kxk_fwd_stash, guidance, blur,
-                                  sparse, num_iters, norm_type)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return _raw_adjoint(ctx, cspn_kxk_bwd, grad_out)
+        guidance, sparse, stash = ctx.saved_tensors
+        with profiling.span("cspn.backward"):
+            d_guid, d_blur, d_sparse = ctx.bwd(
+                guidance, sparse, stash, _planes(grad_out),
+                num_iters=ctx.num_iters, norm_type=ctx.norm_type)
+        return (d_guid, d_blur, None if sparse is None else d_sparse,
+                None, None)
 
 
 class PrenormCSPNFunction(torch.autograd.Function):
@@ -269,13 +209,10 @@ def cspn_propagate(
       for the k x k stencil (k = 3, or CSPN++'s 5 and 7).
     blur_depth, sparse_depth: (B, H, W) or (B, H, W, 1); the result has
       blur_depth's shape.
-    impl: "auto" (the route `route` picks for the image size), "cuda"
-      (the whole-plane kernels K1-K3; raises on a CPU tensor), "cuda_tiled"
-      (the H-tiled kernels K4-K6 at any size) or "torch" (the plain loop
-      on any device). On a CPU tensor every kernel's wrapper runs its plain
-      version, so "auto" and "cuda_tiled" run there too, as JAX's
-      "pallas_tiled" runs interpreted on a CPU. A k x k stencil above 3
-      takes its own kernels under every impl but "torch".
+    impl: "auto" (the kernels of the stencil size, K1-K3 for 3 x 3, on
+      any image size; on a CPU tensor every kernel's wrapper runs its
+      plain version, as JAX's Pallas kernels run interpreted on a CPU) or
+      "torch" (the plain loop under torch autograd, on any device).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
@@ -295,31 +232,17 @@ def _propagate(guidance, blur_depth, sparse_depth, num_iters: int,
         return cspn_propagate_ref_nchw(
             guidance, blur_depth, sparse_depth,
             num_iters=num_iters, norm_type=norm_type)
-    if impl == "cuda" and guidance.device.type != "cuda":
-        raise ValueError(
-            f"impl='cuda' needs CUDA tensors, got {guidance.device}")
-    if impl == "auto":
-        impl = route(*guidance.shape[-2:])
-
     squeeze = blur_depth.dim() == 4
     sp = _squeeze_depth(sparse_depth)
     args = (_planes(guidance), _planes(_squeeze_depth(blur_depth)),
             None if sp is None else _planes(sp))
-    tiled = impl == "cuda_tiled"
     if k > 3:
         check_exportable(k)
         profiling.count("cspn.kxk_calls", 1)
-        if _wants_grad(*args):
-            out = KxKCSPNFunction.apply(*args, num_iters, norm_type)
-        else:
-            out = cspn_kxk_fwd(*args, num_iters=num_iters,
-                               norm_type=norm_type)
-    elif _wants_grad(*args):
-        out = (TiledCSPNFunction if tiled else CSPNFunction).apply(
-            *args, num_iters, norm_type)
+    if _wants_grad(*args):
+        out = CSPNFunction.apply(*args, num_iters, norm_type)
     else:
-        out = (cspn_tiled_fwd if tiled else cspn_fwd)(
-            *args, num_iters=num_iters, norm_type=norm_type)
+        out = _kernels(k)[0](*args, num_iters=num_iters, norm_type=norm_type)
     out = out.to(blur_depth.dtype)
     return out[..., None] if squeeze else out
 

@@ -7,16 +7,13 @@ sources compile in parallel, one `nvcc` each. Nothing is built or loaded
 when this module is imported.
 
 The wrappers, one per kernel, each with a `.launches` count of the calls
-that launched its kernel. The whole-plane route, on raw guidance:
+that launched its kernel. The 3 x 3 CSPN on raw guidance, at every image
+size (JAX's whole-plane `cspn_propagate_pallas` and H-tiled
+`_cspn_pallas_tiled` take the same contract; the tile geometry comes from
+the shape, `fwd_plan`):
   cspn_fwd        K1, the forward (csrc/cspn_fwd.cu);
   cspn_fwd_stash  K2, the forward that also stashes every d^t (same file);
   cspn_bwd        K3, the adjoint over that stash (csrc/cspn_bwd.cu).
-The H-tiled route, on raw guidance as JAX's `_cspn_pallas_tiled`: the same
-three functions, so each launches the C entry of its whole-plane
-counterpart with the geometry `fwd_plan` gives for the shape:
-  cspn_tiled_fwd        K4 (C entry cspn_fwd);
-  cspn_tiled_fwd_stash  K5 (C entry cspn_fwd_stash);
-  cspn_tiled_bwd        K6 (C entry cspn_bwd).
 The spatial path's slab kernels, on prenormalized gates9 and d^0 as given
 (or anchored on load), on one rank's halo'd slab of H/S + 2k rows for the
 r <= k iterations of one round (parallel/halo.py):
@@ -24,10 +21,10 @@ r <= k iterations of one round (parallel/halo.py):
   cspn_prenorm_fwd_stash  K8, K7 that also stashes every d^t (same file);
   cspn_prenorm_bwd        K9, the adjoint over that stash (csrc/cspn_bwd.cu).
 The normalization, the slab route's (csrc/cspn_bwd.cu):
-  cspn_gates9      raw guidance to gates9, also K3's and K6's stage 0;
+  cspn_gates9      raw guidance to gates9, also K3's stage 0;
   cspn_gates9_bwd  its adjoint, the chain rule of K3's sums stage.
-CSPN++'s k x k stencils (k = 5, 7; csrc/cspn_kxk.cu), on the raw
-contract of the H-tiled route with guidance of k^2 - 1 planes:
+CSPN++'s k x k stencils (k = 5, 7; csrc/cspn_kxk.cu), on K1-K3's raw
+contract with guidance of k^2 - 1 planes:
   cspn_kxk_fwd        the forward;
   cspn_kxk_fwd_stash  the forward that also stashes every d^t;
   cspn_kxk_bwd        the adjoint over that stash.
@@ -41,6 +38,10 @@ cspn_gates9, and the other two have wrappers of their own, for checking and
 timing them alone:
   cspn_bwd_sweep   stage 1, the lam recursion with its adjoint stash;
   cspn_bwd_sums    stage 2, the gate sums (K3's with the chain rule).
+`WRAPPERS` holds every one of these wrappers; `launch_counts()` reads
+their counts by name and `reset_launch_counts()` zeroes them. BatchNorm's
+wrappers count apart (ops/batch_norm.py `WRAPPERS`, and the counter
+`bn.train_calls`).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs the kernel's plain version from ops/cspn_ref.py.
 
@@ -77,9 +78,6 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_prenorm_fwd_plain,
     cspn_prenorm_fwd_stash_plain,
     cspn_propagate_ref_nchw,
-    cspn_tiled_bwd_plain,
-    cspn_tiled_fwd_plain,
-    cspn_tiled_fwd_stash_plain,
     kernel_size_of,
     prenorm_gates9,
     prenorm_gates9_bwd_plain,
@@ -299,7 +297,7 @@ def pick_geometry(b: int, h: int, w: int, num_iters: int) -> int:
     ~200k (one NYU image) 32x32 with an 8-pixel halo; up to ~3M (one
     KITTI image, an NYU batch of 32) 48x48 with an 8-pixel halo; beyond
     (a KITTI batch of 8) 40x40 with a 12-pixel halo, in two rounds. A
-    stash call (K2, K5, K8) takes the same: the stash entries' own sweep
+    stash call (K2, K8) takes the same: the stash entries' own sweep
     found the same points fastest on the H100."""
     if num_iters <= 4:
         return 0
@@ -445,7 +443,7 @@ def cspn_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
 
 
 def _raw_adjoint(guidance, sparse, stash, grad_out, num_iters, norm_type):
-    """Launch the C entry cspn_bwd of csrc/cspn_bwd.cu (K3, K6); returns
+    """Launch the C entry cspn_bwd of csrc/cspn_bwd.cu (K3); returns
     (d_guidance, d_blur, d_sparse)."""
     b, _, h, w = guidance.shape
     dev = guidance.device
@@ -466,61 +464,6 @@ def _raw_adjoint(guidance, sparse, stash, grad_out, num_iters, norm_type):
             lam_stash.data_ptr(), lam_scratch.data_ptr(), b, h, w, num_iters,
             NORM_TYPES.index(norm_type))
     return d_guid, d_blur, d_sparse
-
-
-def cspn_tiled_fwd(guidance: torch.Tensor, blur: torch.Tensor,
-                   sparse: torch.Tensor | None, *, num_iters: int,
-                   norm_type: str,
-                   geometry: int | None = None) -> torch.Tensor:
-    """The H-tiled route's forward (K4, JAX's `_cspn_pallas_tiled` without
-    a gradient): cspn_fwd's contract and function, raw guidance normalized
-    and d^0 anchored in the kernel, so it launches cspn_fwd's C entry.
-
-    A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
-    """
-    if _check_call(guidance, num_iters, norm_type):
-        return cspn_tiled_fwd_plain(guidance, blur, sparse,
-                                    num_iters=num_iters, norm_type=norm_type)
-    out = _forward("cspn_fwd", guidance, blur, sparse, num_iters, norm_type,
-                   None, geometry)
-    cspn_tiled_fwd.launches += 1
-    return out
-
-
-def cspn_tiled_fwd_stash(guidance: torch.Tensor, blur: torch.Tensor,
-                         sparse: torch.Tensor | None, *, num_iters: int,
-                         norm_type: str, geometry: int | None = None
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The H-tiled route's training forward (K5): cspn_fwd_stash's
-    contract and function (its C entry); its output equals
-    cspn_tiled_fwd's."""
-    if _check_call(guidance, num_iters, norm_type):
-        return cspn_tiled_fwd_stash_plain(guidance, blur, sparse,
-                                          num_iters=num_iters,
-                                          norm_type=norm_type)
-    stash = _stash_like(blur, num_iters)
-    out = _forward("cspn_fwd_stash", guidance, blur, sparse, num_iters,
-                   norm_type, stash, geometry)
-    cspn_tiled_fwd_stash.launches += 1
-    return out, stash
-
-
-def cspn_tiled_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
-                   stash: torch.Tensor, grad_out: torch.Tensor, *,
-                   num_iters: int, norm_type: str
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The H-tiled route's adjoint (K6, JAX's `_cspn_tiled_adjoint_bwd_impl`):
-    cspn_bwd's contract and function (its C entry) on the stash of
-    cspn_tiled_fwd_stash -> (d_guidance (B, 8, H, W), d_blur = (1 - m)
-    lam^0, d_sparse = sum_t m lam^{t+1} + m lam^0), the normalization's
-    chain rule and the anchor's gradients included."""
-    if _check_call(guidance, num_iters, norm_type):
-        return cspn_tiled_bwd_plain(guidance, sparse, stash, grad_out,
-                                    num_iters=num_iters, norm_type=norm_type)
-    out = _raw_adjoint(guidance, sparse, stash, grad_out, num_iters,
-                       norm_type)
-    cspn_tiled_bwd.launches += 1
-    return out
 
 
 def _prenorm_adjoint(gates9, sparse, stash, grad_out, num_iters, anchor_d0):
@@ -577,7 +520,7 @@ def _launch(entry: str, dev, *args) -> None:
 
 
 def cspn_gates9(guidance: torch.Tensor, *, norm_type: str) -> torch.Tensor:
-    """The normalization (K3's and K6's stage 0, the slab route's): the raw
+    """The normalization (K3's stage 0, the slab route's): the raw
     guidance (B, 8, H, W), contiguous planes and any batch stride ->
     gates9 (B, 9, H, W) = [1 - sum_k gate_k, gate_1..8], prenorm_gates9's
     function."""
@@ -617,7 +560,7 @@ def cspn_gates9_bwd(guidance: torch.Tensor, d_gates9: torch.Tensor, *,
 def cspn_bwd_sweep(gates9: torch.Tensor, sparse: torch.Tensor | None,
                    grad_out: torch.Tensor, *, num_iters: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stage 1 of K3, K6 and K9, the lam recursion on the transposed
+    """Stage 1 of K3 and K9, the lam recursion on the transposed
     stencil: gates9 (B, 9, H, W), sparse (B, H, W) or None and the
     cotangent grad_out (B, H, W) -> (the adjoint stash (B, T, H, W),
     stash[:, t] = lam^{t+1}, and lam^0 (B, H, W), both unmasked);
@@ -650,7 +593,7 @@ def cspn_bwd_sums(sparse: torch.Tensor | None, stash: torch.Tensor,
     adjoint stash (both contiguous (B, T, H, W)). Without guidance (K9):
     (d_gates9 (B, 9, H, W) = [G_0, G_1..8], d_sparse = sum_t m
     lam^{t+1}). With the raw guidance (B, 8, H, W), lam^0 and norm_type
-    (K3, K6): (d_guidance, d_blur, d_sparse), the chain rule included;
+    (K3): (d_guidance, d_blur, d_sparse), the chain rule included;
     ops/cspn_ref.py:cspn_bwd_sums_plain."""
     if not (guidance is None) == (lam0 is None) == (norm_type is None):
         raise ValueError("guidance, lam0 and norm_type go together")
@@ -742,8 +685,8 @@ def _kxk_size(guidance: torch.Tensor) -> int:
     planes: 5 or 7 (the 3 x 3 stencil runs on K1-K9)."""
     k = kernel_size_of(guidance.shape[1])
     if k == 3:
-        raise ValueError("the 3 x 3 stencil runs on cspn_fwd / "
-                         "cspn_tiled_fwd, not on the k x k kernels")
+        raise ValueError("the 3 x 3 stencil runs on cspn_fwd, not on the "
+                         "k x k kernels")
     return k
 
 
@@ -777,7 +720,7 @@ def cspn_kxk_fwd(guidance: torch.Tensor, blur: torch.Tensor,
     """CSPN++'s k x k forward (csrc/cspn_kxk.cu): raw guidance
     (B, k^2 - 1, H, W), k = 5 or 7, blur and sparse (B, H, W), float32 with
     contiguous planes and any batch stride -> (B, H, W); the
-    normalization and d^0's anchor inside, as K4.
+    normalization and d^0's anchor inside, as K1.
 
     A CUDA tensor goes to the kernels; a CPU tensor to the plain version.
     """
@@ -811,7 +754,7 @@ def cspn_kxk_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
     """The k x k adjoint on the stash of cspn_kxk_fwd_stash: (d_guidance
     (B, k^2 - 1, H, W), d_blur = (1 - m) lam^0, d_sparse = sum_t m
     lam^{t+1} + m lam^0, zero without a sparse map), the normalization's
-    chain rule included, as K6."""
+    chain rule included, as K3."""
     if _check_call(guidance, num_iters, norm_type):
         return cspn_kxk_bwd_plain(guidance, sparse, stash, grad_out,
                                   num_iters=num_iters, norm_type=norm_type)
@@ -841,14 +784,21 @@ def cspn_kxk_bwd(guidance: torch.Tensor, sparse: torch.Tensor | None,
     return d_guid, d_blur, d_sparse
 
 
-WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_tiled_fwd,
-            cspn_tiled_fwd_stash, cspn_tiled_bwd, cspn_prenorm_fwd,
+WRAPPERS = (cspn_fwd, cspn_fwd_stash, cspn_bwd, cspn_prenorm_fwd,
             cspn_prenorm_fwd_stash, cspn_prenorm_bwd, cspn_gates9,
-            cspn_gates9_bwd)
-# The adjoint's further stages alone; the adjoints launch them from C, not
-# these.
-STAGE_WRAPPERS = (cspn_bwd_sweep, cspn_bwd_sums)
-# CSPN++'s k x k kernels (csrc/cspn_kxk.cu, ON_DEMAND).
-KXK_WRAPPERS = (cspn_kxk_fwd, cspn_kxk_fwd_stash, cspn_kxk_bwd)
-for _wrapper in WRAPPERS + STAGE_WRAPPERS + KXK_WRAPPERS:
-    _wrapper.launches = 0
+            cspn_gates9_bwd, cspn_bwd_sweep, cspn_bwd_sums, cspn_kxk_fwd,
+            cspn_kxk_fwd_stash, cspn_kxk_bwd)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's launches since the last reset, by name."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    """Zero every wrapper's launch count."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

@@ -16,10 +16,6 @@ one iteration per step, the same arithmetic in the same order.
   `transposed_gates`, which writes every lam^{t+1} to an adjoint stash),
   `adjoint_sums_plain` (stage 2, the gate sums over both stashes) and
   `cspn_bwd_sums_plain` (stage 2's outputs in K3's and K9's forms);
-* the H-tiled route's K4, K5 and K6 compute the same three functions
-  (JAX's `_cspn_pallas_tiled` takes the raw guidance too), so their plain
-  versions are these (`cspn_tiled_fwd_plain`, `cspn_tiled_fwd_stash_plain`,
-  `cspn_tiled_bwd_plain`);
 * CSPN++'s k x k stencils (k = 5, 7, `csrc/cspn_kxk.cu`): the same
   three functions on guidance of k^2 - 1 planes in `neighbor_offsets(k)`
   order (`cspn_kxk_fwd_plain`, `cspn_kxk_fwd_stash_plain`,
@@ -34,7 +30,7 @@ one iteration per step, the same arithmetic in the same order.
   d^0 on request (the slab route's first round).
 
 `prenorm_gates9` and `anchor` count their calls on a CUDA tensor
-(`.cuda_calls`): on the card every route normalizes and anchors in its
+(`.cuda_calls`): on the card every path normalizes and anchors in its
 kernels, so only a comparison with a plain version calls them there.
 
 Layouts: the public entry `cspn_propagate_ref` takes channels-last guidance
@@ -372,15 +368,7 @@ def adjoint_sums_plain(
     return g_acc, g0_acc, d_sparse
 
 
-# The H-tiled route's kernels K4-K6 take JAX's contract of
-# `_cspn_pallas_tiled` (raw guidance, blur and sparse; the normalization and
-# d^0's anchor inside the op, their gradients inside the adjoint): the
-# functions of K1-K3.
-cspn_tiled_fwd_plain = cspn_propagate_ref_nchw      # K4
-cspn_tiled_fwd_stash_plain = cspn_fwd_stash_plain   # K5
-cspn_tiled_bwd_plain = cspn_bwd_plain               # K6
-
-# CSPN++'s k x k stencils (k = 5, 7; csrc/cspn_kxk.cu) take the same
+# CSPN++'s k x k stencils (k = 5, 7; csrc/cspn_kxk.cu) take K1-K3's
 # contract on guidance of k^2 - 1 planes (neighbor_offsets(k) order): the
 # same three functions, whose stencils read the kernel size from the
 # guidance.

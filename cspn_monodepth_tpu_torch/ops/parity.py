@@ -2,8 +2,8 @@
 (the counterpart of cspn_monodepth_tpu/ops/parity.py).
 
 The CPU tests reach the kernels' plain versions only: a CUDA kernel runs on
-the card alone. This module runs the kernel routes on the device it is
-given and holds them to `cspn_propagate(impl="torch")`, the independent
+the card alone. This module runs the kernels on the device it is given
+and holds them to `cspn_propagate(impl="torch")`, the independent
 plain loop under torch autograd, so a build or a launch that computes
 wrong numbers cannot pass unseen; the port's bench runs it before timing
 and embeds the result, as the JAX package's bench.py does.
@@ -25,20 +25,11 @@ import torch
 from cspn_monodepth_tpu_torch.ops.cspn import (
     cspn_propagate,
     cspn_propagate_prenorm,
-    route,
-)
-from cspn_monodepth_tpu_torch.ops.cspn_cuda import (
-    FWD_GEOMETRIES,
-    fwd_plan,
-    rounds,
 )
 from cspn_monodepth_tpu_torch.ops.cspn_ref import prenorm_gates9
 
 FWD_TOL = 2e-5
 GRAD_TOL = 2e-4
-# One round of the spatial path's slab kernels: its default halo_k rows on
-# each side (parallel/halo.py).
-HALO_K = 4
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -79,18 +70,18 @@ def cspn_parity_check(
     h: int = 228,
     w: int = 304,
     num_iters: int = 24,
-    impl: str = "cuda",
+    impl: str = "auto",
     device: str = "cuda",
 ) -> dict:
-    """The kernel route `impl` against the plain loop on `device`, per norm:
-    the forward with no gradient (K1; K4 under impl="cuda_tiled") and the
-    forward and all three gradients with one wanted (K2/K3; K5/K6). Returns
-    {norm: {fwd_maxrel, grad_maxrel, out_mag}}; raises AssertionError where
-    an error reaches FWD_TOL or GRAD_TOL.
+    """The kernels (`impl="auto"`) against the plain loop on `device`, per
+    norm: the forward with no gradient (K1) and the forward and all three
+    gradients with one wanted (K2/K3), at any h x w (NYU's 228x304 and
+    KITTI's 352x1216 take the same kernels). Returns {norm: {fwd_maxrel,
+    grad_maxrel, out_mag}}; raises AssertionError where an error reaches
+    FWD_TOL or GRAD_TOL.
 
-    impl: "cuda" (the whole-plane kernels, CUDA tensors only),
-    "cuda_tiled", or "auto" (the route `route` picks for h x w). On CPU
-    tensors every route runs the kernels' plain versions.
+    impl: "auto", or "torch" to hold the plain loop to itself (a control).
+    On CPU tensors the kernels' wrappers run their plain versions.
     """
     rng = np.random.default_rng(0)
     results = {}
@@ -146,43 +137,3 @@ def prenorm_parity_check(
 
     return _compare(kernel, plain, inputs, torch.from_numpy(cot).to(device),
                     "prenorm")
-
-
-def _geometry(b: int, h: int, w: int, num_iters: int) -> tuple[int, int]:
-    """(TILE, HALO) of the forward plan for a (B, H, W) call."""
-    return FWD_GEOMETRIES[fwd_plan(b, h, w, num_iters)][:2]
-
-
-def _slab_fits(b: int, h: int, w: int) -> bool:
-    """A halo'd slab of one round (r = HALO_K) is one launch of the slab
-    forward, and its pixels are within the adjoint's 32-bit index."""
-    return (rounds(fwd_plan(b, h, w, HALO_K), HALO_K) == 1
-            and h * w < 2 ** 31)
-
-
-def routing_check() -> dict:
-    """What routes where on this card (free: Python only, nothing built),
-    in the place of the JAX package's VMEM budget asserts: the port has no
-    VMEM budgets. NYU takes the whole-plane kernels and KITTI the H-tiled
-    ones; the forward plan's tile geometry (TILE, HALO) by shape is the
-    one the H100 sweep chose; the deployed slabs are within the slab
-    kernels' contract. Raises AssertionError where one does not hold."""
-    checks = {
-        "nyu_whole_plane": route(228, 304) == "cuda",
-        "kitti_tiled": route(352, 1216) == "cuda_tiled",
-        "nyu_b1_32x8": _geometry(1, 228, 304, 24) == (32, 8),
-        "nyu_b32_48x8": _geometry(32, 228, 304, 24) == (48, 8),
-        "kitti_b1_48x8": _geometry(1, 352, 1216, 24) == (48, 8),
-        "kitti_b8_40x12": _geometry(8, 352, 1216, 24) == (40, 12),
-        # kitti_1216 on 2x4: 4 images of 352/4 + 2k rows; multihost on
-        # 16x2: 16 images of 228/2 + 2k rows.
-        "kitti_slab_32x4": _geometry(4, 352 // 4 + 2 * HALO_K, 1216,
-                                     HALO_K) == (32, 4),
-        "nyu_slab_32x4": _geometry(16, 228 // 2 + 2 * HALO_K, 304,
-                                   HALO_K) == (32, 4),
-        "kitti_slab_prenorm": _slab_fits(4, 352 // 4 + 2 * HALO_K, 1216),
-        "nyu_slab_prenorm": _slab_fits(16, 228 // 2 + 2 * HALO_K, 304),
-    }
-    if not all(checks.values()):
-        raise AssertionError(f"routing: {checks}")
-    return checks

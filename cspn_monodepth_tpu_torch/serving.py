@@ -161,8 +161,8 @@ class DepthPredictor:
         (batch, height, width, 1) depth. Returns the ExportedProgram.
 
         The forward is traced under torch.no_grad() on the predictor's
-        device, so that the CSPN is the one node of the K1 (or K4)
-        operator and nothing of the training path. Two differences from
+        device, so that the CSPN is the one node of the K1 operator
+        and nothing of the training path. Two differences from
         the JAX artifact, by design:
         * loading needs the operators registered: a process imports
           `cspn_monodepth_tpu_torch.ops.library` and calls its

@@ -4,8 +4,8 @@ loop (the counterpart of the root tools/bench_cspn_vjp.py).
 Each step takes the gradients of <cspn(guidance, blur, sparse), cot> with
 respect to ALL THREE inputs and feeds every one of them back into the
 chain's carry, so neither side can leave part of its adjoint out: the
-kernels (the whole-plane route: CSPNFunction, the stash forward K2 and the
-adjoint K3; with --kitti the H-tiled route: K5 and K6 at 352x1216) against
+kernels (CSPNFunction: the stash forward K2 and the adjoint K3, at NYU's
+batch 32 x 228x304, or with --kitti at KITTI's batch 8 x 352x1216) against
 `impl="torch"`, the plain loop of ops/cspn_ref.py under torch autograd.
 Each is timed by the marginal chain (profile_components.py `chain_ms`).
 On CPU tensors the kernels' wrappers run their plain versions.
@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from cspn_monodepth_tpu_torch.ops import cspn_propagate
-from cspn_monodepth_tpu_torch.ops.cspn import route
 from cspn_monodepth_tpu_torch.tools import device_line, parser
 from cspn_monodepth_tpu_torch.tools.profile_components import chain_ms
 
@@ -30,7 +29,7 @@ from cspn_monodepth_tpu_torch.tools.profile_components import chain_ms
 def main(argv=None) -> dict:
     ap = parser(__doc__)
     ap.add_argument("--kitti", action="store_true",
-                    help="the H-tiled kernels at KITTI's batch 8 x 352x1216")
+                    help="at KITTI's batch 8 x 352x1216")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--hw", default=None)
     ap.add_argument("--num-iters", type=int, default=24)
@@ -41,8 +40,6 @@ def main(argv=None) -> dict:
     b = args.batch or b
     if args.hw:
         h, w = (int(v) for v in args.hw.split("x"))
-    # "auto" takes the whole-plane route at NYU's size, on a CPU tensor too.
-    impl = "cuda_tiled" if args.kitti else "auto"
 
     rng = np.random.default_rng(0)
     guid = rng.normal(size=(b, h, w, 8)).astype(np.float32)
@@ -63,11 +60,10 @@ def main(argv=None) -> dict:
             return tuple(t.detach() + g * 1e-12 for t, g in zip(c, grads))
         return fn
 
-    res = {"kernels_fwd_plus_full_bwd_ms": chain_ms(step(impl), carry,
+    res = {"kernels_fwd_plus_full_bwd_ms": chain_ms(step("auto"), carry,
                                                     args.iters),
            "plain_fwd_plus_full_bwd_ms": chain_ms(step("torch"), carry,
                                                   args.iters),
-           "route": "cuda_tiled" if args.kitti else route(h, w),
            "shape": f"{b}x{h}x{w}", "iters": args.num_iters,
            "device": line}
     print(json.dumps(res), flush=True)

@@ -54,8 +54,8 @@ files and every rank restores.
 
 Mixed training (cfg.data.mix_dataset, `host8_dp`'s NYU + KITTI): every
 mix_every-th step of an epoch takes its batch from a second dataset, at
-its own size; the model is fully convolutional and the CSPN routes each
-shape (ops/cspn.py:route), so NYU steps run K2/K3 and KITTI steps K5/K6.
+its own size; the model is fully convolutional and the CSPN kernels
+(K2/K3) take any shape, each with the tile geometry of its size.
 Both streams are pure functions of (seed, epoch, step), so a resume
 inside an epoch replays them. Evaluation stays on the main dataset.
 

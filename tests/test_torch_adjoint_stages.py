@@ -1,7 +1,7 @@
 """The plain versions of the adjoint kernels' stages (csrc/cspn_bwd.cu)
 against the JAX package, on the CPU.
 
-The adjoints K3, K6 and K9 are composed of a gates9 stage (K3 only), the
+The adjoints K3 and K9 are composed of a gates9 stage (K3 only), the
 lam sweep (`adjoint_sweep_plain`: lam^t = the forward's stencil on the
 `transposed_gates` applied to lam_u = (1 - m) lam^{t+1}, every lam^{t+1}
 written to an adjoint stash) and the sums pass (`adjoint_sums_plain`, the
@@ -15,7 +15,7 @@ and handed to both sides:
 * the sums pass, fed JAX's own stash and the sweep's lam stash, against
   JAX's interpret-mode adjoint kernels: `_cspn_pallas_bwd_impl` (K3, raw
   guidance, chain rule included) and `_cspn_prenorm_bwd_impl` (K9, the
-  prenormalized contract K6 shares): max-relative 1e-4, the reverse-mode
+  prenormalized contract): max-relative 1e-4, the reverse-mode
   sums of two different programs, as tests/test_torch_cspn_grad.py holds
   the whole adjoint;
 * the transposed-gates stencil against the adjoint written as a gather
@@ -56,7 +56,6 @@ from cspn_monodepth_tpu_torch.ops.cspn_ref import (
     cspn_fwd_stash_plain,
     cspn_prenorm_bwd_plain,
     cspn_prenorm_fwd_stash_plain,
-    cspn_tiled_bwd_plain,
     prenorm_gates9,
     transposed_gates,
 )
@@ -231,7 +230,7 @@ def test_transposed_stencil_is_the_adjoint_of_the_forward_step(b, h, w):
 @pytest.mark.parametrize("norm", NORMS)
 def test_stage_wrappers_compose_to_the_adjoints_on_cpu(norm, with_sparse):
     """On CPU tensors each stage wrapper runs its plain stage: gates9,
-    sweep and sums compose to K3's (and K6's) plain version, sweep and sums
+    sweep and sums compose to K3's plain version, sweep and sums
     to K9's, bit for bit, as the C entries compose the stage kernels."""
     guid, _, d0, sp, cot = problem(5, 2, 13, 17, norm, with_sparse)
     guid, d0, cot = t(guid), t(d0), t(cot)
@@ -245,9 +244,6 @@ def test_stage_wrappers_compose_to_the_adjoints_on_cpu(norm, with_sparse):
                                   lam0=lam0, norm_type=norm, **kw)
     want = cspn_bwd_plain(guid, sparse, stash, cot, norm_type=norm, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    want6 = cspn_tiled_bwd_plain(guid, sparse, stash, cot, norm_type=norm,
-                                 **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, want6))
 
     _, tstash = cspn_prenorm_fwd_stash_plain(gates9, anchor(d0, sparse),
                                              sparse, **kw)

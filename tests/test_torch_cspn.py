@@ -12,6 +12,9 @@ absolute tolerance is meaningless and `8sum_abs` is the absolute-scale
 control (ops/parity.py).
 """
 
+import inspect
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -164,16 +167,10 @@ def test_zero_guidance_clamp_is_identity():
     np.testing.assert_array_equal(out.numpy(), want)
 
 
-def test_cuda_impl_on_cpu_tensor_raises():
-    guid, blur, sparse = problem(1, 1, 8, 8)
-    with pytest.raises(ValueError, match="CUDA"):
-        cspn_propagate(torch.from_numpy(guid), torch.from_numpy(blur),
-                       torch.from_numpy(sparse), impl="cuda")
-
-
-@pytest.mark.parametrize("kw", [dict(impl="jnp"),
+@pytest.mark.parametrize("kw", [dict(impl="jnp"), dict(impl="cuda"),
                                 dict(guidance_layout="HWNC")])
 def test_dispatcher_rejects_unknown_options(kw):
+    """impl is "auto" or "torch"; anything else raises."""
     guid, blur, _ = problem(1, 1, 8, 8, with_sparse=False)
     with pytest.raises(ValueError):
         cspn_propagate(torch.from_numpy(guid), torch.from_numpy(blur), **kw)
@@ -194,3 +191,24 @@ def test_wrapper_on_cpu_runs_plain_version_and_builds_nothing():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert cspn_cuda.cspn_fwd.launches == before
     assert not cspn_cuda._libs          # no kernel library was loaded
+
+
+# Every wrapper of ops/cspn_cuda.py that counts its launches, read from its
+# source: a wrapper added there without joining the registry fails below.
+COUNTING_WRAPPERS = sorted(set(re.findall(
+    r"^\s+(\w+)\.launches \+= 1$", inspect.getsource(cspn_cuda), re.M)))
+
+
+@pytest.mark.parametrize("name", COUNTING_WRAPPERS)
+def test_every_wrapper_is_registered_and_counted(name):
+    fn = getattr(cspn_cuda, name)
+    assert fn in cspn_cuda.WRAPPERS
+    assert len(cspn_cuda.WRAPPERS) == len(COUNTING_WRAPPERS)
+    try:
+        fn.launches = 7
+        assert cspn_cuda.launch_counts()[name] == 7
+        cspn_cuda.reset_launch_counts()
+        assert fn.launches == 0
+        assert set(cspn_cuda.launch_counts().values()) == {0}
+    finally:
+        cspn_cuda.reset_launch_counts()

@@ -1,6 +1,7 @@
-"""The port's H-tiled CSPN route (kernels K4-K6 and `TiledCSPNFunction`,
-on JAX's contract: raw guidance, blur and sparse in, the normalization and
-d^0's anchor inside the op) against the JAX package's, on the CPU.
+"""The port's CSPN op (`cspn_propagate(impl="auto")`: K1-K3 and
+`CSPNFunction`, on JAX's contract: raw guidance, blur and sparse in, the
+normalization and d^0's anchor inside the op) against the JAX package's
+H-tiled op, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both sides. The JAX
 side runs its Pallas kernels in interpret mode, as tests/test_cspn_pallas.py
@@ -9,22 +10,22 @@ rounds; the port's CPU tensors take the kernels' plain versions.
 * `prenorm_gates9` against `_prenorm_gates9` and its `jax.vjp` (random
   guidance, away from zeros): max-relative 1e-6, the same f32 formulas;
 * `cspn_propagate_prenorm_ref` against JAX's: 1e-5;
-* `cspn_propagate(..., impl="cuda_tiled")` against
+* `cspn_propagate(..., impl="auto")` against
   `cspn_propagate_pallas_tiled(..., interpret=True)`: rtol 1e-5 relative to
   max|want| (tests/test_cspn_pallas.py:_assert_close); with a gradient
-  wanted, `TiledCSPNFunction`'s value and its three gradients for a random
+  wanted, `CSPNFunction`'s value and its three gradients for a random
   cotangent against JAX's tiled VJP (its stash forward and tiled adjoint,
-  K5 and K6, with `pick_tile_h_bwd` at 16 rows) under the three norms,
-  with and without sparse, at T = 1, 10 and 24: 1e-5 and rtol 1e-4;
+  with `pick_tile_h_bwd` at 16 rows) under the three norms, with and
+  without sparse, at T = 1, 10 and 24: 1e-5 and rtol 1e-4;
 * the Function saves JAX's residuals (the guidance, sparse and the stash),
   no gates9, and sits right on the inputs: no plain op runs around it;
 * zero guidance against the JAX whole-plane VJP (its K2 and K3): the JAX
   tiled VJP takes d|g|/dg = +1 at g = 0 under `8sum_abs` (`jax.vjp` of
   `_prenorm_gates9`), the JAX K3 and the port sign(0) = 0;
-* the gates9 contract's plain adjoint (`cspn_prenorm_bwd_plain`, K6's
-  before the route took raw guidance, K9's now) against `jax.vjp` of JAX's
-  prenorm reference;
-* the routing rule against JAX's `_fits_vmem`, as pure functions.
+* the gates9 contract's plain adjoint (`cspn_prenorm_bwd_plain`, K9's)
+  against `jax.vjp` of JAX's prenorm reference;
+* every size, NYU's, KITTI's and others on both sides of JAX's VMEM
+  budget, takes the one path: K1 without a gradient, K2 then K3 with one.
 The port's round count (4 iterations per round) is its own: T = 10 leaves
 a remainder round, and H = 50, 37, 13 are not tile multiples.
 """
@@ -36,7 +37,6 @@ import pytest
 import torch
 
 import cspn_monodepth_tpu.ops.cspn_pallas as jax_cp
-from cspn_monodepth_tpu.ops.cspn import _fits_vmem as jax_fits_vmem
 from cspn_monodepth_tpu.ops.cspn_pallas import (
     _prenorm_gates9,
     cspn_propagate_pallas,
@@ -148,7 +148,7 @@ def jax_tiled(guid, blur, sparse, with_sparse, **kw):
 def port_tiled(guid, blur, sparse, with_sparse, **kw):
     return cspn_propagate(t(guid), t(blur),
                           t(sparse) if with_sparse else None,
-                          impl="cuda_tiled", guidance_layout="NCHW", **kw)
+                          impl="auto", guidance_layout="NCHW", **kw)
 
 
 @pytest.mark.parametrize("with_sparse", [True, False])
@@ -182,20 +182,9 @@ def test_tiled_forward_odd_sizes(hw, tile_h, k):
                            tile_h=tile_h, **kw), FWD_TOL)
 
 
-def test_tiled_route_equals_whole_plane_route_on_the_cpu():
-    """The same function by two routes: the plain versions normalize and
-    iterate in the same order, so they agree bit for bit."""
-    guid, blur, sparse, _ = problem(5, 2, 21, 30)
-    kw = dict(num_iters=10, norm_type="8sum", guidance_layout="NCHW")
-    tiled = cspn_propagate(t(guid), t(blur), t(sparse), impl="cuda_tiled",
-                           **kw)
-    whole = cspn_propagate(t(guid), t(blur), t(sparse), impl="auto", **kw)
-    torch.testing.assert_close(tiled, whole, rtol=0, atol=0)
-
-
 # ------------------------------------------------------------ gradients
 def port_vjp(guid, blur, sparse, cot, with_sparse, impl, **kw):
-    """The route's output and the gradients of all its inputs."""
+    """The op's output and the gradients of all its inputs."""
     g, b = t(guid).requires_grad_(), t(blur).requires_grad_()
     s = t(sparse).requires_grad_() if with_sparse else None
     out = cspn_propagate(g, b, s, impl=impl, guidance_layout="NCHW", **kw)
@@ -231,14 +220,13 @@ TILED_GRAD_CASES = [(num_iters, norm, with_sparse)
 @pytest.mark.parametrize("num_iters,norm,with_sparse", TILED_GRAD_CASES)
 def test_tiled_gradients_match_jax_tiled_vjp(monkeypatch, num_iters, norm,
                                              with_sparse):
-    """TiledCSPNFunction (K5, K6 on the raw inputs) against
+    """CSPNFunction (K2, K3 on the raw inputs) against
     `_cspn_pallas_tiled` and its jax.vjp on 50x40: JAX in 16-row tiles (4
     tiles, H padded to 64); the value and the three gradients."""
     monkeypatch.setattr(jax_cp, "pick_tile_h_bwd", lambda h, w, k, **kw: 16)
     guid, blur, sparse, cot = problem(6, 2, 50, 40, with_sparse)
     kw = dict(num_iters=num_iters, norm_type=norm)
-    out, got = port_vjp(guid, blur, sparse, cot, with_sparse, "cuda_tiled",
-                        **kw)
+    out, got = port_vjp(guid, blur, sparse, cot, with_sparse, "auto", **kw)
     want_out, want = jax_vjp(cspn_propagate_pallas_tiled, guid, blur, sparse,
                              cot, with_sparse, halo_k=3, **kw)
     assert_close(out, want_out, FWD_TOL)
@@ -249,7 +237,7 @@ def test_tiled_gradients_match_jax_tiled_vjp(monkeypatch, num_iters, norm,
 
 
 @pytest.mark.parametrize("with_sparse", [True, False])
-def test_tiled_function_saves_jax_residuals_and_no_gates9(with_sparse):
+def test_function_saves_jax_residuals_and_no_gates9(with_sparse):
     """JAX's `_tiled_fwd` keeps (guidance, blur, sparse, stash): the port's
     Function keeps the guidance, sparse and the stash, no (B, 9, H, W)
     gates9, and takes the inputs themselves (no plain normalization or
@@ -258,8 +246,8 @@ def test_tiled_function_saves_jax_residuals_and_no_gates9(with_sparse):
     g, b = t(guid).requires_grad_(), t(blur).requires_grad_()
     s = t(sparse).requires_grad_() if with_sparse else None
     out = cspn_propagate(g, b, s, num_iters=5, norm_type="8sum_clamp",
-                         impl="cuda_tiled", guidance_layout="NCHW")
-    assert type(out.grad_fn).__name__ == "TiledCSPNFunctionBackward"
+                         impl="auto", guidance_layout="NCHW")
+    assert type(out.grad_fn).__name__ == "CSPNFunctionBackward"
     saved = [tuple(x.shape) for x in out.grad_fn.saved_tensors
              if x is not None]
     want = [(2, 8, 13, 17), (2, 5, 13, 17)] + (
@@ -273,16 +261,16 @@ def test_tiled_function_saves_jax_residuals_and_no_gates9(with_sparse):
 
 @pytest.mark.parametrize("norm", NORMS)
 def test_zero_guidance_gradients_match_jax_whole_plane_vjp(norm):
-    """A fresh model's head is zero. The port's tiled route follows its K3
-    route and JAX's K3 (sign(0) = 0), not JAX's tiled VJP, which gives ~1e9
-    under 8sum_abs there (d|g|/dg = +1 at 0)."""
+    """A fresh model's head is zero. The port's K3 follows JAX's K3
+    (sign(0) = 0), not JAX's tiled VJP, which gives ~1e9 under 8sum_abs
+    there (d|g|/dg = +1 at 0)."""
     guid, blur, sparse, cot = problem(7, 1, 9, 11, zero_guidance=True)
     kw = dict(num_iters=3, norm_type=norm)
-    got = port_grads(guid, blur, sparse, cot, True, "cuda_tiled", **kw)
+    got = port_grads(guid, blur, sparse, cot, True, "auto", **kw)
     want = jax_grads(cspn_propagate_pallas, guid, blur, sparse, cot, True,
                      **kw)
-    whole = port_grads(guid, blur, sparse, cot, True, "auto", **kw)
-    for a, w, p in zip(got, want, whole):
+    plain = port_grads(guid, blur, sparse, cot, True, "torch", **kw)
+    for a, w, p in zip(got, want, plain):
         assert np.isfinite(a).all()
         if np.abs(w).max() == 0:
             assert np.abs(a).max() == np.abs(p).max() == 0
@@ -291,13 +279,13 @@ def test_zero_guidance_gradients_match_jax_whole_plane_vjp(norm):
             assert max_rel(a, p) <= GRAD_TOL
 
 
-def test_tiled_zero_iterations():
+def test_zero_iterations():
     """T = 0: the output is the anchored blur; d_blur and d_sparse split
     the cotangent by the mask; the guidance gets none."""
     guid, blur, sparse, cot = problem(8, 1, 8, 10)
     g, b, s = (t(x).requires_grad_() for x in (guid, blur, sparse))
     out = cspn_propagate(g, b, s, num_iters=0, norm_type="8sum_clamp",
-                         impl="cuda_tiled", guidance_layout="NCHW")
+                         impl="auto", guidance_layout="NCHW")
     np.testing.assert_array_equal(out.detach().numpy(),
                                   np.where(sparse > 0, sparse, blur))
     d_g, d_b, d_s = torch.autograd.grad((out * t(cot)).sum(), (g, b, s))
@@ -310,10 +298,9 @@ def test_tiled_zero_iterations():
 @pytest.mark.parametrize("num_iters,with_sparse", [(5, True), (10, False)])
 def test_tiled_bwd_plain_matches_jax_vjp_of_prenorm_ref(num_iters,
                                                         with_sparse):
-    """The gates9 contract's plain adjoint (K6's before the tiled route took
-    raw guidance, K9's now): d_gates9, lam0 (dL/dd^0, no mask) and the
-    per-iteration anchors' sum against jax.vjp of JAX's prenorm reference
-    in gates9, d0, sparse."""
+    """The gates9 contract's plain adjoint (K9's): d_gates9, lam0 (dL/dd^0,
+    no mask) and the per-iteration anchors' sum against jax.vjp of JAX's
+    prenorm reference in gates9, d0, sparse."""
     guid, blur, sparse, cot = problem(9, 2, 13, 17, with_sparse)
     gates9 = np.array(_prenorm_gates9(jnp.asarray(guid), "8sum_clamp",
                                         True))
@@ -340,24 +327,17 @@ def test_tiled_bwd_plain_matches_jax_vjp_of_prenorm_ref(num_iters,
         assert torch.equal(got[2], torch.zeros_like(got[2]))
 
 
-# ------------------------------------------------------------ routing
+# ------------------------------------------------------------ one path
 @pytest.mark.parametrize("hw", [(352, 1216), (228, 304), (13, 17),
                                 (448, 448), (449, 449), (240, 1216)])
-def test_route_follows_the_jax_budget_rule(hw):
-    want = "cuda" if jax_fits_vmem(*hw) else "cuda_tiled"
-    assert port_cspn.route(*hw) == want
-    if hw == (352, 1216):
-        assert want == "cuda_tiled"
-    if hw == (228, 304):
-        assert want == "cuda"
-
-
-def test_auto_takes_the_route_rule(monkeypatch):
-    """impl="auto" runs the route that `route` names: K4 (no gradient) or
-    K5 + K6 (a gradient wanted) for the tiled one."""
+def test_every_size_takes_the_one_path(hw, monkeypatch):
+    """NYU's and KITTI's sizes and others on both sides of JAX's VMEM
+    budget (352x1216 and 240x1216 beyond it, where JAX takes its H-tiled
+    kernels): without a gradient the operator cspn_fwd, with one the stash
+    forward then the adjoint; the output is the plain loop's bit for
+    bit."""
     calls = []
-    for name in ("cspn_fwd", "cspn_tiled_fwd", "cspn_tiled_fwd_stash",
-                 "cspn_tiled_bwd"):
+    for name in ("cspn_fwd", "cspn_fwd_stash", "cspn_bwd"):
         real = getattr(port_cspn, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -365,15 +345,14 @@ def test_auto_takes_the_route_rule(monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(port_cspn, name, spy)
-    guid, blur, sparse, _ = problem(10, 1, 10, 12)
-    kw = dict(num_iters=4, norm_type="8sum_clamp", guidance_layout="NCHW")
-    cspn_propagate(t(guid), t(blur), t(sparse), **kw)
-    monkeypatch.setattr(port_cspn, "route", lambda h, w: "cuda_tiled")
-    want = cspn_propagate_ref_nchw(t(guid), t(blur), t(sparse),
-                                   num_iters=4, norm_type="8sum_clamp")
-    got = cspn_propagate(t(guid), t(blur), t(sparse), **kw)
+    guid, blur, sparse, _ = problem(10, 1, *hw)
+    kw = dict(num_iters=2, norm_type="8sum_clamp")
+    want = cspn_propagate_ref_nchw(t(guid), t(blur), t(sparse), **kw)
+    got = cspn_propagate(t(guid), t(blur), t(sparse), guidance_layout="NCHW",
+                         **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     g = t(guid).requires_grad_()
-    cspn_propagate(g, t(blur), t(sparse), **kw).sum().backward()
-    assert calls == ["cspn_fwd", "cspn_tiled_fwd", "cspn_tiled_fwd_stash",
-                     "cspn_tiled_bwd"]
+    out = cspn_propagate(g, t(blur), t(sparse), guidance_layout="NCHW", **kw)
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
+    out.sum().backward()
+    assert calls == ["cspn_fwd", "cspn_fwd_stash", "cspn_bwd"]

@@ -8,12 +8,13 @@ tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: max-relative error max|a - b| / max|b| <= 1e-5 for each kernel
-(K1 forward, K2 stash forward, K3 adjoint; K4-K6, the H-tiled route's,
-the same functions through the same C entries; K7-K9, the prenormalized
+(K1 forward, K2 stash forward, K3 adjoint, at every size: at JAX's
+H-tiled cases too, where the kernel table calls them K4-K6; K7-K9, the
+prenormalized
 gates9 contract on the spatial path's halo'd slabs, d^0 as given or
 anchored on load; the normalization's pair cspn_gates9 / cspn_gates9_bwd;
 the adjoints' stage kernels against their plain stages) and each output;
-two runs of K3, K6 and K9 agree bit for bit, and so do the forward
+two runs of K3 and K9 agree bit for bit, and so do the forward
 kernels under every tile geometry of their launch plan
 (ops/cspn_cuda.py:fwd_plan). The
 kernels contract to FMA and sum in their own order; random signed gates
@@ -125,13 +126,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["auto", "cuda"])
-def test_dispatcher_sends_cuda_tensors_to_the_kernel(cuda, impl):
+def test_dispatcher_sends_cuda_tensors_to_the_kernel(cuda):
     guid, blur, sparse = problem(4, 1, 20, 30)
     kw = dict(num_iters=6, norm_type="8sum_clamp", guidance_layout="NCHW")
     want = cspn_propagate(guid, blur, sparse, impl="torch", **kw)
     before = cspn_cuda.cspn_fwd.launches
-    got = cspn_propagate(*to((guid, blur, sparse), cuda), impl=impl, **kw)
+    got = cspn_propagate(*to((guid, blur, sparse), cuda), **kw)
     assert cspn_cuda.cspn_fwd.launches == before + 1
     assert max_rel(got, want) <= TOL
 
@@ -322,10 +322,9 @@ TILED_CASES = [
 ]
 
 
-def tiled_launches():
-    return (cspn_cuda.cspn_tiled_fwd.launches,
-            cspn_cuda.cspn_tiled_fwd_stash.launches,
-            cspn_cuda.cspn_tiled_bwd.launches)
+def raw_launches():
+    return (cspn_cuda.cspn_fwd.launches, cspn_cuda.cspn_fwd_stash.launches,
+            cspn_cuda.cspn_bwd.launches)
 
 
 def plain_cuda_calls():
@@ -335,30 +334,30 @@ def plain_cuda_calls():
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_iters,hw,norm,with_sparse", TILED_CASES)
 def test_tiled_kernels_match_plain(cuda, num_iters, hw, norm, with_sparse):
-    """K4 (forward), K5 (out and every stash plane) and K6 (d_guidance,
-    d_blur, d_sparse) on the raw inputs against their plain versions; K5's
-    out is K4's bit for bit, and so is the gates9 contract's on
-    cspn_gates9's planes with d^0 anchored on load (K7's entry); anchors
-    exact."""
+    """K1 (forward), K2 (out and every stash plane) and K3 (d_guidance,
+    d_blur, d_sparse) at JAX's H-tiled cases, on the raw inputs against
+    their plain versions; K2's out is K1's bit for bit, and so is the
+    slab route's on cspn_gates9's planes with d^0 anchored on load (K7's
+    entry); anchors exact."""
     guid, blur, sparse = problem(21, 2, *hw, with_sparse)
     cot = torch.from_numpy(np.random.default_rng(22).standard_normal(
         blur.shape).astype(np.float32))
     kw = dict(num_iters=num_iters, norm_type=norm)
-    want = cspn_cuda.cspn_tiled_fwd_plain(guid, blur, sparse, **kw)
-    want_out, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(
+    want = cspn_cuda.cspn_fwd_plain(guid, blur, sparse, **kw)
+    want_out, want_stash = cspn_cuda.cspn_fwd_stash_plain(
         guid, blur, sparse, **kw)
-    want_grads = cspn_cuda.cspn_tiled_bwd_plain(guid, sparse, want_stash,
-                                                cot, **kw)
+    want_grads = cspn_cuda.cspn_bwd_plain(guid, sparse, want_stash, cot,
+                                          **kw)
     g, d, s, c = to((guid, blur, sparse, cot), cuda)
-    before = tiled_launches()
-    got = cspn_cuda.cspn_tiled_fwd(g, d, s, **kw)
-    out, stash = cspn_cuda.cspn_tiled_fwd_stash(g, d, s, **kw)
-    grads = cspn_cuda.cspn_tiled_bwd(g, s, stash, c, **kw)
+    before = raw_launches()
+    got = cspn_cuda.cspn_fwd(g, d, s, **kw)
+    out, stash = cspn_cuda.cspn_fwd_stash(g, d, s, **kw)
+    grads = cspn_cuda.cspn_bwd(g, s, stash, c, **kw)
     on_gates9 = cspn_cuda.cspn_prenorm_fwd(
         cspn_cuda.cspn_gates9(g, norm_type=norm), d, s, num_iters=num_iters,
         anchor_d0=True)
     torch.cuda.synchronize()
-    assert tiled_launches() == tuple(n + 1 for n in before)
+    assert raw_launches() == tuple(n + 1 for n in before)
     assert max_rel(got, want) <= TOL
     torch.testing.assert_close(out, got, rtol=0, atol=0)
     torch.testing.assert_close(on_gates9, got, rtol=0, atol=0)
@@ -377,22 +376,9 @@ def test_tiled_kernels_match_plain(cuda, num_iters, hw, norm, with_sparse):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
-def test_tiled_route_matches_whole_plane_route(cuda, norm):
-    """The same function by two routes on the card: K4 against K1 on the
-    raw guidance, one C entry, bit for bit."""
-    guid, blur, sparse = to(problem(23, 2, 70, 90), cuda)
-    kw = dict(num_iters=24, norm_type=norm, guidance_layout="NCHW")
-    tiled = cspn_propagate(guid, blur, sparse, impl="cuda_tiled", **kw)
-    whole = cspn_propagate(guid, blur, sparse, impl="cuda", **kw)
-    assert max_rel(tiled, whole) <= TOL
-    torch.testing.assert_close(tiled, whole, rtol=0, atol=0)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("with_sparse", [True, False])
 def test_tiled_function_matches_torch_autograd(cuda, with_sparse):
-    """Gradients of every input through TiledCSPNFunction (K5, K6; the
+    """Gradients of every input through CSPNFunction (K2, K3; the
     normalization, the anchor and their gradients inside), against torch
     autograd of the plain loop, guidance and blur as head slices; no plain
     normalization or anchor on the card."""
@@ -410,9 +396,9 @@ def test_tiled_function_matches_torch_autograd(cuda, with_sparse):
         inputs = [h] + ([sp] if sp is not None else [])
         return torch.autograd.grad((out * cot.to(device)).sum(), inputs)
 
-    before, plain = tiled_launches(), plain_cuda_calls()
-    got = grads(cuda, "cuda_tiled")
-    assert tiled_launches() == (before[0], before[1] + 1, before[2] + 1)
+    before, plain = raw_launches(), plain_cuda_calls()
+    got = grads(cuda, "auto")
+    assert raw_launches() == (before[0], before[1] + 1, before[2] + 1)
     assert plain_cuda_calls() == plain
     want = grads("cpu", "torch")
     for a, w in zip(got, want):
@@ -420,13 +406,12 @@ def test_tiled_function_matches_torch_autograd(cuda, with_sparse):
 
 
 @pytest.mark.cuda
-def test_auto_sends_kitti_images_to_the_tiled_kernels(cuda):
+def test_auto_sends_kitti_images_to_k1(cuda):
     guid, blur, sparse = to(problem(9, 1, 352, 1216), cuda)
-    before = (cspn_cuda.cspn_fwd.launches, cspn_cuda.cspn_tiled_fwd.launches)
+    before = raw_launches()
     cspn_propagate(guid, blur, sparse, num_iters=2, norm_type="8sum_clamp",
                    guidance_layout="NCHW")
-    assert (cspn_cuda.cspn_fwd.launches,
-            cspn_cuda.cspn_tiled_fwd.launches) == (before[0], before[1] + 1)
+    assert raw_launches() == (before[0] + 1, before[1], before[2])
 
 
 def prenorm_launches():
@@ -501,7 +486,8 @@ def test_prenorm_function_matches_torch_autograd(cuda, anchor_d0):
 
 
 def stage_launches():
-    return tuple(w.launches for w in cspn_cuda.STAGE_WRAPPERS)
+    return (cspn_cuda.cspn_bwd_sweep.launches,
+            cspn_cuda.cspn_bwd_sums.launches)
 
 
 @pytest.mark.cuda
@@ -563,8 +549,8 @@ def to_cuda(kw: dict, device) -> dict:
 
 @pytest.mark.cuda
 def test_adjoints_are_deterministic(cuda):
-    """No atomics: two runs of K3, of K6 and of K9 on the same inputs agree
-    bit for bit."""
+    """No atomics: two runs of K3 and of K9 on the same inputs agree bit for
+    bit."""
     guid, blur, sparse = to(problem(43, 2, 100, 150), cuda)
     cot = torch.randn(blur.shape, generator=torch.Generator().manual_seed(
         44)).to(cuda)
@@ -576,8 +562,6 @@ def test_adjoints_are_deterministic(cuda):
                                                  anchor_d0=True, **kw)
     for run in (lambda: cspn_cuda.cspn_bwd(guid, sparse, stash, cot,
                                            norm_type="8sum", **kw),
-                lambda: cspn_cuda.cspn_tiled_bwd(guid, sparse, stash, cot,
-                                                 norm_type="8sum", **kw),
                 lambda: cspn_cuda.cspn_prenorm_bwd(gates9, sparse, pstash,
                                                    cot, anchor_d0=True,
                                                    **kw)):
@@ -586,9 +570,9 @@ def test_adjoints_are_deterministic(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["raw", "prenorm", "tiled"])
+@pytest.mark.parametrize("contract", ["raw", "prenorm"])
 @pytest.mark.parametrize("w", [53, 56])
-def test_every_geometry_gives_the_same_bits(cuda, route, w):
+def test_every_geometry_gives_the_same_bits(cuda, contract, w):
     """The forward round under every tile geometry of the launch plan
     (ops/cspn_cuda.py:fwd_plan), at a W that is not a multiple of 4 and
     one that is: the outputs bit for bit the same, the stash entries'
@@ -597,16 +581,11 @@ def test_every_geometry_gives_the_same_bits(cuda, route, w):
     version."""
     guid, blur, sparse = to(problem(11, 5, 37, w), cuda)
     t = 17
-    if route == "raw":
+    if contract == "raw":
         kw = dict(num_iters=t, norm_type="8sum_clamp")
         args = (guid, blur, sparse)
         fwd, stash = cspn_cuda.cspn_fwd, cspn_cuda.cspn_fwd_stash
         want, want_stash = cspn_cuda.cspn_fwd_stash_plain(*args, **kw)
-    elif route == "tiled":
-        kw = dict(num_iters=t, norm_type="8sum_clamp")
-        args = (guid, blur, sparse)
-        fwd, stash = cspn_cuda.cspn_tiled_fwd, cspn_cuda.cspn_tiled_fwd_stash
-        want, want_stash = cspn_cuda.cspn_tiled_fwd_stash_plain(*args, **kw)
     else:
         kw = dict(num_iters=t)
         args = (prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sparse),
@@ -647,8 +626,8 @@ def test_a_plan_the_kernel_cannot_run_raises(cuda, plan):
 @pytest.mark.parametrize("with_sparse", [True, False])
 def test_operators_launch_the_kernels_on_the_card(cuda, with_sparse):
     """The registered operators (ops/library.py) on CUDA tensors are the
-    wrappers: K1, K4, the normalization and the gates9 contract (K7's
-    entry) launch once a call, bit for bit the wrapper's output;
+    wrappers: K1 and the normalization launch once a call, bit for bit
+    the wrapper's output;
     torch.library.opcheck holds the fake and the real alike."""
     ops = torch.ops.cspn_monodepth_tpu_torch
     guid, blur, sparse = to(problem(12, 2, 40, 56, with_sparse), cuda)
@@ -657,28 +636,14 @@ def test_operators_launch_the_kernels_on_the_card(cuda, with_sparse):
     assert cspn_cuda.cspn_fwd.launches == before + 1
     assert torch.equal(got, cspn_cuda.cspn_fwd(
         guid, blur, sparse, num_iters=7, norm_type="8sum_clamp"))
-    before = cspn_cuda.cspn_tiled_fwd.launches
-    got = ops.cspn_tiled_fwd_raw(guid, blur, sparse, 7, "8sum_clamp")
-    assert cspn_cuda.cspn_tiled_fwd.launches == before + 1
-    assert torch.equal(got, cspn_cuda.cspn_tiled_fwd(
-        guid, blur, sparse, num_iters=7, norm_type="8sum_clamp"))
     before = cspn_cuda.cspn_gates9.launches
     gates9 = ops.cspn_gates9(guid, "8sum_clamp")
     assert cspn_cuda.cspn_gates9.launches == before + 1
     assert torch.equal(gates9, cspn_cuda.cspn_gates9(guid,
                                                      norm_type="8sum_clamp"))
-    d0 = anchor(blur, sparse)
-    before = cspn_cuda.cspn_prenorm_fwd.launches
-    got = ops.cspn_tiled_fwd(gates9, d0, sparse, 7)
-    assert cspn_cuda.cspn_prenorm_fwd.launches == before + 1
-    assert torch.equal(got, cspn_cuda.cspn_prenorm_fwd(gates9, d0, sparse,
-                                                       num_iters=7))
     torch.library.opcheck(ops.cspn_fwd.default,
                           (guid, blur, sparse, 3, "8sum"))
-    torch.library.opcheck(ops.cspn_tiled_fwd_raw.default,
-                          (guid, blur, sparse, 3, "8sum"))
     torch.library.opcheck(ops.cspn_gates9.default, (guid, "8sum_abs"))
-    torch.library.opcheck(ops.cspn_tiled_fwd.default, (gates9, d0, sparse, 3))
 
 
 @pytest.mark.cuda
@@ -797,8 +762,7 @@ def test_bench_chains_launch_each_kernel_once_a_step(cuda):
     # The device batch passes _to_device/_unpack without a copy.
     moved = trainer._unpack(trainer._to_device(train))
     assert all(moved[k].data_ptr() == train[k].data_ptr() for k in train)
-    for fn in cspn_cuda.WRAPPERS:
-        fn.launches = 0
+    cspn_cuda.reset_launch_counts()
     plain = plain_cuda_calls()
     value = torch.zeros((), device=cuda)
     for i in range(3):
@@ -807,7 +771,7 @@ def test_bench_chains_launch_each_kernel_once_a_step(cuda):
     for i in range(3):
         acc = bench.eval_body(trainer, state, batch, acc, i)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in cspn_cuda.WRAPPERS}
+    launches = cspn_cuda.launch_counts()
     want = {k: 0 for k in launches}
     want.update(cspn_fwd_stash=3, cspn_bwd=3, cspn_fwd=3)
     assert launches == want
@@ -851,7 +815,7 @@ def test_bench_steps_make_no_host_sync(cuda):
 # The kernels normalize by a reciprocal and sum in their own order; the
 # gates are contractive (8sum_abs, or positive affinities under
 # 8sum_clamp, as a trained or seeded head gives), so TOL holds as for
-# K1-K6. Signed gates under 8sum and 8sum_clamp expand at T = 24 (row abs
+# K1-K3. Signed gates under 8sum and 8sum_clamp expand at T = 24 (row abs
 # sums near 2); those cases run at T <= 5.
 def kxk_problem(seed, k, b, h, w, norm, with_sparse):
     rng = np.random.default_rng(seed)
@@ -909,10 +873,11 @@ KXK_CASES = [
 @pytest.mark.parametrize("k,b,hw,num_iters,norm,with_sparse", KXK_CASES)
 def test_kxk_kernels_match_plain(cuda, k, b, hw, num_iters, norm,
                                  with_sparse):
-    before = [w.launches for w in cspn_cuda.KXK_WRAPPERS]
+    kxk = (cspn_cuda.cspn_kxk_fwd, cspn_cuda.cspn_kxk_fwd_stash,
+           cspn_cuda.cspn_kxk_bwd)
+    before = [w.launches for w in kxk]
     assert kxk_check(cuda, k, b, hw, num_iters, norm, with_sparse) <= TOL
-    assert [w.launches - n for w, n in zip(cspn_cuda.KXK_WRAPPERS,
-                                           before)] == [1, 1, 1]
+    assert [w.launches - n for w, n in zip(kxk, before)] == [1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -925,8 +890,8 @@ def test_kxk_kernels_match_plain_at_kitti_size(cuda, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_sparse", [True, False])
 def test_kxk_function_matches_torch_autograd(cuda, with_sparse):
-    """cspn_propagate on k x k guidance under autograd: KxKCSPNFunction
-    on the card against torch autograd of the plain loop, with the
+    """cspn_propagate on k x k guidance under autograd: CSPNFunction with
+    the k x k kernels on the card against torch autograd of the plain loop, with the
     guidance and blur as slices of one head output, as the model passes
     them."""
     from cspn_monodepth_tpu_torch.ops import cspn_ref
@@ -951,11 +916,11 @@ def test_kxk_function_matches_torch_autograd(cuda, with_sparse):
 @pytest.mark.cuda
 def test_cspnpp_model_on_card_matches_cpu(cuda):
     """A small f32 CA-CSPN model's train-mode forward and gradients: the
-    kernels (K5/K6's 3x3 branch, the k x k ones) on the card, the plain
+    kernels (K2/K3's 3x3 branch, the k x k ones) on the card, the plain
     loops on the CPU; no plain CSPN runs on the card."""
     cfg = get_config("synthetic_tiny").override(**{
         "model.dtype": "float32", "model.cspn_kernel_sizes": (3, 5, 7),
-        "model.cspn_checkpoints": (2, 4), "model.cspn_impl": "cuda_tiled"})
+        "model.cspn_checkpoints": (2, 4), "model.cspn_impl": "auto"})
     model = CSPNDepthNet.from_config(
         cfg.model, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():

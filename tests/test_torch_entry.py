@@ -13,7 +13,8 @@ root __graft_entry__.py, on the CPU.
   read by running the root function with its Trainer and mesh stubbed) for
   n in 1, 2, 4, 6, 8.
 * `dryrun_multichip(2, device="cpu")`: one train step on the (1, 2) mesh,
-  two ranks over gloo, a finite loss.
+  two ranks over gloo, a finite loss, a launch count for every wrapper of
+  the CSPN registry.
 """
 
 import types
@@ -28,6 +29,7 @@ import __graft_entry__ as root_entry
 from cspn_monodepth_tpu_torch import entry as port_entry
 from cspn_monodepth_tpu_torch.configs import get_config
 from cspn_monodepth_tpu_torch.models import load_jax_variables
+from cspn_monodepth_tpu_torch.ops import cspn_cuda
 
 from test_torch_model import make_input, randomize
 
@@ -110,10 +112,23 @@ def test_layout_rule_is_the_root_dry_runs(n, monkeypatch):
     assert port_entry.layouts(n) == root_layouts(n, monkeypatch)
 
 
-def test_dryrun_multichip_on_two_cpu_ranks():
-    results = port_entry.dryrun_multichip(2, device="cpu")
-    (got,) = results
+@pytest.fixture(scope="module")
+def dryrun():
+    return port_entry.dryrun_multichip(2, device="cpu")
+
+
+def test_dryrun_multichip_on_two_cpu_ranks(dryrun):
+    (got,) = dryrun
     assert got["mesh"] == (1, 2) and got["layout"] == "images"
     assert np.isfinite(got["loss"])
     # On the CPU the kernels' wrappers run their plain versions: no launch.
     assert not any(got["launches"].values())
+
+
+def test_dryrun_reports_every_registered_launch_count(dryrun):
+    """The rank step zeroes and reports every CSPN wrapper of the registry,
+    the k x k and stage wrappers among them."""
+    (got,) = dryrun
+    assert got["launches"] == cspn_cuda.launch_counts()
+    assert set(got["launches"]) == {fn.__name__ for fn in cspn_cuda.WRAPPERS}
+    assert {"cspn_kxk_fwd_stash", "cspn_kxk_bwd"} <= set(got["launches"])

@@ -21,7 +21,7 @@ from cspn_monodepth_tpu.configs import get_config as jax_get_config
 from cspn_monodepth_tpu.serving import DepthPredictor as JaxDepthPredictor
 from cspn_monodepth_tpu_torch import DepthPredictor, get_config
 from cspn_monodepth_tpu_torch.ops import cspn_cuda, library
-from cspn_monodepth_tpu_torch.ops.cspn_ref import anchor, prenorm_gates9
+from cspn_monodepth_tpu_torch.ops.cspn_ref import prenorm_gates9
 from cspn_monodepth_tpu_torch.ops.library import load_program
 from tests.test_torch_model import assert_close, jax_model_variables
 from tests.test_torch_serving import H, W, model_kw, requests
@@ -131,16 +131,19 @@ def test_graph_holds_one_k1_node_and_no_training_path(exported, tmp_path):
     assert "aten.stack.default" in {str(n.target) for n in bare.graph.nodes}
 
 
-def test_tiled_route_exports_one_k4_node(tmp_path):
+def test_wide_model_exports_one_k1_node(tmp_path):
+    """A KITTI-like aspect (32x224) takes the same operator as any other
+    size: one cspn_fwd node, and the loaded program equals predict_batch."""
+    h, w = 32, 224
     _, variables = jax_model_variables(
         "rgbd", H, W, seed=5, **model_kw(tiny_cfg(jax_get_config)))
     port = DepthPredictor.from_variables(
-        tiny_cfg(get_config, **{"model.cspn_impl": "cuda_tiled"}),
+        tiny_cfg(get_config, **{"data.height": h, "data.width": w}),
         variables, device="cpu")
-    path = tmp_path / "tiled.pt2"
+    path = tmp_path / "wide.pt2"
     program = port.export_program(str(path), batch=1)
-    assert cspn_nodes(program) == [str(OPS.cspn_tiled_fwd_raw.default)]
-    rgb, sparse = requests(3, 1, H, W)
+    assert cspn_nodes(program) == [str(OPS.cspn_fwd.default)]
+    rgb, sparse = requests(3, 1, h, w)
     x = np.concatenate([rgb, sparse[..., None]], axis=-1)
     got = load_program(str(path), device="cpu")(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy()[..., 0],
@@ -158,50 +161,28 @@ def test_load_program_on_another_device_raises(exported):
         "cpu"
 
 
-def op_samples(channels: int):
+def op_samples(channels: int, h: int = 9, w: int = 11):
     rng = np.random.default_rng(11)
     planes = torch.from_numpy(
-        rng.normal(size=(2, channels, 9, 11)).astype(np.float32))
-    d = torch.from_numpy(rng.uniform(0.5, 9.5, (2, 9, 11)).astype(
+        rng.normal(size=(2, channels, h, w)).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(0.5, 9.5, (2, h, w)).astype(
         np.float32))
     sp = torch.where(d > 8.0, d, torch.zeros_like(d))
     return planes, d, sp
 
 
+@pytest.mark.parametrize("hw,norm", [((9, 11), "8sum_clamp"),
+                                     ((5, 40), "8sum_abs")])
 @pytest.mark.parametrize("sparse", [True, False])
 @pytest.mark.parametrize("num_iters", [0, 3])
-def test_opcheck_cspn_fwd(sparse, num_iters):
-    guid, blur, sp = op_samples(8)
-    args = (guid, blur, sp if sparse else None, num_iters, "8sum_clamp")
+def test_opcheck_cspn_fwd(sparse, num_iters, hw, norm):
+    """At a small plane and at a wide one (KITTI's aspect, stretched)."""
+    guid, blur, sp = op_samples(8, *hw)
+    args = (guid, blur, sp if sparse else None, num_iters, norm)
     torch.library.opcheck(OPS.cspn_fwd.default, args)
     want = cspn_cuda.cspn_fwd_plain(*args[:3], num_iters=num_iters,
-                                    norm_type="8sum_clamp")
+                                    norm_type=norm)
     torch.testing.assert_close(OPS.cspn_fwd(*args), want, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("sparse", [True, False])
-@pytest.mark.parametrize("num_iters", [0, 3])
-def test_opcheck_cspn_tiled_fwd(sparse, num_iters):
-    """The gates9 contract of K4 before it took raw guidance, kept for the
-    programs exported then: K7's function."""
-    gates9, d0, sp = op_samples(9)
-    args = (gates9, d0, sp if sparse else None, num_iters)
-    torch.library.opcheck(OPS.cspn_tiled_fwd.default, args)
-    want = cspn_cuda.cspn_prenorm_fwd_plain(*args[:3], num_iters=num_iters)
-    torch.testing.assert_close(OPS.cspn_tiled_fwd(*args), want, rtol=0,
-                               atol=0)
-
-
-@pytest.mark.parametrize("sparse", [True, False])
-@pytest.mark.parametrize("num_iters", [0, 3])
-def test_opcheck_cspn_tiled_fwd_raw(sparse, num_iters):
-    guid, blur, sp = op_samples(8)
-    args = (guid, blur, sp if sparse else None, num_iters, "8sum_abs")
-    torch.library.opcheck(OPS.cspn_tiled_fwd_raw.default, args)
-    want = cspn_cuda.cspn_tiled_fwd_plain(*args[:3], num_iters=num_iters,
-                                          norm_type="8sum_abs")
-    torch.testing.assert_close(OPS.cspn_tiled_fwd_raw(*args), want, rtol=0,
-                               atol=0)
 
 
 @pytest.mark.parametrize("norm", ["8sum", "8sum_abs", "8sum_clamp"])
@@ -217,36 +198,6 @@ def test_ops_take_float32_only():
     with pytest.raises(ValueError, match="float32"):
         OPS.cspn_fwd(guid.double(), blur, sp, 2, "8sum")
     with pytest.raises(ValueError, match="float32"):
-        OPS.cspn_tiled_fwd_raw(guid, blur.double(), sp, 2, "8sum")
+        OPS.cspn_fwd(guid, blur.double(), sp, 2, "8sum")
     with pytest.raises(ValueError, match="float32"):
         OPS.cspn_gates9(guid.double(), "8sum")
-    gates9, d0, sp = op_samples(9)
-    with pytest.raises(ValueError, match="float32"):
-        OPS.cspn_tiled_fwd(gates9, d0.double(), sp, 2)
-
-
-class Gates9ContractCSPN(torch.nn.Module):
-    """The CSPN step as a program exported before K4 took raw guidance held
-    it: the plain normalization and anchor, then the operator
-    cspn_tiled_fwd on gates9."""
-
-    def forward(self, x):
-        sp = x[:, 9]
-        gates9 = prenorm_gates9(x[:, :8], "8sum_clamp")
-        return OPS.cspn_tiled_fwd(gates9, anchor(x[:, 8], sp), sp, 5)
-
-
-def test_a_program_on_the_gates9_contract_still_loads(tmp_path):
-    """A program whose graph holds cspn_tiled_fwd on gates9 loads and runs,
-    and equals the raw contract's K4 on the same inputs."""
-    guid, blur, sp = op_samples(8)
-    x = torch.cat([guid, blur[:, None], sp[:, None]], 1)
-    path = tmp_path / "gates9_contract.pt2"
-    with torch.no_grad():
-        torch.export.save(torch.export.export(Gates9ContractCSPN(), (x,)),
-                          str(path))
-    program = torch.export.load(str(path))
-    assert cspn_nodes(program) == [str(OPS.cspn_tiled_fwd.default)]
-    got = load_program(str(path), device="cpu")(x)
-    want = OPS.cspn_tiled_fwd_raw(guid, blur, sp, 5, "8sum_clamp")
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

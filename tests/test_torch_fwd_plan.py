@@ -2,7 +2,7 @@
 
 csrc/cspn_fwd.cu runs a forward call as rounds of recompute-in-halo tiles,
 each round one launch over the whole batch; the wrapper picks the tile
-geometry by shape, a stash call (K2, K5, K8) as the plain call of its
+geometry by shape, a stash call (K2, K8) as the plain call of its
 shape. These tests hold the pure-Python plan to what the kernel needs:
 each geometry has a halo of at least the spatial path's 4 rows and a
 block that fits an H100's threads, shared memory and registers, the
@@ -128,9 +128,8 @@ def test_cpu_tensors_take_the_plain_version_under_any_geometry():
     before = cspn_cuda.cspn_fwd.launches
     got = cspn_cuda.cspn_fwd(guid, blur, sp, **kw, geometry=1)
     assert torch.equal(got, want) and cspn_cuda.cspn_fwd.launches == before
-    assert torch.equal(
-        cspn_cuda.cspn_tiled_fwd(guid, blur, sp, **kw, geometry=2),
-        cspn_cuda.cspn_tiled_fwd_plain(guid, blur, sp, **kw))
+    assert torch.equal(cspn_cuda.cspn_fwd(guid, blur, sp, **kw, geometry=2),
+                       want)
     g9, d0 = prenorm_gates9(guid, "8sum_clamp"), anchor(blur, sp)
     assert torch.equal(
         cspn_cuda.cspn_prenorm_fwd(g9, d0, sp, num_iters=9, geometry=2),
@@ -138,8 +137,9 @@ def test_cpu_tensors_take_the_plain_version_under_any_geometry():
 
 
 def pr6_geometry(b: int, h: int, w: int, num_iters: int) -> int:
-    """K1's, K4's and K7's geometry by shape as the H100 sweep set it
-    (PERF.md section 6)."""
+    """The forward's geometry by shape (K1's and K7's, K1's at KITTI's
+    shape being K4 of the kernel table) as the H100 sweep set it (PERF.md
+    section 6)."""
     if num_iters <= 4:
         return 0
     px = b * h * w
@@ -148,7 +148,7 @@ def pr6_geometry(b: int, h: int, w: int, num_iters: int) -> int:
 
 @pytest.mark.parametrize("b,h,w", SHAPES)
 @pytest.mark.parametrize("t", [0, 4, 24])
-def test_k1_and_k4_keep_their_plan(b, h, w, t):
+def test_the_forward_keeps_the_swept_plan(b, h, w, t):
     assert cspn_cuda.fwd_plan(b, h, w, t) == pr6_geometry(b, h, w, t)
 
 
@@ -178,14 +178,11 @@ def test_cpu_stash_calls_take_the_plain_version_under_any_geometry():
     want = cspn_cuda.cspn_fwd_stash_plain(guid, blur, sp, **kw)
     g9, d0 = prenorm_gates9(guid, "8sum"), anchor(blur, sp)
     want9 = cspn_cuda.cspn_prenorm_fwd_stash_plain(g9, d0, sp, num_iters=6)
-    stashes = (cspn_cuda.cspn_fwd_stash, cspn_cuda.cspn_tiled_fwd_stash,
-               cspn_cuda.cspn_prenorm_fwd_stash)
+    stashes = (cspn_cuda.cspn_fwd_stash, cspn_cuda.cspn_prenorm_fwd_stash)
     before = [fn.launches for fn in stashes]
     for geometry in range(len(cspn_cuda.FWD_GEOMETRIES)):
         for got, ref in ((cspn_cuda.cspn_fwd_stash(guid, blur, sp, **kw,
                                                    geometry=geometry), want),
-                         (cspn_cuda.cspn_tiled_fwd_stash(
-                             guid, blur, sp, **kw, geometry=geometry), want),
                          (cspn_cuda.cspn_prenorm_fwd_stash(
                              g9, d0, sp, num_iters=6, geometry=geometry),
                           want9)):

@@ -1,5 +1,5 @@
 """The port's KITTI slice (data/transforms.py, native/, KITTIDataset, the
-H-tiled CSPN route in a train step, the mesh guard) against the JAX
+CSPN op at a KITTI aspect in a train step, the mesh guard) against the JAX
 package, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both sides; KITTI
@@ -18,9 +18,9 @@ records are npz files written to a temporary directory.
 * One and two `Trainer.train_step`s of a tiny model (synthetic_tiny's
   arch, float32) at a KITTI-proportioned 32x112 crop, reading the npz
   records, against the JAX Trainer leaf by leaf, with the tolerances of
-  tests/test_torch_train.py: the port on its H-tiled route
-  (`cspn_impl="cuda_tiled"`, whose CPU wrappers take K5's and K6's plain
-  versions), JAX on `"pallas_tiled"` in interpret mode with 16-row adjoint
+  tests/test_torch_train.py: the port on its kernels (`cspn_impl="auto"`,
+  whose CPU wrappers take K2's and K3's plain versions), JAX on its H-tiled
+  `"pallas_tiled"` in interpret mode with 16-row adjoint
   tiles and its plain stem; the sparse map passed in; one `eval_step`
   with kitti_1216's 85 m eval cap, some ground truth beyond it.
 """
@@ -292,11 +292,10 @@ def jax_run(tiny_root, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port_run(tiny_root, jax_run):
-    """The port's Trainer on the H-tiled route: its own records, the same
-    weights and sparse map."""
+    """The port's Trainer on its kernels: its own records, the same weights
+    and sparse map."""
     cfg = get_config("kitti_1216").override(**{
-        **TINY, "data.root": str(tiny_root),
-        "model.cspn_impl": "cuda_tiled"})
+        **TINY, "data.root": str(tiny_root), "model.cspn_impl": "auto"})
     trainer = Trainer(cfg, device="cpu")
     recs = [trainer.train_ds.get(i) for i in range(cfg.train.batch_size)]
     batch = {k: np.stack([r[k] for r in recs]) for k in ("rgb", "depth")}

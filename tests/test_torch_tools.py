@@ -54,12 +54,12 @@ CASES = {
         ["--device", "cpu", "--batch", "1", "--hw", "24x32", "--num-iters",
          "4", "--iters", "1"], {},
         {"kernels_fwd_plus_full_bwd_ms", "plain_fwd_plus_full_bwd_ms",
-         "route"}),
+         "shape"}),
     "bench_cspn_vjp-kitti": (
         ["--device", "cpu", "--batch", "1", "--hw", "24x32", "--num-iters",
          "4", "--iters", "1", "--kitti"], {},
         {"kernels_fwd_plus_full_bwd_ms", "plain_fwd_plus_full_bwd_ms",
-         "route"}),
+         "shape"}),
     "probe_bn_eval": (
         TINY, {"BENCH_BATCH": "1", "BENCH_ITERS": "1"},
         {"bn_eval_cost_ms", "fold_headroom_pct", "eval_step_ms",
@@ -75,8 +75,8 @@ CASES = {
              "mm_stream_gbps", "mm_stream_tflops"}),
     "parity_check": (
         ["--device", "cpu", "--batch", "1", "--hw", "24x32", "--kitti"], {},
-        {"8sum_clamp", "8sum", "8sum_abs", "prenorm_96x304", "routing",
-         "tiled_24x32", "prenorm_104x1216"}),
+        {"8sum_clamp", "8sum", "8sum_abs", "prenorm_96x304", "tiled_24x32",
+         "prenorm_104x1216"}),
 }
 
 

@@ -55,9 +55,9 @@ def train_batch(seed=0):
 
 
 # Each entry and what it runs: serving per modality, a train step per
-# CSPN route (whole-plane CSPNFunction, H-tiled TiledCSPNFunction; on the
-# CPU each kernel's wrapper runs its plain version).
-ENTRIES = ["serve-rgbd", "serve-rgb", "train-auto", "train-cuda_tiled"]
+# CSPN impl (CSPNFunction, whose kernel wrappers run their plain versions
+# on the CPU; the plain loop under autograd).
+ENTRIES = ["serve-rgbd", "serve-rgb", "train-auto", "train-torch"]
 
 
 def make(entry):
@@ -153,17 +153,20 @@ def test_predict_batch_spans(entry, built, monkeypatch):
     assert got["counters"] == {"serve.h2d_bytes": sum(want)}
 
 
-@pytest.mark.parametrize("entry", ["train-auto", "train-cuda_tiled"])
+@pytest.mark.parametrize("entry", ["train-auto", "train-torch"])
 def test_train_step_spans(entry, built):
+    """CSPNFunction's backward is the hand-written adjoint, spanned
+    `cspn.backward`; the plain loop's is torch autograd's, unspanned."""
     got, _ = profiled(lambda: call(built, entry))
     spans = by_name(got["spans"])
-    assert sorted(spans) == sorted(TRAIN + ("cspn.forward",
-                                            "cspn.backward"))
+    adjoint = ("cspn.backward",) if entry == "train-auto" else ()
+    assert sorted(spans) == sorted(TRAIN + ("cspn.forward",) + adjoint)
     assert all(len(v) == 1 for v in spans.values())
     assert [spans[n][0]["parent"] for n in TRAIN] == [None] * len(TRAIN)
     assert spans["cspn.forward"][0]["parent"] == "train.forward"
     # On the CPU autograd runs the backward on the calling thread.
-    assert spans["cspn.backward"][0]["parent"] == "train.backward"
+    for name in adjoint:
+        assert spans[name][0]["parent"] == "train.backward"
     calls = {s["call"] for s in got["spans"]}
     assert len(calls) == 1
     assert all(s["device_ms"] is None and s["host_ms"] > 0
