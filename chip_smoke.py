@@ -17,11 +17,12 @@ exits non-zero:
   4. serving: DepthPredictor at the full width of nyu_completion_500
      (ResNet-50 UNet, rgbd, 228x304, T=24) with seeded random weights,
      single-image requests and batches of 32; the kernel launch counts of
-     that run; a profile of one batch (device time by kernel, idle share);
+     that run (the head conv's forward once a request); a profile of one batch (device time by kernel, idle share);
      the same model with the plain CSPN loop; a small model on the card
      against the same model on the CPU;
   5. train: Trainer.train_step of the same configuration on synthetic data
-     at batch 32 (timed steps, the K2/K3 launch counts of that run, peak
+     at batch 32 (timed steps, the K2/K3 and head conv launch counts of
+     that run, peak
      memory, a profile of one step, the loss falling on a fixed batch),
      Trainer.evaluate (K1), one step with the kernels against one with the
      plain CSPN loop, and a small f32 model's train step on the card
@@ -37,10 +38,10 @@ exits non-zero:
      the normalization's kernel pair beside the plain ops (`prenorm_time`);
   7. kitti_serving: DepthPredictor at the full width of kitti_1216 (one
      device) with seeded random weights, single requests and batches of 8,
-     the K4 launch counts of that run, a profile of one batch, the path
+     the K4 and head conv launch counts of that run, a profile of one batch, the path
      against the plain CSPN loop;
   8. kitti_train: Trainer.train_step of kitti_1216 at batch 8 on synthetic
-     records (timed steps, K5/K6 launch counts, peak memory, a profile, the
+     records (timed steps, K5/K6 and head conv launch counts, peak memory, a profile, the
      loss falling), one step against the plain CSPN loop, then train_epoch
      and evaluate (K4) through KITTIDataset on raw 375x1242 npz frames the
      script writes, with the augmentation executor that ran;
@@ -148,6 +149,18 @@ exits non-zero:
      summed over a step's sites per cell (`bn_step`); then each cell's
      Trainer: one launch of each wrapper a site in a train step, none in
      an eval forward, the counter bn.train_calls a step (`bn_train`).
+ 17. head_conv (run after phase 16): the 3 x 3 CSPN's head conv
+     (csrc/head_conv.cu, built in phase 2) at the shapes of the three
+     9-plane cells (kitti_1216 B=8 and B=1, nyu_completion_500 B=32, bf16)
+     and a float32 one: the forward, dx, dw and db against F.conv2d and
+     its gradients in float64, two runs bit for bit, and cuDNN's float32
+     kernels' own errors (`head_case`); the forward and backward timed by CUDA events, each
+     kernel's device ms, cuDNN's float32 forward (of the f32 map, and with
+     its cast), dgrad and wgrad (`library_ms`) and the FMA bound
+     (`head_time`); then kitti_1216's Trainer: one head.conv_calls a train
+     step, no cuDNN conv of the head's weight and the step's float32 cuDNN
+     kernels by name (`head_train`). The wrappers' launches are counted in
+     the main paths' own runs (phases 4, 5, 7, 8).
 The kernel checks (3, 6, 9) run first. Every path's launch counts also
 count the plain normalization's and anchor's calls on a CUDA tensor
 ("prenorm_gates9", "anchor"), which must stay 0. Then a line with the
@@ -188,6 +201,7 @@ from cspn_monodepth_tpu_torch.ops import (
     batch_norm,
     cspn_cuda,
     cspn_propagate,
+    head_conv,
     parity,
 )
 from cspn_monodepth_tpu_torch.ops.cspn_ref import (
@@ -807,18 +821,21 @@ def serve(cfg, predictor, rgb, sparse, gpu: str, phase: str) -> dict:
     """The serving main path: warm-up at both request shapes (cuDNN
     chooses algorithms per shape), then, with the launch counts set to 0,
     SINGLE_REQUESTS single-image requests and BATCH_REQUESTS batches, each
-    checked; emits `phase` and `phase`_profile (the host-to-device copy of
+    checked, the head conv's forward launched once a request and its
+    backward never; emits `phase` and `phase`_profile (the host-to-device copy of
     the model's float32 input built on the host, the model's forward on an
     input already on the card, the rest of a predict_batch call being the
     request's upload, the input's build on the card and the copy back; one
     batch under the profiler). Returns the launch
-    counts of the main path and the last batch's output."""
+    counts of the main path (without the head conv's) and the last batch's
+    output."""
     batch, h, w = sparse.shape
     predictor.predict(rgb[0], sparse[0])
     predictor.predict_batch(rgb, sparse)
     torch.cuda.synchronize()
 
     reset_counts()
+    reset_head_counts()
     single_ms = []
     for i in range(SINGLE_REQUESTS):
         t0 = time.perf_counter()
@@ -831,7 +848,9 @@ def serve(cfg, predictor, rgb, sparse, gpu: str, phase: str) -> dict:
         out = predictor.predict_batch(rgb, sparse)
         batch_ms.append(1e3 * (time.perf_counter() - t0))
         check_depth(out, sparse, (batch, h, w))
-    launches = counts()
+    launches, head = counts(), head_counts()
+    want_head = {"head_conv3x3_fwd": SINGLE_REQUESTS + BATCH_REQUESTS,
+                 "head_conv3x3_bwd": 0}
     emit(phase, config=cfg.name, arch=cfg.model.arch,
          modality=cfg.model.modality, num_iters=cfg.model.num_iters,
          norm=cfg.model.norm_type, dtype=cfg.model.dtype, h=h, w=w,
@@ -842,7 +861,11 @@ def serve(cfg, predictor, rgb, sparse, gpu: str, phase: str) -> dict:
          batch_ms_p50=float(np.median(batch_ms)),
          batch_ms_max=max(batch_ms),
          img_per_s=batch / (float(np.median(batch_ms)) / 1e3),
-         launches=launches, max_abs_depth=float(np.abs(out).max()), gpu=gpu)
+         launches=launches, head_launches=head,
+         max_abs_depth=float(np.abs(out).max()), gpu=gpu)
+    if head != want_head:
+        raise AssertionError(f"the {phase} path's head conv launches "
+                             f"{head}, expected {want_head}")
     x = np.concatenate([rgb, sparse[..., None]], axis=-1)
     x_dev = torch.from_numpy(x).cuda()
     with torch.inference_mode():
@@ -1122,12 +1145,24 @@ def counts() -> dict:
             "anchor": anchor.cuda_calls}
 
 
+def reset_head_counts():
+    for fn in head_conv.WRAPPERS:
+        fn.launches = 0
+
+
+def head_counts() -> dict:
+    """The head conv wrappers' launches by name; they count apart from
+    cspn_cuda's registry."""
+    return {fn.__name__: fn.launches for fn in head_conv.WRAPPERS}
+
+
 def timed_train(cfg, variables, batch_size: int, kernels: tuple,
                 gpu: str, phase: str):
     """The train main path: a Trainer of cfg from `variables`, TRAIN_WARMUP
     steps, then, with the launch counts set to 0, TRAIN_STEPS steps on one
-    fixed batch of the first batch_size records; each of `kernels` must
-    have launched once per step and no other kernel. Emits `phase` (step
+    fixed batch of the first batch_size records; each of `kernels` and
+    each head conv wrapper must have launched once per step and no other
+    kernel. Emits `phase` (step
     times, peak memory, launches, losses, which must be finite and fall)
     and `phase`_profile (one step under the profiler: device time by
     class, idle share). Returns the trainer, its state, the launches and
@@ -1143,15 +1178,17 @@ def timed_train(cfg, variables, batch_size: int, kernels: tuple,
     torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
+    reset_head_counts()
     step_ms = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, loss, _ = trainer.train_step(state, batch)
         losses.append(float(loss))          # waits for the step
         step_ms.append(1e3 * (time.perf_counter() - t0))
-    launches = counts()
+    launches = {**counts(), **head_counts()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: TRAIN_STEPS if k in kernels else 0 for k in launches}
+    want = {k: TRAIN_STEPS if k in kernels or k in head_counts() else 0
+            for k in launches}
     if launches != want:
         raise AssertionError(f"the {phase} path's kernel launches "
                              f"{launches}, expected {want}")
@@ -2028,6 +2065,173 @@ def bn_train(name: str, batch: int, sites: int, gpu: str) -> dict:
     del trainer, state, batch_data
     torch.cuda.empty_cache()
     return line
+
+
+# The head conv (csrc/head_conv.cu): the 9-plane cells' shapes, and a
+# float32 map, against float64. Tolerances as tests/test_torch_cuda.py's
+# HEAD_TOL (cuDNN's float32 dw is no 1e-5 reference: `library_max_rel`).
+HEAD_SHAPES = ((("kitti_1216", KITTI_BATCH), (KITTI_BATCH, 64, KITTI_H,
+                                              KITTI_W), torch.bfloat16),
+               (("kitti_1216", 1), (1, 64, KITTI_H, KITTI_W), torch.bfloat16),
+               (("nyu_completion_500", TRAIN_BATCH),
+                (TRAIN_BATCH, 64, NYU_H, NYU_W), torch.bfloat16),
+               (("nyu_completion_500", 1), (1, 64, NYU_H, NYU_W),
+                torch.float32))
+HEAD_TOL = 1e-5
+HEAD_ULP_FLOOR = 1e-3
+
+
+def head_errors(x, weight, bias, dy) -> dict:
+    """The kernels' max-relative errors against F.conv2d and its gradients
+    in float64, dx's bf16 ulps from the reference's cast (where the
+    reference is at least HEAD_ULP_FLOOR of its largest value), whether two
+    runs agree bit for bit, and cuDNN's float32 kernels' errors (TF32 off)
+    against the same reference."""
+    from cspn_monodepth_tpu_torch.ops import head_conv
+
+    runs = [(head_conv.head_conv3x3_fwd(x, weight, bias, pad_h=1),
+             *head_conv.head_conv3x3_bwd(dy, x, weight, pad_h=1))
+            for _ in range(2)]
+    xd, wd, dyd = x.double(), weight.double(), dy.double()
+    ref = (torch.nn.functional.conv2d(xd, wd, bias.double(), padding=1),
+           torch.nn.grad.conv2d_input(x.shape, wd, dyd, padding=1),
+           torch.nn.grad.conv2d_weight(xd, weight.shape, dyd, padding=1),
+           dyd.sum((0, 2, 3)))
+    del xd, wd, dyd
+    with head_conv.no_tf32():
+        xf = x.float()
+        library = (torch.nn.functional.conv2d(xf, weight, bias, padding=1),
+                   torch.nn.grad.conv2d_input(x.shape, weight, dy, padding=1),
+                   torch.nn.grad.conv2d_weight(xf, weight.shape, dy,
+                                               padding=1))
+    del xf
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    errs = {k: rel(g, r) for k, g, r in zip(("y", "dx", "dw", "db"),
+                                            runs[0], ref)}
+    ulps = None
+    dx, rdx = runs[0][1], ref[1]
+    big = rdx.abs().max()
+    far = rdx.abs() >= HEAD_ULP_FLOOR * big
+    if x.dtype == torch.bfloat16:
+        want = rdx.float().to(torch.bfloat16)
+        ulps = int((dx.view(torch.int16).int()
+                    - want.view(torch.int16).int()).abs()[far].max())
+        near = float((dx.double() - rdx).abs()[~far].max() / big) \
+            if bool((~far).any()) else 0.0
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    ok = (max(errs[k] for k in ("y", "dw", "db")) <= HEAD_TOL and same
+          and (errs["dx"] <= HEAD_TOL if ulps is None
+               else ulps <= 1 and near <= HEAD_TOL))
+    return dict(max_rel=errs, dx_ulps=ulps, bit_for_bit=same, ok=ok,
+                library_max_rel={k: rel(g, r) for k, g, r in zip(
+                    ("y", "dx", "dw"), library, ref)})
+
+
+def head_times(x, weight, bias, dy) -> dict:
+    """CUDA-event ms of the forward and backward wrappers, each kernel's
+    device ms (torch.profiler), cuDNN's float32 kernels on the same work
+    (TF32 off: the forward of the f32 map and with its cast, dgrad, wgrad;
+    the plain versions are these calls) and the FMA bound of one pass, 2
+    Cin Cout 9 FLOP a pixel at the FP32 rate."""
+    from cspn_monodepth_tpu_torch.ops import head_conv
+
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    fwd = lambda: head_conv.head_conv3x3_fwd(x, weight, bias, pad_h=1)
+    bwd = lambda: head_conv.head_conv3x3_bwd(dy, x, weight, pad_h=1)
+    kernels = {}
+    for fn in (fwd, bwd):
+        for name, ms in device_profile(fn, top=8)["top"]:
+            kernels[name] = ms
+    with head_conv.no_tf32():
+        xf = x.float()
+        library = dict(
+            fwd=time_ms(lambda: torch.nn.functional.conv2d(
+                xf, weight, bias, padding=1), 10),
+            fwd_with_cast=time_ms(lambda: torch.nn.functional.conv2d(
+                x.float(), weight, bias, padding=1), 10),
+            dgrad=time_ms(lambda: torch.nn.grad.conv2d_input(
+                x.shape, weight, dy, padding=1).to(x.dtype), 10),
+            wgrad=time_ms(lambda: torch.nn.grad.conv2d_weight(
+                xf, weight.shape, dy, padding=1), 10))
+    del xf
+    bound = 2 * cin * cout * 9 * b * h * w / F32_FLOPS * 1e3
+    return dict(fwd_ms=time_ms(fwd, 10), bwd_ms=time_ms(bwd, 10),
+                device_ms=kernels, library_ms=library, bound_ms=bound,
+                bound_by="fma")
+
+
+def head_train(gpu: str) -> dict:
+    """kitti_1216's Trainer at batch 2: the counter head.conv_calls of one
+    train step under a profiler, the cuDNN convolutions of the head's
+    weight in it (none) and its float32 cuDNN kernels by name. The
+    wrappers' launches are counted in the main paths' own runs
+    (`timed_train`, `serve`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = Trainer(bn_config("kitti_1216"))
+    state = trainer.init_state()
+    batch = fixed_batch(trainer, 2)
+    state, _, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        state, loss, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    calls = profiling.collected()["counters"].get("head.conv_calls")
+    head = list(state.model.head.weight.shape)
+    events = prof.events()
+    cudnn_head = [e.name for e in events
+                  if (e.name.startswith("aten::cudnn_conv")
+                      or e.name == "aten::convolution_backward")
+                  and head in e.input_shapes]
+    f32_kernels = sorted({e.name[:100] for e in events
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "f32f32" in e.name})
+    line = dict(config="kitti_1216", head_conv_calls=calls,
+                cudnn_head_ops=cudnn_head, f32_kernels=f32_kernels,
+                loss=float(loss), gpu=gpu)
+    emit("head_train", **line)
+    if not (calls == 1 and not cudnn_head and np.isfinite(float(loss))):
+        raise AssertionError(f"the head's train step: {line}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_head_conv(gpu: str) -> dict:
+    """The head conv's kernels at the 9-plane cells' shapes (`head_case`,
+    `head_time`) and kitti_1216's train step (`head_train`). Returns the
+    kernel table's numbers: kitti_1216's B=8 times and the worst errors."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    worst = {"y": 0.0, "dx": 0.0, "dw": 0.0, "db": 0.0}
+    times = {}
+    for (name, batch), shape, dtype in HEAD_SHAPES:
+        b, cin, h, w = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        weight = 0.1 * torch.randn((9, cin, 3, 3), generator=gen,
+                                   device="cuda")
+        bias = torch.randn(9, generator=gen, device="cuda")
+        dy = torch.randn((b, 9, h, w), generator=gen, device="cuda")
+        r = head_errors(x, weight, bias, dy)
+        emit("head_case", config=name, shape=list(shape), dtype=str(dtype),
+             **r, tol=HEAD_TOL)
+        if not r["ok"]:
+            raise AssertionError(f"head conv kernels at {shape}: {r}")
+        for k in worst:
+            worst[k] = max(worst[k], r["max_rel"][k])
+        t = head_times(x, weight, bias, dy)
+        emit("head_time", config=name, shape=list(shape), dtype=str(dtype),
+             **t, gpu=gpu)
+        times[(name, batch, str(dtype))] = t
+        del x, weight, bias, dy
+        torch.cuda.empty_cache()
+    head_train(gpu)
+    return dict(times=times[("kitti_1216", KITTI_BATCH, str(torch.bfloat16))],
+                max_rel=worst)
 
 
 def phase_batch_norm(gpu: str) -> dict:
@@ -3986,6 +4190,7 @@ def main():
     k456 = phase_kitti_kernels(gpu)
     kxk = phase_kxk(gpu)
     bn = phase_batch_norm(gpu)
+    head = phase_head_conv(gpu)
     # Beside the other kernel checks: torch.profiler has recorded no device
     # time once the KITTI epoch's phase has run.
     k789 = phase_spatial_kernels(gpu)
@@ -4070,6 +4275,19 @@ def main():
            "bound_by": "bytes"}
           for i, (name, kind) in enumerate((("batch_norm_train_fwd", "fwd"),
                                             ("batch_norm_train_bwd", "bwd")))],
+        # The head conv, which has no TPU kernel (XLA's conv on the TPU):
+        # kitti_1216 at B=8 in bf16, the launches of the kitti_train
+        # phase's timed steps (one each a step), the worst error against
+        # float64 over phase 17's shapes.
+        *[{"name": name, "route": "cuda",
+           "source": "cspn_monodepth_tpu_torch/csrc/head_conv.cu",
+           "replaces": None, "launches": kitti["launches"][name],
+           "max_abs_err": None, "max_rel_err": head["max_rel"],
+           "ms": head["times"][f"{kind}_ms"], "plain_ms": None,
+           "bound_ms": head["times"]["bound_ms"] * (1 if i == 0 else 2),
+           "bound_by": "fma", "library_ms": head["times"]["library_ms"]}
+          for i, (name, kind) in enumerate((("head_conv3x3_fwd", "fwd"),
+                                            ("head_conv3x3_bwd", "bwd")))],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,10 @@ channels, [blur, the affinities by k, s^ (n_k), l^ (n_k x n_c,
 kernel-major)]: 96 for (3, 5, 7) and four checkpoints.
 
 Dtypes as in the JAX package: the encoder and decoder run under bf16
-autocast when `dtype` is bfloat16; the head and CSPN run in float32, the
-head conv with TF32 off (cuDNN would otherwise use TF32 for f32 convs).
+autocast when `dtype` is bfloat16; the head and CSPN run in float32. The
+head (`Head`) is ops/head_conv.py's `head_conv`: the 3 x 3 CSPN's 9-plane
+head on the port's own f32 kernels, which read the decoder's map as it is
+(bf16 or f32); CSPN++'s wider head cuDNN's float32 conv with TF32 off.
 
 On a mesh (parallel/mesh.py) BatchNorm takes the global batch's
 statistics (`bn_group`). With `spatial_mesh` (a mesh whose "spatial" axis
@@ -54,7 +56,7 @@ from cspn_monodepth_tpu_torch.models.resnet import (
 from cspn_monodepth_tpu_torch.models.unet import UpProjDecoder
 from cspn_monodepth_tpu_torch.ops.cspn import cspn_propagate
 from cspn_monodepth_tpu_torch.ops.cspn_ref import KERNEL_SIZES
-from cspn_monodepth_tpu_torch.ops.library import no_tf32
+from cspn_monodepth_tpu_torch.ops.head_conv import head_conv
 from cspn_monodepth_tpu_torch.parallel.halo import (
     cspn_propagate_spatial,
     gather_rows,
@@ -101,6 +103,20 @@ def head_channels(plan: tuple[tuple, tuple] | None) -> int:
     sizes, marks = plan
     return (1 + sum(k * k - 1 for k in sizes) + len(sizes)
             + len(sizes) * len(marks))
+
+
+class Head(nn.Conv2d):
+    """The head: a 3 x 3 conv with a bias (nn.Conv2d's parameters and
+    state_dict keys) whose forward is ops/head_conv.py's head_conv, H padded
+    by pad_h (1, or 0 on the rows layout's window), float32 out."""
+
+    def forward(self, x: torch.Tensor, pad_h: int = 1) -> torch.Tensor:
+        return head_conv(x, self, pad_h=pad_h)
+
+
+def _head_window(x: torch.Tensor, head: Head) -> torch.Tensor:
+    """The head on the rows layout's window, which holds its rows' halo."""
+    return head(x, pad_h=0)
 
 
 class CSPNDepthNet(nn.Module):
@@ -161,8 +177,8 @@ class CSPNDepthNet(nn.Module):
                 "(parallel/halo.py) exchanges a one-pixel halo and has no "
                 "mix; cspn_kernel_sizes above 3 and cspn_checkpoints need "
                 "mesh.spatial = 1")
-        self.head = nn.Conv2d(decoder_out, head_channels(self.cspnpp), 3,
-                              padding=1, bias=True)
+        self.head = Head(decoder_out, head_channels(self.cspnpp), 3,
+                         padding=1, bias=True)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.reset_parameters(generator)
@@ -236,8 +252,8 @@ class CSPNDepthNet(nn.Module):
         with torch.autocast(dev, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             feat = self.decoder(self.encoder(x), (h, w))
-        with torch.autocast(dev, enabled=False), no_tf32():
-            heads = self.head(feat.float())           # (B, 9, H, W) f32
+        with torch.autocast(dev, enabled=False):
+            heads = self.head(feat)                   # (B, 9, H, W) f32
         if self.cspnpp is not None:
             with torch.autocast(dev, enabled=False):
                 return self._cspnpp(heads, sparse)[..., None]
@@ -310,8 +326,9 @@ class CSPNDepthNet(nn.Module):
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             feat = self.decoder(self.encoder(x, full), (height, w), levels)
-        with torch.autocast(x.device.type, enabled=False), no_tf32():
-            heads = conv2d_rows(feat.float(), self.head, full)
+        with torch.autocast(x.device.type, enabled=False):
+            heads = conv2d_rows(feat, self.head, full,
+                                window_op=_head_window)
         lo, hi = full.range
         pad = -(-height // mesh.spatial) - (hi - lo)
         heads = F.pad(heads, (0, 0, 0, pad))

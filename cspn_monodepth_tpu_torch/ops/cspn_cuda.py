@@ -30,9 +30,11 @@ contract with guidance of k^2 - 1 planes:
   cspn_kxk_bwd        the adjoint over that stash.
 Their library is built and loaded only when one of them first runs on a
 card (`ON_DEMAND`); `build()` alone builds the other sources: the 3 x 3
-kernels' and train-mode BatchNorm's (csrc/batch_norm.cu, whose wrappers
-live in ops/batch_norm.py), which every train step runs beside the CSPN
-kernels, so it builds in parallel with theirs at the first kernel call.
+kernels', train-mode BatchNorm's (csrc/batch_norm.cu, whose wrappers
+live in ops/batch_norm.py) and the 3 x 3 CSPN's head conv's
+(csrc/head_conv.cu, wrappers in ops/head_conv.py), which every train step
+runs beside the CSPN kernels, so they build in parallel with theirs at the
+first kernel call.
 The adjoints are composed of stage kernels (csrc/cspn_bwd.cu); stage 0 is
 cspn_gates9, and the other two have wrappers of their own, for checking and
 timing them alone:
@@ -40,8 +42,9 @@ timing them alone:
   cspn_bwd_sums    stage 2, the gate sums (K3's with the chain rule).
 `WRAPPERS` holds every one of these wrappers; `launch_counts()` reads
 their counts by name and `reset_launch_counts()` zeroes them. BatchNorm's
-wrappers count apart (ops/batch_norm.py `WRAPPERS`, and the counter
-`bn.train_calls`).
+and the head conv's wrappers count apart (ops/batch_norm.py and
+ops/head_conv.py `WRAPPERS`, and the counters `bn.train_calls` and
+`head.conv_calls`).
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs the kernel's plain version from ops/cspn_ref.py.
 
@@ -214,6 +217,11 @@ def _load(name: str):
                                    i32, i32, i32, i32, p],
                 "cspn_bwd_sums": [p, i64, p, i64, p, p, p, p, p,
                                   i32, i32, i32, i32, i32, p]},
+            # The 3 x 3 CSPN's head conv (ops/head_conv.py's wrappers).
+            "head_conv": {
+                "head_conv3x3_fwd": [p, p, p, p, *[i32] * 7, p],
+                "head_conv3x3_bwd": [*[p] * 7, ctypes.c_size_t, *[i32] * 7,
+                                     p]},
             "cspn_kxk": {
                 "cspn_kxk_fwd": [p, i64, p, i64, p, i64, p, p, p, p,
                                  i32, i32, i32, i32, i32, i32, p],

@@ -1,10 +1,13 @@
-"""The CSPN forward K1 and the normalization as PyTorch custom operators,
-and the loader of an exported serving program.
+"""The CSPN forward K1, the normalization and the 3 x 3 CSPN's head conv
+as PyTorch custom operators, and the loader of an exported serving
+program.
 
     torch.ops.cspn_monodepth_tpu_torch.cspn_fwd(
         guidance, blur, sparse, num_iters, norm_type)          # K1
     torch.ops.cspn_monodepth_tpu_torch.cspn_gates9(
         guidance, norm_type)                                    # gates9
+    torch.ops.cspn_monodepth_tpu_torch.head_conv3x3(
+        x, weight, bias, pad_h)                                 # H1
 
 The kernels are bound with ctypes (ops/cspn_cuda.py), which `torch.export`
 cannot trace: a FakeTensor has no data pointer. As registered operators
@@ -13,13 +16,15 @@ each, and the no-gradient branches of ops/cspn.py call them, so that eager
 serving and an exported program launch the same operator. K1 takes the
 raw guidance, as JAX's ops do, and normalizes and anchors in the kernel;
 it serves every image size, so an exported NYU or KITTI program holds one
-`cspn_fwd` node.
+`cspn_fwd` node. The head conv's no-gradient forward (ops/head_conv.py)
+is `head_conv3x3`, one node too.
 
 Each operator has two implementations and no other: on a CUDA tensor the
-kernel's wrapper in ops/cspn_cuda.py (it launches or raises, and counts its
-launches there), on a CPU tensor the kernel's plain version from
-ops/cspn_ref.py. Inputs are float32; the result is a new contiguous
-float32 tensor. The wrappers' `geometry` keyword stays theirs (for the
+kernel's wrapper in ops/cspn_cuda.py or ops/head_conv.py (it launches or
+raises, and counts its launches there), on a CPU tensor the kernel's plain
+version from ops/cspn_ref.py or ops/head_conv.py. Inputs are float32 (the
+head conv's x also bfloat16); the result is a new contiguous float32
+tensor. The wrappers' `geometry` keyword stays theirs (for the
 geometry sweeps); the operators take the geometry by shape.
 
 A process that loads a program exported by `DepthPredictor.export_program`
@@ -34,16 +39,15 @@ CSPN++'s k x k stencils (k = 5, 7; ops/cspn_cuda.py's cspn_kxk_*) have
 no operator here: `check_exportable` raises where one is traced, so that
 exporting such a model fails with that message.
 
-This module imports torch, ops/cspn_cuda.py and ops/cspn_ref.py only.
+This module imports torch, ops/cspn_cuda.py, ops/cspn_ref.py and
+ops/head_conv.py only.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
-from cspn_monodepth_tpu_torch.ops import cspn_cuda
+from cspn_monodepth_tpu_torch.ops import cspn_cuda, head_conv
 from cspn_monodepth_tpu_torch.ops.cspn_ref import prenorm_gates9
 
 NAMESPACE = "cspn_monodepth_tpu_torch"
@@ -134,29 +138,46 @@ def _cspn_gates9_fake(guidance, norm_type):
     return guidance.new_empty((b, 9, h, w), dtype=torch.float32)
 
 
-@contextlib.contextmanager
-def no_tf32():
-    """cuDNN convolutions in full float32 (TF32 is cuDNN's default)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+@torch.library.custom_op(
+    f"{NAMESPACE}::head_conv3x3", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor weight, Tensor bias, int pad_h) -> Tensor")
+def head_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 pad_h: int) -> torch.Tensor:
+    """The 3 x 3 CSPN's head conv: x (B, Cin, H, W) float32 or bfloat16,
+    weight (Cout, Cin, 3, 3), bias (Cout) -> (B, Cout, H + 2 pad_h - 2, W)
+    float32. This body is the CPU implementation, the plain version."""
+    _check_float32(weight=weight, bias=bias)
+    return head_conv.head_conv3x3_fwd_plain(x, weight, bias,
+                                            pad_h=pad_h).contiguous()
+
+
+@head_conv3x3.register_kernel("cuda")
+def _head_conv3x3_cuda(x, weight, bias, pad_h):
+    return head_conv.head_conv3x3_fwd(x, weight, bias, pad_h=pad_h)
+
+
+@head_conv3x3.register_fake
+def _head_conv3x3_fake(x, weight, bias, pad_h):
+    b, cin, h, w = x.shape
+    if tuple(weight.shape[1:]) != (cin, 3, 3) or \
+            tuple(bias.shape) != (weight.shape[0],):
+        raise ValueError(f"expected ({weight.shape[0]}, {cin}, 3, 3) weight "
+                         f"and ({weight.shape[0]},) bias, got "
+                         f"{tuple(weight.shape)} and {tuple(bias.shape)}")
+    return x.new_empty((b, weight.shape[0], h + 2 * pad_h - 2, w),
+                       dtype=torch.float32)
 
 
 class LoadedProgram(torch.nn.Module):
     """An exported serving program, run as `DepthPredictor.predict_batch`
-    runs the model: without gradients and with cuDNN's TF32 off, a global
-    flag that the graph does not hold (the model turns it off around its
-    float32 head)."""
+    runs the model: without gradients."""
 
     def __init__(self, module: torch.nn.Module):
         super().__init__()
         self.program = module
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad(), no_tf32():
+        with torch.no_grad():
             return self.program(x)
 
 

@@ -149,10 +149,12 @@ def _windows(out: Rows, k: int, stride: int, pad: int):
 
 
 def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d, rows: Rows,
-                whole: bool = False) -> torch.Tensor:
+                whole: bool = False, window_op=None) -> torch.Tensor:
     """conv(x) on rows: this rank's output rows of the conv of the level
     laid out as `rows`. x is this rank's rows, or every row of the level
-    (`whole`, the network's input), whose window is then sliced locally."""
+    (`whole`, the network's input), whose window is then sliced locally.
+    window_op(window, conv) computes the conv on the window (default
+    `conv2d_window`; the model's head passes its own)."""
     k, st, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
     out = rows.at((rows.height + 2 * p - k) // st + 1)
     wins = _windows(out, k, st, p)
@@ -160,7 +162,7 @@ def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d, rows: Rows,
         xin = window_rows(x, rows.height, *wins[rows.mesh.s])
     else:
         xin = fetch_rows(x, rows, wins)
-    return conv2d_window(xin, conv)
+    return (window_op or conv2d_window)(xin, conv)
 
 
 def conv2d_window(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -22,7 +22,6 @@ import torch
 
 from cspn_monodepth_tpu_torch.configs import get_config
 from cspn_monodepth_tpu_torch.models import CSPNDepthNet
-from cspn_monodepth_tpu_torch.ops.library import no_tf32
 from cspn_monodepth_tpu_torch.ops.sparse import uniform_sparse_sample
 from cspn_monodepth_tpu_torch.tools import device_line, parser
 from cspn_monodepth_tpu_torch.tools.profile_components import chain_ms
@@ -66,7 +65,7 @@ def main(argv=None) -> dict:
                       device=dev)
 
     def heads(f):
-        with torch.no_grad(), no_tf32():
+        with torch.no_grad():
             return f + model.head(f)[:, :1].mean() * 1e-9
 
     res["heads_ms"] = chain_ms(heads, feat, n)

@@ -21,7 +21,9 @@ kernels contract to FMA and sum in their own order; random signed gates
 are expansive (T=24 outputs reach ~1e9), so an absolute tolerance is
 meaningless and `8sum_abs` is the absolute-scale control. Gradients
 through the autograd Function against torch autograd of the plain loop:
-<= 1e-4, the reverse-mode sums of two different programs.
+<= 1e-4, the reverse-mode sums of two different programs. The head conv's
+kernels (ops/head_conv.py) against F.conv2d in float64: HEAD_TOL, dx in
+bf16 within one bf16 ulp (see HEAD_TOL's note); two runs bit for bit.
 """
 
 import numpy as np
@@ -649,8 +651,7 @@ def test_operators_launch_the_kernels_on_the_card(cuda, with_sparse):
 @pytest.mark.cuda
 def test_program_exported_on_the_card_equals_predict_batch(cuda, tmp_path):
     """export_program on the card, then load_program: the same output as
-    predict_batch (cuDNN's TF32 off in both), one K1 launch a call; the
-    program refuses the CPU."""
+    predict_batch, one K1 launch a call; the program refuses the CPU."""
     from cspn_monodepth_tpu_torch.ops.library import load_program
 
     cfg = get_config("synthetic_tiny")
@@ -1173,3 +1174,139 @@ def test_batch_norm_kernels_reproduce_atens_numbers(cuda):
         adx, _, _ = torch.ops.aten.native_batch_norm_backward(
             dy, x, w, None, None, am, ai, True, 1e-5, [True, True, True])
         assert float((dx != adx).float().mean()) <= 1e-4, shape
+
+
+# The 3 x 3 CSPN's head conv (ops/head_conv.py over csrc/head_conv.cu)
+# against F.conv2d and its two input gradients in float64 (cuDNN's double
+# kernels: the exact sums to f32's eyes): y, dw and db within HEAD_TOL of
+# the largest reference value; dx in f32 too, and in bf16 within one bf16
+# ulp of the reference's round-to-nearest-even cast where the reference is
+# at least HEAD_ULP_FLOOR of its largest value, else within HEAD_TOL of
+# that largest value (below it an f32 sum's own rounding, ~1e-6 of the
+# largest, exceeds a bf16 ulp). cuDNN's float32 kernels with TF32 off, which
+# the head ran before, are no such reference: their dw reads 1.5e-5 to
+# 2.4e-4 from float64's at these shapes on an H100 (and the kernels' 2.8e-7
+# to 1.1e-6).
+HEAD_TOL = 1e-5
+HEAD_ULP_FLOOR = 1e-3
+HEAD_CASES = [
+    ((8, 64, 352, 1216), 9, torch.bfloat16, 1),     # kitti1216 train, serve
+    ((32, 64, 228, 304), 9, torch.bfloat16, 1),     # nyu500 train
+    ((1, 64, 352, 1216), 9, torch.bfloat16, 1),     # one KITTI frame
+    ((1, 64, 228, 304), 9, torch.float32, 1),       # a float32 model
+    ((2, 64, 37, 203), 9, torch.bfloat16, 1),       # W not of the tile or 4
+    ((2, 64, 37, 203), 9, torch.float32, 1),
+    ((2, 16, 20, 50), 9, torch.float32, 1),         # synthetic_tiny's Cin
+    ((3, 70, 19, 130), 12, torch.bfloat16, 1),      # Cin over 64, Cout 12
+    ((2, 64, 35, 130), 9, torch.bfloat16, 0),       # a rows window
+]
+
+
+def head_case(shape, cout, dtype, pad_h, device, seed):
+    """x (shape) N(0, 1) in dtype, weight N(0, 0.1), bias N(0, 1), dy
+    N(0, 1) of the output's shape, on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, cin, h, w = shape
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    weight = 0.1 * torch.randn((cout, cin, 3, 3), generator=gen,
+                               device=device)
+    bias = torch.randn(cout, generator=gen, device=device)
+    dy = torch.randn((b, cout, h + 2 * pad_h - 2, w), generator=gen,
+                     device=device)
+    return x, weight, bias, dy
+
+
+def head_reference(x, weight, bias, dy, pad_h):
+    """F.conv2d of x and its gradients in float64."""
+    pad = (pad_h, 1)
+    xd, wd, dyd = x.double(), weight.double(), dy.double()
+    y = torch.nn.functional.conv2d(xd, wd, bias.double(), padding=pad)
+    dx = torch.nn.grad.conv2d_input(x.shape, wd, dyd, padding=pad)
+    dw = torch.nn.grad.conv2d_weight(xd, weight.shape, dyd, padding=pad)
+    return y, dx, dw, dyd.sum((0, 2, 3))
+
+
+def head_dx_ok(dx, ref) -> bool:
+    if dx.dtype == torch.float32:
+        return max_rel(dx, ref) <= HEAD_TOL
+    big = ref.abs().max()
+    want = ref.float().to(torch.bfloat16)
+    ulps = (dx.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    near_zero = ref.abs() < HEAD_ULP_FLOOR * big
+    far = (dx.double() - ref).abs() > HEAD_TOL * big
+    return not bool(((ulps > 1) & ~near_zero).any()) and \
+        not bool((far & near_zero).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,dtype,pad_h", HEAD_CASES)
+def test_head_conv_kernels_match_conv2d(cuda, shape, cout, dtype, pad_h):
+    from cspn_monodepth_tpu_torch.ops import head_conv as hc
+
+    x, weight, bias, dy = head_case(shape, cout, dtype, pad_h, cuda,
+                                    sum(shape))
+    before = [fn.launches for fn in hc.WRAPPERS]
+    y = hc.head_conv3x3_fwd(x, weight, bias, pad_h=pad_h)
+    dx, dw, db = hc.head_conv3x3_bwd(dy, x, weight, pad_h=pad_h)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(hc.WRAPPERS, before)] == [1, 1]
+    ry, rdx, rdw, rdb = head_reference(x, weight, bias, dy, pad_h)
+    assert (y.dtype, dx.dtype) == (torch.float32, dtype)
+    errs = dict(y=max_rel(y, ry), dw=max_rel(dw, rdw), db=max_rel(db, rdb),
+                dx=max_rel(dx, rdx))
+    assert max(errs["y"], errs["dw"], errs["db"]) <= HEAD_TOL, errs
+    assert head_dx_ok(dx, rdx), errs
+
+
+@pytest.mark.cuda
+def test_head_conv_kernels_are_deterministic(cuda):
+    """Two runs bit for bit: every output one thread's sum, dw and db the
+    walkers' partial sums added in walker order; no float atomics."""
+    from cspn_monodepth_tpu_torch.ops import head_conv as hc
+
+    x, weight, bias, dy = head_case((32, 64, 228, 304), 9, torch.bfloat16,
+                                    1, cuda, 5)
+    runs = [(hc.head_conv3x3_fwd(x, weight, bias, pad_h=1),
+             *hc.head_conv3x3_bwd(dy, x, weight, pad_h=1))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_a_train_step_runs_the_head_kernels_and_no_cudnn_head(cuda):
+    """A bf16 9-plane model's train step on the card: one launch of each
+    head wrapper, one head.conv_calls, and no cuDNN convolution (forward or
+    backward) with the head's weight among its inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cspn_monodepth_tpu_torch.ops import head_conv as hc
+    from cspn_monodepth_tpu_torch.train import Trainer
+    from cspn_monodepth_tpu_torch.utils import profiling
+
+    cfg = get_config("synthetic_tiny")
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    head = list(state.model.head.weight.shape)
+    rng = np.random.default_rng(0)
+    batch = {"rgb": rng.random((2, cfg.data.height, cfg.data.width, 3),
+                               np.float32),
+             "depth": rng.uniform(0.5, 9.5, (2, cfg.data.height,
+                                             cfg.data.width))
+             .astype(np.float32)}
+    state, _, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    before = [fn.launches for fn in hc.WRAPPERS]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        state, loss, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(hc.WRAPPERS, before)] == [1, 1]
+    assert profiling.collected()["counters"]["head.conv_calls"] == 1
+    events = prof.events()
+    assert any("head_conv3x3_fwd" in e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    convs = [e for e in events if e.name.startswith("aten::cudnn_conv")
+             or e.name == "aten::convolution_backward"]
+    assert convs
+    assert not [e for e in convs if head in e.input_shapes], head
+    assert np.isfinite(float(loss))

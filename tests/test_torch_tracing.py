@@ -1,6 +1,7 @@
 """The port's spans and counters (utils/profiling.py: span, count,
-next_call, collected) in `Trainer.train_step`, `DepthPredictor.predict_batch`
-and the CSPN op, on the CPU at synthetic_tiny's size (64x96, T=4).
+next_call, collected) in `Trainer.train_step`, `DepthPredictor.predict_batch`,
+the head conv and the CSPN op, on the CPU at synthetic_tiny's size (64x96,
+T=4).
 
 Off: without a profiler the entries collect nothing and `span` is one
 shared null context. On, under `torch.profiler`: each phase's span once a
@@ -138,9 +139,10 @@ def test_predict_batch_spans(entry, built, monkeypatch):
     got, _ = profiled(lambda: predictor.predict_batch(rgb, sparse))
     monkeypatch.undo()
     spans = by_name(got["spans"])
-    assert sorted(spans) == sorted(SERVE + ("cspn.forward",))
+    assert sorted(spans) == sorted(SERVE + ("head.forward", "cspn.forward"))
     assert all(len(v) == 1 for v in spans.values())
     assert [spans[n][0]["parent"] for n in SERVE] == [None] * 4
+    assert spans["head.forward"][0]["parent"] == "serve.forward"
     assert spans["cspn.forward"][0]["parent"] == "serve.forward"
     assert len({s["call"] for s in got["spans"]}) == 1
     assert all(s["device_ms"] is None and s["host_ms"] > 0
@@ -150,28 +152,33 @@ def test_predict_batch_spans(entry, built, monkeypatch):
     want = [rgb.nbytes] + ([sparse.nbytes]
                            if predictor.model.modality == "rgbd" else [])
     assert uploads == want
-    assert got["counters"] == {"serve.h2d_bytes": sum(want)}
+    assert got["counters"] == {"serve.h2d_bytes": sum(want),
+                               "head.conv_calls": 1}
 
 
 @pytest.mark.parametrize("entry", ["train-auto", "train-torch"])
 def test_train_step_spans(entry, built):
     """CSPNFunction's backward is the hand-written adjoint, spanned
-    `cspn.backward`; the plain loop's is torch autograd's, unspanned."""
+    `cspn.backward`; the plain loop's is torch autograd's, unspanned. The
+    head conv's forward and backward are spanned under either."""
     got, _ = profiled(lambda: call(built, entry))
     spans = by_name(got["spans"])
     adjoint = ("cspn.backward",) if entry == "train-auto" else ()
-    assert sorted(spans) == sorted(TRAIN + ("cspn.forward",) + adjoint)
+    head = ("head.forward", "head.backward")
+    assert sorted(spans) == sorted(TRAIN + ("cspn.forward",) + head
+                                   + adjoint)
     assert all(len(v) == 1 for v in spans.values())
     assert [spans[n][0]["parent"] for n in TRAIN] == [None] * len(TRAIN)
     assert spans["cspn.forward"][0]["parent"] == "train.forward"
+    assert spans["head.forward"][0]["parent"] == "train.forward"
     # On the CPU autograd runs the backward on the calling thread.
-    for name in adjoint:
+    for name in adjoint + head[1:]:
         assert spans[name][0]["parent"] == "train.backward"
     calls = {s["call"] for s in got["spans"]}
     assert len(calls) == 1
     assert all(s["device_ms"] is None and s["host_ms"] > 0
                for s in got["spans"])
-    assert got["counters"] == {}
+    assert got["counters"] == {"head.conv_calls": 1}
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -197,9 +204,11 @@ def test_a_second_stretch_starts_a_fresh_collection(entry, built):
     first, _ = profiled(lambda: call(built, "train-auto"))
     second, _ = profiled(lambda: call(built, entry))
     assert {s["name"] for s in second["spans"]} == set(SERVE + (
-        "cspn.forward",))
+        "head.forward", "cspn.forward"))
     assert second["spans"][0]["call"] == first["spans"][0]["call"] + 1
-    assert second["counters"].keys() == {"serve.h2d_bytes"}
+    assert second["counters"].keys() == {"serve.h2d_bytes",
+                                         "head.conv_calls"}
+    assert second["counters"]["head.conv_calls"] == 1
 
 
 def test_counters_and_calls_only_while_a_profiler_records():
